@@ -1,0 +1,140 @@
+"""Attention math and the paged unified-buffer reads/writes
+(``repro/models/attention.py``).
+
+Local GQA convention: q is (B, T, KVL, G, D) — KVL kv heads, G q heads per
+kv head; k/v are (B, S, KVL, D).
+
+The unified buffer is one flat bf16 tensor. Each attention type views it as
+(VP, L, 2, TPP, KVL, D); gathers copy pages out (``index_select``), writes
+go in place (``index_copy_``) on the persistent buffer, so a caller must
+issue every gather of a cycle before any of its writes.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def group_q(q: torch.Tensor, kv_local: int) -> torch.Tensor:
+    """(B, T, q_local, D) -> (B, T, KVL, G, D)."""
+    b, t, ql, d = q.shape
+    assert ql % kv_local == 0
+    return q.reshape(b, t, kv_local, ql // kv_local, d)
+
+
+def segment_mask(q_seg, q_pos, kv_seg, kv_pos, *, window=0, chunk_start=None):
+    """Packed-stream mask: token i sees slot j iff same segment and j is not
+    in i's future (``kv_pos < chunk_start`` when ``chunk_start`` is given,
+    else ``kv_pos <= q_pos``); window > 0 adds ``kv_pos > q_pos - window``.
+    q_seg/q_pos: (B, T); kv_seg/kv_pos: (B, S). Returns (B, T, S) bool.
+    Ids compare with ``==`` exactly as the reference does, so q pads (-1)
+    see kv slots tagged -1; kv pads carry -2."""
+    mask = q_seg[:, :, None] == kv_seg[:, None, :]
+    if chunk_start is not None:
+        mask &= kv_pos[:, None, :] < chunk_start[:, :, None]
+    else:
+        mask &= kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    return mask
+
+
+def merge_partials(o1, m1, l1, o2, m2, l2):
+    """Merge two partial-softmax results."""
+    m = torch.maximum(m1, m2)
+    c1 = torch.exp(m1 - m)
+    c2 = torch.exp(m2 - m)
+    out = o1 * c1[..., None] + o2 * c2[..., None]
+    return out, m, l1 * c1 + l2 * c2
+
+
+def attend_tokens(q, k, v, mask):
+    """Materialized attention. q: (B, T, KVL, G, D); k/v: (B, S, KVL, D);
+    mask: (B, T, S) bool. Returns fp32 partials (out (B,KVL,G,T,D), m, l)."""
+    d = q.shape[-1]
+    scale = 1.0 / (d ** 0.5)
+    qs = (q * scale).float()
+    logit = torch.einsum("btkgd,bskd->bkgts", qs, k.float())
+    logit = torch.where(mask[:, None, None], logit,
+                        torch.full((), NEG_INF, device=logit.device))
+    m = logit.amax(dim=-1)
+    p = torch.exp(logit - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkgts,bskd->bkgtd", p.to(v.dtype).float(), v.float())
+    return out, m, l
+
+
+def finalize_softmax(out, l):
+    out = out / torch.clamp(l[..., None], min=1e-30)
+    return torch.movedim(out, 3, 1)                         # (B, T, KVL, G, D)
+
+
+def view_offset(view_shape, eid, layer, sel, slot):
+    """Flat-buffer offset of (eid, layer, sel, slot, 0, 0) in an attention
+    view (VP, L, 2, TPP, KVL, D), in int64: pools exceed 2^31 units."""
+    vp, nl, _, tpp, kvl, d = view_shape
+    eid = eid.long() if isinstance(eid, torch.Tensor) else eid
+    return ((((eid * nl + layer) * 2 + sel) * tpp) + slot) * kvl * d
+
+
+def page_index(tables):
+    """(flat page ids with pads clamped to 0, mask of the invalid entries
+    broadcastable over gathered pages) of a (B, P) table — the same for
+    every layer of a step."""
+    return tables.clamp(min=0).reshape(-1).long(), \
+        (tables < 0)[:, :, None, None, None, None]
+
+
+def gather_pages(view, tables, layer, index=None):
+    """view: (VP, L, 2, TPP, KVL, D); tables: (B, P) int (entries < 0 are
+    pads/frees). Returns k, v: (B, P*TPP, KVL, D) copies. ``index`` is
+    ``page_index(tables)``, when the caller has it already.
+
+    Invalid entries read as ZEROS: a clamped read would hand arbitrary
+    units of the unified buffer (other types' pages, fp32 state pairs that
+    decode as NaN in bf16) to the softmax, and NaN survives masking."""
+    idx, invalid = page_index(tables) if index is None else index
+    lview = view[:, layer]                                  # (VP,2,TPP,KVL,D)
+    b, p = tables.shape
+    pages = lview.index_select(0, idx).view(b, p, *lview.shape[1:])
+    pages.masked_fill_(invalid, 0)
+    _, _, _, tpp, kvl, d = pages.shape
+    return pages[:, :, 0].reshape(b, p * tpp, kvl, d), \
+        pages[:, :, 1].reshape(b, p * tpp, kvl, d)
+
+
+def kv_rows(view_shape, eids, slots):
+    """Row (of KVL*D units) of each token's K slot in layer 0 of an
+    attention view; its V slot is TPP rows further and layer l 2*TPP*l
+    rows further. eids < 0 (dropped writes) point into the SCRATCH page at
+    the buffer tail, which the runner reserves and no table ever names: a
+    negative index would wrap in torch and an out-of-range one faults on
+    CUDA, so neither may reach the scatter (the reference's
+    ``_write_token_kv_dus`` does the same)."""
+    vp, nl, _, tpp, kvl, d = view_shape
+    eid = torch.where(eids < 0, vp - 1, eids).reshape(-1).long()
+    return view_offset(view_shape, eid, 0, 0,
+                       slots.reshape(-1).long()) // (kvl * d)
+
+
+def write_kv_rows(buf, view_shape, layer, rows, k_new, v_new):
+    """Write K/V rows (``kv_rows``) of one layer in place on the flat
+    ``buf``. k_new/v_new: (..., KVL, D) with one row per token."""
+    vp, nl, _, tpp, kvl, d = view_shape
+    flat = buf.view(-1, kvl * d)
+    for sel, data in ((0, k_new), (1, v_new)):
+        data = data.reshape(-1, kvl * d)
+        if data.dtype != buf.dtype:
+            data = data.to(buf.dtype)
+        flat.index_copy_(0, rows + (layer * 2 + sel) * tpp, data)
+    return buf
+
+
+def write_token_kv(buf, view_shape, layer, eids, slots, k_new, v_new):
+    """Write T new tokens' K/V into their pages, in place on the flat
+    ``buf``. eids: (B, T) exec page id per token (< 0 = drop, to the
+    scratch page); slots: (B, T) slot within the page; k_new/v_new:
+    (B, T, KVL, D)."""
+    return write_kv_rows(buf, view_shape, layer,
+                         kv_rows(view_shape, eids, slots), k_new, v_new)

@@ -1,0 +1,48 @@
+"""Shared building blocks: norms and the bf16 linear, with the reference's
+rounding points (``repro/models/common.py``)."""
+from __future__ import annotations
+
+import torch
+
+
+def set_matmul_precision() -> None:
+    """Pin the CUDA matmul settings the reference's numerics assume.
+
+    * bf16 GEMMs must reduce in fp32 all the way: cuBLAS may otherwise
+      round split-K partial sums to bf16, which is coarser than the
+      reference's ``preferred_element_type=float32`` accumulation and
+      would move logits by more than the greedy tie band
+      (``serving.sampler.TIE_EPS``).
+    * fp32 products (the logits head, the biased projections) must not
+      silently run in TF32, which keeps about three decimal digits.
+    """
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``; no op is issued when it already is (each op of
+    the eager serve step costs host time)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """fp32 RMSNorm against fp32 weights, cast back to ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * _as(weight, torch.float32)).to(
+        x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: torch.Tensor = None) -> torch.Tensor:
+    """x: (..., in), w: (in, out). bf16 operands, fp32 accumulation, one
+    rounding of the output to ``x.dtype``. With a bias the sum is formed
+    in fp32 before that rounding, as the reference does; the bf16 product
+    is exact in fp32, so the fp32 matmul there computes the same sum."""
+    if b is None:
+        return torch.matmul(x, _as(w, x.dtype))
+    y = torch.matmul(x.float(), w.float()) + b.float()
+    return y.to(x.dtype)

@@ -1,0 +1,234 @@
+"""Decoder-only LM, dense family, packed serve step
+(``repro/models/lm.py``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..core.spec import KVCacheSpec, attention_spec
+from . import attention as A
+from . import blocks_attn as BA
+from .common import rms_norm, set_matmul_precision
+from .params import MATRICES
+from .rotary import rope_tables
+from .tp import embed_lookup, logits_local, mask_pad_vocab
+
+
+@dataclasses.dataclass
+class DecodeBatch:
+    """One serving step's device inputs, packed layout: ALL sequences
+    flattened into one (1, TT) token stream with per-token segment ids;
+    per-type page tables flattened into one page stream with per-page
+    owning segments. Field names and shapes follow the reference's
+    ``DecodeBatch`` (fields of other layouts and families stay None)."""
+    tokens: Any            # (1, TT) i32
+    positions: Any         # (1, TT) i32 absolute positions of the new tokens
+    seq_lens: Any          # (N_seg,) i32 total kv length after this step
+    tables: Dict[str, Any]       # type -> (1, 1, 1, P) i32
+    page_pos: Dict[str, Any]     # type -> (1, 1, 1, P) i32
+    write_eids: Dict[str, Any]   # type -> (1, 1, 1, TT) i32 (<0 drop)
+    state_eids: Dict[str, Any]   # type -> (1, N_seg) i32
+    mm_embeds: Any = None
+    mm_mask: Any = None
+    mrope_pos: Any = None
+    last_idx: Any = None
+    enc_embeds: Any = None
+    enc_write_eids: Any = None
+    enc_lens: Any = None
+    seg_ids: Any = None          # (1, TT) i32 segment id per token (-1 pad)
+    chunk_start: Any = None      # (1, TT) i32 chunk-start position per token
+    seg_start_tok: Any = None    # (1, TT) i32 stream idx of segment's first tok
+    seg_last_tok: Any = None     # (N_seg,) i32 stream idx of segment's last tok
+    page_seg: Any = None         # type -> (1, 1, 1, P) i32 owning segment
+
+
+class DecoderLM:
+    """Dense decoder on one device. Parameters are a plain dict mirroring
+    the reference tree with the tp dim dropped (see ``models.params``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        cfg.validate()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: this port serves the dense family")
+        set_matmul_precision()
+        self.cfg = cfg
+        self.kv_local = cfg.num_kv_heads
+        self.v_pad = cfg.vocab_size
+        self.period = len(cfg.attn_pattern)
+        assert cfg.num_layers % self.period == 0, (cfg.num_layers, self.period)
+        self.cycles = cfg.num_layers // self.period
+        self.period_kinds = cfg.attn_kind_per_layer[: self.period]
+        self.cnt = {"full": self.period_kinds.count("full"),
+                    "swa": self.period_kinds.count("swa")}
+        self.rank_in_period = []
+        seen = {"full": 0, "swa": 0}
+        for k in self.period_kinds:
+            self.rank_in_period.append(seen[k])
+            seen[k] += 1
+
+    # ----------------------------------------------------------- kv specs
+    kv_prefix = ""
+
+    def kv_type_of_kind(self, kind: str) -> str:
+        return self.kv_prefix + ("full_attn" if kind == "full" else "swa")
+
+    def kv_specs(self) -> Tuple[KVCacheSpec, ...]:
+        cfg = self.cfg
+        out = []
+        n_full = self.cnt["full"] * self.cycles
+        n_swa = self.cnt["swa"] * self.cycles
+        if n_full:
+            out.append(attention_spec(
+                self.kv_prefix + "full_attn", num_layers=n_full,
+                kv_heads=self.kv_local, head_dim=cfg.head_dim,
+                tokens_per_page=cfg.tokens_per_page))
+        if n_swa:
+            out.append(attention_spec(
+                self.kv_prefix + "swa", num_layers=n_swa,
+                kv_heads=self.kv_local, head_dim=cfg.head_dim,
+                tokens_per_page=cfg.tokens_per_page,
+                kind="swa", sliding_window=cfg.sliding_window))
+        return tuple(out)
+
+    def page_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        cfg = self.cfg
+        shp = (2, cfg.tokens_per_page, self.kv_local, cfg.head_dim)
+        out = {}
+        if self.cnt["full"]:
+            out[self.kv_prefix + "full_attn"] = shp
+        if self.cnt["swa"]:
+            out[self.kv_prefix + "swa"] = shp
+        return out
+
+    # --------------------------------------------------------------- init
+    def param_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template with the tp dim dropped."""
+        cfg = self.cfg
+        d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+        qd, kvd = cfg.num_heads * hd, self.kv_local * hd
+        layers = {"attn_norm": (L, d), "q": (L, d, qd), "k": (L, d, kvd),
+                  "v": (L, d, kvd), "o": (L, qd, d), "mlp_norm": (L, d),
+                  "gate": (L, d, cfg.d_ff), "up": (L, d, cfg.d_ff),
+                  "down": (L, cfg.d_ff, d)}
+        if cfg.qkv_bias:
+            layers.update(q_bias=(L, qd), k_bias=(L, kvd), v_bias=(L, kvd))
+        tree = {"embed": (self.v_pad, d), "final_norm": (d,),
+                "layers": layers}
+        if not cfg.tie_embeddings:
+            tree["unembed"] = (self.v_pad, d)
+        return tree
+
+    def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
+        """Random weights from ``seed`` with the reference template's
+        shapes and scales (normal 0.02; o/down 0.02/sqrt(2L); norms ones;
+        biases zeros), drawn by a ``torch.Generator`` on ``device``.
+        Matrices are bf16, norms and biases fp32. The draws differ from
+        the reference's ``jax.random`` ones: tests that compare the two
+        packages convert the reference's params (``params_from_numpy``)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out_scale = 0.02 / (2 * self.cfg.num_layers) ** 0.5
+
+        def leaf(name, shape):
+            if name.endswith("norm"):
+                return torch.ones(shape, dtype=torch.float32, device=dev)
+            if name.endswith("bias"):
+                return torch.zeros(shape, dtype=torch.float32, device=dev)
+            scale = out_scale if name in ("o", "down") else 0.02
+            w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=dev) * scale
+            return w.to(torch.bfloat16 if name in MATRICES else torch.float32)
+
+        shapes = self.param_shapes()
+        params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}
+        params["layers"] = {n: leaf(n, s)
+                            for n, s in shapes["layers"].items()}
+        return params
+
+    def _unembed(self, params):
+        return params.get("unembed", params["embed"])
+
+    # --------------------------------------------------------------- serve
+    def _layer_views(self, buffer_flat: torch.Tensor):
+        """Per-type view shapes of the unified buffer (paper Fig. 7c): type
+        t sees (total_units // S_t, num_layers_t, *page_shape)."""
+        shapes = self.page_shapes()
+        total = buffer_flat.shape[-1]
+        views = {}
+        for s in self.kv_specs():
+            assert total % s.page_units == 0, (
+                f"buffer ({total}u) must be a multiple of every small-page "
+                f"size (LCM geometry); {s.name} page = {s.page_units}u")
+            views[s.name] = (total // s.page_units, s.num_layers) \
+                + shapes[s.name]
+        return views
+
+    def serve_step(self, params, buffer: torch.Tensor,
+                   batch: DecodeBatch) -> torch.Tensor:
+        """One packed serving step: every scheduled sequence's tokens in one
+        (1, TT) stream. Writes this step's K/V into ``buffer`` IN PLACE (the
+        flat bf16 unified buffer) and returns fp32 logits, one row per
+        segment in plan order: (N_seg, V_pad), pad-vocab columns -1e30.
+
+        Per cycle of the attention pattern, all pages are read before any
+        is written, as the reference does. What is the same for every layer
+        of the step — rope tables, page indices, slot positions, the varlen
+        call's metadata, write rows, per-layer parameter views — is computed
+        once per step: the port runs eagerly, and each op costs a launch."""
+        if batch.seg_ids is None:
+            raise NotImplementedError(
+                "padded/serial layouts: a later slice of the port")
+        cfg = self.cfg
+        positions = batch.positions
+        x = embed_lookup(batch.tokens, params["embed"])
+        views = self._layer_views(buffer)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        step = {}                          # type -> per-step invariants
+        for tname, view in views.items():
+            sq = {f: getattr(batch, f)[tname].reshape(1, -1)
+                  for f in ("tables", "page_pos", "page_seg", "write_eids")}
+            slot_pos, slot_seg = BA.page_slots(sq["page_pos"],
+                                               sq["page_seg"], view[3])
+            step[tname] = dict(
+                index=A.page_index(sq["tables"]), tables=sq["tables"],
+                meta=BA.packed_attention_meta(slot_pos, slot_seg, positions,
+                                              batch.seg_ids,
+                                              batch.chunk_start),
+                rows=A.kv_rows(view, sq["write_eids"], positions % view[3]))
+        names = list(params["layers"])
+        layers = [dict(zip(names, ws)) for ws in
+                  zip(*(params["layers"][n].unbind(0) for n in names))]
+        for cycle in range(self.cycles):
+            gathered = []
+            for j, kind in enumerate(self.period_kinds):
+                tname = self.kv_type_of_kind(kind)
+                lit = cycle * self.cnt[kind] + self.rank_in_period[j]
+                st = step[tname]
+                gathered.append(BA.attn_gather(
+                    buffer, views[tname], st["tables"], lit, st["index"]))
+            writes = []
+            for j, kind in enumerate(self.period_kinds):
+                pj = layers[cycle * self.period + j]
+                tname = self.kv_type_of_kind(kind)
+                lit = cycle * self.cnt[kind] + self.rank_in_period[j]
+                x, k, v = BA.attn_compute(
+                    pj, x, *gathered[j], meta=step[tname]["meta"], rope=rope,
+                    kv_local=self.kv_local, head_dim=cfg.head_dim,
+                    window=cfg.sliding_window if kind == "swa" else 0,
+                    norm_eps=cfg.norm_eps)
+                writes.append((tname, lit, k, v))
+                x = BA.mlp_block(pj, x, cfg.norm_eps)
+            for tname, lit, k, v in writes:
+                A.write_kv_rows(buffer, views[tname], lit,
+                                step[tname]["rows"], k, v)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # one logits row per SEGMENT: its last token in the stream
+        x = x[0].index_select(0, batch.seg_last_tok.long())
+        logits = logits_local(x, self._unembed(params))
+        return mask_pad_vocab(logits, cfg.vocab_size)

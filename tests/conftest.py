@@ -19,6 +19,11 @@ from repro.serving import Engine, EngineConfig
 _MODELS = {}    # arch -> (model, cfg, params)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 def get_model(arch):
     if arch not in _MODELS:
         cfg = reduced(ARCHS[arch])
