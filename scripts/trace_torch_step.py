@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a serving step of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/trace_torch_step.py [--steps N]
+    python3 scripts/trace_torch_step.py [--mode packed|padded|serial]
+                                        [--skip N] [--steps N]
 
 Serves the workload of ``chip_smoke.py`` phase 3 (full-width granite-3-2b,
 random weights from seed 0, 8 greedy requests) synchronously (pipeline
-depth 1) and traces a window of engine steps with ``torch.profiler``:
+depth 1) in one batching mode and, after ``--skip`` untraced steps, traces
+a window of engine steps with ``torch.profiler``:
 host wall time per step, device kernel time per step (the sum over CUDA
 kernels, so the device's busy share is device ms / wall ms), kernel
 launches per step, and the kernels and host ops that take the most time.
@@ -25,8 +27,13 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="packed",
+                    choices=("packed", "padded", "serial"),
+                    help="EngineConfig.batching_mode")
+    ap.add_argument("--skip", type=int, default=3,
+                    help="engine steps run before the traced window")
     ap.add_argument("--steps", type=int, default=6,
-                    help="engine steps traced after the first three")
+                    help="engine steps traced")
     args = ap.parse_args()
 
     import torch
@@ -47,11 +54,12 @@ def main() -> int:
     params = model.init(seed=0, device="cuda")
     eng = Engine(model, EngineConfig(
         kv_pool_bytes=2 << 30, max_num_batched_tokens=512, chunk_size=256,
-        max_running=8), params=params, device="cuda")
+        max_running=8, batching_mode=args.mode), params=params,
+        device="cuda")
     for i, p in enumerate(_prompts(8, cfg.vocab_size)):
         eng.submit(Request(rid=f"r{i}", prompt=p,
                            sampling=SamplingParams(max_new_tokens=32)))
-    for _ in range(3):                      # warm-up: first mixed steps
+    for _ in range(args.skip):              # warm-up, and the steps to skip
         eng.step()
     torch.cuda.synchronize()
 
@@ -83,8 +91,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; {args.steps} steps traced (profiler on: host "
-          "times include its overhead)")
+    print(f"card: {smi}; mode {args.mode}; {args.steps} steps traced after "
+          f"{args.skip} (profiler on: host times include its overhead)")
     for tok, dec, ms in rows:
         print(f"[step] tokens={tok} decodes={dec} wall_ms={ms:.2f}")
     print(f"[trace] {args.steps} steps: wall {wall_ms:.1f} ms, device "

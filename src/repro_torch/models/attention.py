@@ -1,5 +1,6 @@
 """Attention math and the paged unified-buffer reads/writes
-(``repro/models/attention.py``).
+(``repro/models/attention.py``): materialized and chunked (flash)
+attention with partial-softmax merging, page gathers and K/V writes.
 
 Local GQA convention: q is (B, T, KVL, G, D) — KVL kv heads, G q heads per
 kv head; k/v are (B, S, KVL, D).
@@ -38,6 +39,55 @@ def segment_mask(q_seg, q_pos, kv_seg, kv_pos, *, window=0, chunk_start=None):
     if window:
         mask &= kv_pos[:, None, :] > q_pos[:, :, None] - window
     return mask
+
+
+def flash_state(q):
+    """(fp32 scaled q, initial (m, l, acc)) of a chunked online softmax
+    over q (B, T, KVL, G, D). q is scaled in its own dtype, as the
+    reference does."""
+    b, t, kvl, g, d = q.shape
+    qf = (q * (1.0 / d ** 0.5)).float()
+    return qf, (torch.full((b, kvl, g, t), NEG_INF, device=q.device),
+                torch.zeros((b, kvl, g, t), device=q.device),
+                torch.zeros((b, kvl, g, t, d), device=q.device))
+
+
+def flash_block(state, qf, kb, vb, mask):
+    """One kv block of the online softmax: kb/vb (B, blk, KVL, D), mask
+    broadcastable to (B, KVL, G, T, blk). The probabilities are rounded to
+    v's dtype before the PV product, as the reference does."""
+    m, l, acc = state
+    logit = torch.einsum("btkgd,bjkd->bkgtj", qf, kb.float())
+    logit = torch.where(mask, logit, torch.full((), NEG_INF,
+                                                device=logit.device))
+    m_new = torch.maximum(m, logit.amax(dim=-1))
+    p = torch.exp(logit - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgtj,bjkd->bkgtd", p.to(vb.dtype).float(), vb.float())
+    return m_new, l, acc
+
+
+def flash_attention_partials(q, k, v, *, window=0, block=512):
+    """Causal chunked online-softmax attention over kv blocks of ``block``
+    slots (the reference's ``flash_attention_partials`` with
+    ``causal=True``, the padded serve path's fresh part for T > 256).
+    Returns un-normalized fp32 partials (acc (B,KVL,G,T,D), m, l).
+    q: (B, T, KVL, G, D); k, v: (B, S, KVL, D). Row i sits at position i,
+    column j at j; window > 0 keeps positions > i - window."""
+    t, s = q.shape[1], k.shape[1]
+    qf, state = flash_state(q)
+    q_pos = torch.arange(t, device=q.device)
+    for j0 in range(0, s, block):
+        kv_pos = torch.arange(j0, min(j0 + block, s), device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        state = flash_block(state, qf, k[:, j0:j0 + block],
+                            v[:, j0:j0 + block], mask[None, None, None])
+    m, l, acc = state
+    return acc, m, l
 
 
 def merge_partials(o1, m1, l1, o2, m2, l2):

@@ -1,10 +1,14 @@
-"""Transformer blocks of the packed serve path (``repro/models/blocks_attn.py``):
-the QKV projection, the three attention phases (gather, compute, write)
-and the SwiGLU MLP, on one device.
+"""Transformer blocks of the serve path (``repro/models/blocks_attn.py``):
+the QKV projection, the attention phases (gather, compute, write) and the
+SwiGLU MLP, on one device.
 
 Packed self-attention always runs through the varlen flash kernel in one
 call over [old page slots ++ fresh chunk K/V] (the reference's
-``attention_impl="kernel"`` route, ``packed_kernel_attention``).
+``attention_impl="kernel"`` route, ``packed_kernel_attention``). Padded
+rows with T > 1 take the reference's jnp route in plain torch
+(``prefill_flash`` over the gathered old pages, merged with the fresh
+chunk); padded T == 1 steps write their K/V first and read every page in
+place through the paged decode kernel (``attn_decode``).
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention_varlen
+from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
 from .rotary import rotate
@@ -127,6 +132,82 @@ def attn_compute(p, x, k_old, v_old, *, meta, rope, kv_local, head_dim,
     out = packed_kernel_attention(q, k_old, v_old, k, v, meta, window=window)
     y = dense(out.reshape(b, t, -1), p["o"])
     return x + y, k, v
+
+
+def padded_prefill_meta(slot_pos, positions, *, window=0, block=512):
+    """The masks of a padded T > 1 step — the same for every layer of a
+    type. Old slots are visible iff ``slot_pos < chunk_start`` (the row's
+    first position: the chunk's own slots come through the fresh part)
+    and inside the window, one (B, 1, 1, T', blk) mask per kv block of
+    ``block`` slots; the fresh part is intra-chunk causal by position
+    (T <= 256, materialized) or by row index (longer chunks, through
+    ``flash_attention_partials``)."""
+    chunk_start = positions[:, :1]
+    blocks = []
+    for j0 in range(0, slot_pos.shape[1], block):
+        sp = slot_pos[:, None, j0:j0 + block]
+        mask = sp < chunk_start[:, :, None]
+        if window:
+            mask = mask & (sp > positions[:, :, None] - window)
+        blocks.append((j0, j0 + sp.shape[-1], mask[:, None, None]))
+    fresh = None
+    if positions.shape[1] <= 256:
+        fresh = positions[:, None, :] <= positions[:, :, None]
+        if window:
+            fresh &= positions[:, None, :] > positions[:, :, None] - window
+    return dict(blocks=blocks, fresh=fresh)
+
+
+def prefill_flash(q, k, v, blocks):
+    """Flash attention of a padded chunk over its gathered OLD pages, block
+    by block (the reference's ``_prefill_flash`` without segments).
+    ``blocks``: ``padded_prefill_meta(...)["blocks"]``. Returns
+    un-normalized fp32 partials (acc (B,KVL,G,T,D), m, l)."""
+    qf, state = A.flash_state(q)
+    for j0, j1, mask in blocks:
+        state = A.flash_block(state, qf, k[:, j0:j1], v[:, j0:j1], mask)
+    m, l, acc = state
+    return acc, m, l
+
+
+def attn_compute_padded(p, x, k_old, v_old, *, meta, rope, kv_local,
+                        head_dim, window=0, norm_eps=1e-5):
+    """Phase 2 (COMPUTE) of a padded T > 1 step: flash over the gathered
+    old pages merged with the fresh chunk (still in hand — the buffer
+    write happens in phase 3). ``meta``: ``padded_prefill_meta``.
+    Returns (x_out, k_fresh, v_fresh)."""
+    b, t, _ = x.shape
+    xn = rms_norm(x, p["attn_norm"], norm_eps)
+    q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
+                       rope=rope)
+    o, m, l = prefill_flash(q, k_old, v_old, meta["blocks"])
+    if meta["fresh"] is not None:
+        of, mf, lf = A.attend_tokens(q, k, v, meta["fresh"])
+    else:
+        of, mf, lf = A.flash_attention_partials(q, k, v, window=window)
+    o, m, l = A.merge_partials(o, m, l, of, mf, lf)
+    out = A.finalize_softmax(o, l).reshape(b, t, -1).to(x.dtype)
+    return x + dense(out, p["o"]), k, v
+
+
+def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
+                qpos, rope, kv_local, head_dim, window=0, norm_eps=1e-5):
+    """A padded T == 1 attention layer: project, write this token's K/V
+    into its slot FIRST (``rows``: ``kv_rows``; pad and killed rows go to
+    the scratch page), then one paged decode kernel call over this layer's
+    view of the buffer, read in place, with visibility ``slot_pos <=
+    qpos``. Writing first makes the token's own slot visible, which equals
+    the reference's old-part (``slot_pos < qpos``) plus fresh-token merge.
+    Only this layer's slots are written before it reads, so every other
+    layer of the cycle still reads what it would before any write."""
+    b = x.shape[0]
+    xn = rms_norm(x, p["attn_norm"], norm_eps)
+    q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
+                       rope=rope)
+    A.write_kv_rows(buf, view_shape, layer, rows, k, v)
+    out = paged_decode_attention(q[:, 0], buf.view(view_shape)[:, layer],
+                                 tables, page_pos, qpos, window=window)
+    return x + dense(out.reshape(b, 1, -1), p["o"])
 
 
 def mlp_block(p, x, norm_eps=1e-5):

@@ -1,9 +1,9 @@
-"""Decoder-only LM, dense family, packed serve step
+"""Decoder-only LM, dense family: the packed and padded serve steps
 (``repro/models/lm.py``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -20,22 +20,24 @@ from .tp import embed_lookup, logits_local, mask_pad_vocab
 
 @dataclasses.dataclass
 class DecodeBatch:
-    """One serving step's device inputs, packed layout: ALL sequences
+    """One serving step's device inputs. PACKED layout: ALL sequences
     flattened into one (1, TT) token stream with per-token segment ids;
     per-type page tables flattened into one page stream with per-page
-    owning segments. Field names and shapes follow the reference's
-    ``DecodeBatch`` (fields of other layouts and families stay None)."""
-    tokens: Any            # (1, TT) i32
-    positions: Any         # (1, TT) i32 absolute positions of the new tokens
-    seq_lens: Any          # (N_seg,) i32 total kv length after this step
-    tables: Dict[str, Any]       # type -> (1, 1, 1, P) i32
-    page_pos: Dict[str, Any]     # type -> (1, 1, 1, P) i32
-    write_eids: Dict[str, Any]   # type -> (1, 1, 1, TT) i32 (<0 drop)
-    state_eids: Dict[str, Any]   # type -> (1, N_seg) i32
+    owning segments. PADDED layout (``seg_ids`` None): one (B, T) row per
+    sequence, per-row tables, ``last_idx`` per row. Field names and shapes
+    follow the reference's ``DecodeBatch`` (shapes: packed / padded; fields
+    of other layouts and families stay None)."""
+    tokens: Any            # (1, TT) / (B, T) i32
+    positions: Any         # like tokens: absolute positions of the new tokens
+    seq_lens: Any          # (N_seg,) / (B,) i32 total kv length after this step
+    tables: Dict[str, Any]       # type -> (1, 1, 1, P) / (1, 1, B, P) i32
+    page_pos: Dict[str, Any]     # type -> like tables
+    write_eids: Dict[str, Any]   # type -> (1, 1, 1, TT) / (1, 1, B, T) (<0 drop)
+    state_eids: Dict[str, Any]   # type -> (1, N_seg) / (1, B) i32
     mm_embeds: Any = None
     mm_mask: Any = None
     mrope_pos: Any = None
-    last_idx: Any = None
+    last_idx: Any = None         # (B,) i32 padded: each row's last real token
     enc_embeds: Any = None
     enc_write_eids: Any = None
     enc_lens: Any = None
@@ -169,12 +171,23 @@ class DecoderLM:
                 + shapes[s.name]
         return views
 
-    def serve_step(self, params, buffer: torch.Tensor,
-                   batch: DecodeBatch) -> torch.Tensor:
-        """One packed serving step: every scheduled sequence's tokens in one
-        (1, TT) stream. Writes this step's K/V into ``buffer`` IN PLACE (the
-        flat bf16 unified buffer) and returns fp32 logits, one row per
-        segment in plan order: (N_seg, V_pad), pad-vocab columns -1e30.
+    @staticmethod
+    def _layer_params(params):
+        """Per-layer views of the stacked layer parameters."""
+        names = list(params["layers"])
+        return [dict(zip(names, ws)) for ws in
+                zip(*(params["layers"][n].unbind(0) for n in names))]
+
+    def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,
+                   prefill: Optional[bool] = None) -> torch.Tensor:
+        """One serving step. Writes this step's K/V into ``buffer`` IN PLACE
+        (the flat bf16 unified buffer) and returns fp32 logits with
+        pad-vocab columns at -1e30: one row per segment in plan order
+        (packed, (N_seg, V_pad)) or per batch row (padded, (B, V_pad)).
+
+        PACKED (``batch.seg_ids`` set): every scheduled sequence's tokens in
+        one (1, TT) stream through the varlen kernel. PADDED: see
+        ``_serve_padded``; ``prefill`` (default ``T > 1``) picks its route.
 
         Per cycle of the attention pattern, all pages are read before any
         is written, as the reference does. What is the same for every layer
@@ -182,8 +195,7 @@ class DecoderLM:
         call's metadata, write rows, per-layer parameter views — is computed
         once per step: the port runs eagerly, and each op costs a launch."""
         if batch.seg_ids is None:
-            raise NotImplementedError(
-                "padded/serial layouts: a later slice of the port")
+            return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg
         positions = batch.positions
         x = embed_lookup(batch.tokens, params["embed"])
@@ -201,9 +213,7 @@ class DecoderLM:
                                               batch.seg_ids,
                                               batch.chunk_start),
                 rows=A.kv_rows(view, sq["write_eids"], positions % view[3]))
-        names = list(params["layers"])
-        layers = [dict(zip(names, ws)) for ws in
-                  zip(*(params["layers"][n].unbind(0) for n in names))]
+        layers = self._layer_params(params)
         for cycle in range(self.cycles):
             gathered = []
             for j, kind in enumerate(self.period_kinds):
@@ -230,5 +240,83 @@ class DecoderLM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         # one logits row per SEGMENT: its last token in the stream
         x = x[0].index_select(0, batch.seg_last_tok.long())
+        logits = logits_local(x, self._unembed(params))
+        return mask_pad_vocab(logits, cfg.vocab_size)
+
+    def _serve_padded(self, params, buffer: torch.Tensor, batch: DecodeBatch,
+                      prefill: Optional[bool]) -> torch.Tensor:
+        """One padded serving step (the reference's non-packed
+        ``_serve_body``): one (B, T) row per sequence with per-row tables,
+        page positions and write targets; SENTINEL positions on pad slots,
+        -1 tables and write targets on pad and killed rows.
+
+        ``prefill`` (T > 1): per cycle, every layer's old pages are
+        gathered, attention runs in plain torch (``attn_compute_padded``),
+        and the cycle's K/V writes come last. Otherwise (T == 1) each layer
+        writes its token's K/V and reads its pages in place through the
+        paged decode kernel (``attn_decode``): no gather at all. Returns
+        (B, V_pad) fp32 logits, row b taken at ``last_idx[b]``."""
+        cfg = self.cfg
+        positions = batch.positions
+        b, t = positions.shape
+        if prefill is None:
+            prefill = t > 1
+        x = embed_lookup(batch.tokens, params["embed"])
+        views = self._layer_views(buffer)
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        step = {}                          # type -> per-step invariants
+        for tname, view in views.items():
+            tables = batch.tables[tname].reshape(b, -1)
+            page_pos = batch.page_pos[tname].reshape(b, -1)
+            window = cfg.sliding_window \
+                if tname == self.kv_type_of_kind("swa") else 0
+            st = dict(tables=tables, page_pos=page_pos, window=window,
+                      rows=A.kv_rows(view,
+                                     batch.write_eids[tname].reshape(b, t),
+                                     positions % view[3]))
+            if prefill:
+                ar = torch.arange(view[3], dtype=page_pos.dtype,
+                                  device=page_pos.device)
+                slot_pos = (page_pos[:, :, None] + ar).reshape(b, -1)
+                st.update(index=A.page_index(tables),
+                          meta=BA.padded_prefill_meta(slot_pos, positions,
+                                                      window=window))
+            step[tname] = st
+        layers = self._layer_params(params)
+        qpos = positions[:, 0].contiguous()
+        for cycle in range(self.cycles):
+            gathered = []
+            if prefill:
+                for j, kind in enumerate(self.period_kinds):
+                    tname = self.kv_type_of_kind(kind)
+                    lit = cycle * self.cnt[kind] + self.rank_in_period[j]
+                    st = step[tname]
+                    gathered.append(BA.attn_gather(
+                        buffer, views[tname], st["tables"], lit, st["index"]))
+            writes = []
+            for j, kind in enumerate(self.period_kinds):
+                pj = layers[cycle * self.period + j]
+                tname = self.kv_type_of_kind(kind)
+                lit = cycle * self.cnt[kind] + self.rank_in_period[j]
+                st = step[tname]
+                kw = dict(rope=rope, kv_local=self.kv_local,
+                          head_dim=cfg.head_dim, window=st["window"],
+                          norm_eps=cfg.norm_eps)
+                if prefill:
+                    x, k, v = BA.attn_compute_padded(
+                        pj, x, *gathered[j], meta=st["meta"], **kw)
+                    writes.append((tname, lit, k, v))
+                else:
+                    x = BA.attn_decode(
+                        pj, x, buffer, views[tname], lit, rows=st["rows"],
+                        tables=st["tables"], page_pos=st["page_pos"],
+                        qpos=qpos, **kw)
+                x = BA.mlp_block(pj, x, cfg.norm_eps)
+            for tname, lit, k, v in writes:
+                A.write_kv_rows(buffer, views[tname], lit,
+                                step[tname]["rows"], k, v)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        # one logits row per batch row: its last real token
+        x = x[torch.arange(b, device=x.device), batch.last_idx.long()]
         logits = logits_local(x, self._unembed(params))
         return mask_pad_vocab(logits, cfg.vocab_size)

@@ -2,12 +2,13 @@
 manager (a copy of ``repro/serving/engine.py`` driving the torch
 ``ModelRunner`` on a torch device).
 
-In this slice of the port the engine serves the PACKED batching mode with
-greedy sampling: ``batching_mode`` "padded"/"serial", a request with
-``temperature > 0`` and ``autotune_budgets`` raise ``NotImplementedError``.
-Packed self-attention always runs through the varlen flash kernel (the
-reference's ``attention_impl="kernel"`` route), so the port has no
-``attention_impl`` option.
+The port's engine serves the three batching modes ("packed", "padded",
+"serial") with greedy sampling; a request with ``temperature > 0`` and
+``autotune_budgets`` raise ``NotImplementedError``. Packed self-attention
+always runs through the varlen flash kernel (the reference's
+``attention_impl="kernel"`` route), so the port has no ``attention_impl``
+option; padded T == 1 dispatches (every decode group of "serial") read
+their pages in place through the paged decode kernel.
 
 Each ``step()`` is build-batch -> ONE ``serve_step`` dispatch -> advance /
 sample / retire:
@@ -257,10 +258,6 @@ class Engine:
         self.cfg = cfg
         assert cfg.batching_mode in ("packed", "padded", "serial"), \
             cfg.batching_mode
-        if cfg.batching_mode != "packed":
-            raise NotImplementedError(
-                f"batching_mode={cfg.batching_mode!r}: a later slice of "
-                "the port")
         if cfg.autotune_budgets:
             raise NotImplementedError(
                 "autotune_budgets: needs H100 roofline constants, a later "

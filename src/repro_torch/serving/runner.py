@@ -1,13 +1,17 @@
 """ModelRunner: builds device batches from Jenga manager state and issues
-the packed serve step on a torch device (``repro/serving/runner.py``).
+the serve step on a torch device (``repro/serving/runner.py``).
 
 One dispatch executes a whole scheduler step — any number of concurrent
-prefill chunks plus all decodes — in the PACKED layout: the step is
-flattened into ONE ``(total_tokens_bucket,)`` token stream with per-token
-``segment_ids``, absolute ``positions``, per-token KV write targets, and
-per-segment ``(start, last_tok)`` metadata; per-type page tables are
-likewise flattened into one page stream with per-page owning segments. (The reference's padded and serial layouts
-are a later slice of the port.)
+prefill chunks plus all decodes — in one of two layouts:
+
+* PACKED (default): the step is flattened into ONE
+  ``(total_tokens_bucket,)`` token stream with per-token ``segment_ids``,
+  absolute ``positions``, per-token KV write targets, and per-segment
+  ``(start, last_tok)`` metadata; per-type page tables are likewise
+  flattened into one page stream with per-page owning segments.
+* PADDED: one row per sequence, padded to the ``(B=_pow2(n),
+  T=_pow2(max_chunk))`` bucket with SENTINEL positions at pads. A T == 1
+  bucket reads its pages in place through the paged decode kernel.
 
 A step is three phases, which the async engine drives separately:
 
@@ -428,7 +432,8 @@ class ModelRunner:
                 board_src: Optional[List[int]] = None) -> PreparedStep:
         """Phase 1: flatten one scheduler step — ``items`` is
         [(request, num_tokens[, start])] with ragged per-sequence token
-        counts — into a HOST-side token-packed device batch.
+        counts — into a HOST-side device batch: token-packed stream
+        (default) or padded (B, T) rows.
 
         ``sample=True`` attaches a fused greedy tail (per-segment pick on
         device, scattered into the token board at ``board_dst[si]`` —
@@ -436,11 +441,11 @@ class ModelRunner:
         pending decode rows into on-device board reads from
         ``board_src[si]`` (default: rid slot) instead of requiring a host
         ``patch_token``."""
-        if not packed:
-            raise NotImplementedError(
-                "padded batching: a later slice of the port")
         items = _norm_items(items)
-        arrs, info = self._build_host_packed(items)
+        if packed:
+            arrs, info = self._build_host_packed(items)
+        else:
+            arrs, info = self._build_host_padded(items)
         prep = PreparedStep(arrs=arrs, info=info, items=items, packed=packed,
                             pending=info.pop("pending"))
         if sample:
@@ -509,8 +514,8 @@ class ModelRunner:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _to_batch(self, arrs: Dict[str, object]) -> DecodeBatch:
-        """Upload a packed batch: every int32 field goes up in ONE copy of
-        one flat array, then is viewed back into its fields on device."""
+        """Upload a batch: every int32 field goes up in ONE copy of one flat
+        array, then is viewed back into its fields on device."""
         out = {f: ({} if isinstance(v, dict) else None)
                for f, v in arrs.items()}
         fields = []
@@ -521,7 +526,7 @@ class ModelRunner:
                     continue
                 if x.dtype != np.int32:
                     raise NotImplementedError(
-                        f"batch field {f} ({x.dtype}): dense packed only")
+                        f"batch field {f} ({x.dtype}): dense family only")
                 fields.append((f, k, x))
         dev = self._upload(np.concatenate([x.reshape(-1)
                                            for _, _, x in fields]))
@@ -534,6 +539,103 @@ class ModelRunner:
             else:
                 out[f][k] = t
         return DecodeBatch(**out)
+
+    def _build_host_padded(self, items: Sequence[Tuple[Request, int, int]]
+                           ) -> Tuple[Dict[str, object], dict]:
+        """Padded layout: one row per sequence padded to the (B, T) bucket.
+        Padded slots get SENTINEL positions (never attended), padded rows
+        get -1 exec ids (writes dropped)."""
+        n = len(items)
+        assert n > 0
+        B = _pow2(n)
+        T = _pow2(max(nt for _, nt, _ in items))
+        mirrors = [self._mirror(r.seq) for r, _, _ in items]
+        p_need: Dict[str, int] = {}
+        for name in self._table_specs:
+            longest = 1
+            for m in mirrors:
+                longest = max(longest, m.n.get(name, 0))
+            p_need[name] = _pow2(longest, 4)
+        tokens = np.zeros((B, T), np.int32)
+        positions = np.full((B, T), SENTINEL_POS, np.int32)
+        seq_lens = np.ones((B,), np.int32)
+        last_idx = np.zeros((B,), np.int32)
+        tables = {k: np.full((1, 1, B, p), -1, np.int32)
+                  for k, p in p_need.items()}
+        page_pos = {k: np.full((1, 1, B, p), SENTINEL_POS, np.int32)
+                    for k, p in p_need.items()}
+        write_eids = {k: np.full((1, 1, B, T), -1, np.int32)
+                      for k in p_need}
+        state_eids = {s.name: np.full((1, B), -1, np.int32)
+                      for s in self._state_specs.values()}
+        cfg = self.model.cfg
+        has_mm, has_enc = self._mm_enc_flags(items)
+        mm_embeds = mm_mask = mrope = None
+        enc_embeds = enc_write = enc_lens = None
+        if has_mm:
+            mm_embeds = np.zeros((B, T, cfg.d_model), np.float32)
+            mm_mask = np.zeros((B, T), bool)
+        if cfg.family == "encdec":
+            enc_lens = np.zeros((B,), np.int32)
+            if has_enc:
+                enc_embeds = np.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                      np.float32)
+                enc_write = np.full((1, 1, B, cfg.encoder_seq), -1, np.int32)
+
+        fresh_state: List[Tuple[str, int]] = []
+        pending: List[int] = []
+        for bi, ((r, t_real, start), m) in enumerate(zip(items, mirrors)):
+            seq = r.seq
+            fresh_state.extend(self._fresh_state_of(seq, start))
+            toks = seq.tokens[start:start + t_real]
+            if len(toks) < t_real:      # speculative decode: token patched in
+                pending.append(bi)
+            tokens[bi, :len(toks)] = toks
+            positions[bi, :t_real] = np.arange(start, start + t_real)
+            seq_lens[bi] = start + t_real
+            last_idx[bi] = t_real - 1
+            for name, spec in self._table_specs.items():
+                np_ = p_need[name]
+                nm = min(m.n.get(name, 0), np_)
+                if nm:
+                    tables[name][0, 0, bi, :nm] = m.table[name][:nm]
+                    page_pos[name][0, 0, bi, :nm] = m.pos[name][:nm]
+                if spec.kind in ("full_attn", "swa"):
+                    tpp = spec.tokens_per_page
+                    pgs = (start + np.arange(t_real)) // tpp
+                    write_eids[name][0, 0, bi, :t_real] = \
+                        m.table[name][pgs] if m.n.get(name, 0) else -1
+            for name in state_eids:
+                if name in seq.state_pages:
+                    state_eids[name][0, bi] = seq.state_pages[name]
+            if has_mm and self.stub_embed_fn:
+                self._fill_mm(seq, start, t_real, mm_embeds, mm_mask, bi, 0)
+            if cfg.family == "encdec":
+                enc_lens[bi] = sum(it.length for it in seq.encoder_items)
+                if has_enc and start == 0 and r.in_prefill \
+                        and self.stub_embed_fn:
+                    self._fill_encoder(seq, m, enc_embeds, enc_write, bi)
+        if has_mm:
+            mrope = np.broadcast_to(positions[None], (3, B, T)).copy()
+
+        arrs = dict(
+            tokens=tokens, positions=positions, seq_lens=seq_lens,
+            tables=tables, page_pos=page_pos, write_eids=write_eids,
+            state_eids=state_eids, mm_embeds=mm_embeds, mm_mask=mm_mask,
+            mrope_pos=mrope, last_idx=last_idx, enc_embeds=enc_embeds,
+            enc_write_eids=enc_write, enc_lens=enc_lens,
+            seg_ids=None, chunk_start=None, seg_start_tok=None,
+            seg_last_tok=None, page_seg=None)
+        # T==1 buckets read their pages in place through the paged decode
+        # kernel; any larger bucket (or an encoder run) uses the chunked
+        # prefill path. Both are exact for every row thanks to
+        # position-based masking.
+        prefill = T > 1 or has_enc
+        key = (prefill, B, T, tuple(sorted(p_need.items())), has_mm, has_enc)
+        return arrs, {"key": key, "n": n, "prefill": prefill,
+                      "fresh_state": fresh_state, "pending": pending,
+                      "tokens": sum(nt for _, nt, _ in items),
+                      "slots": B * T}
 
     def _build_host_packed(self, items: Sequence[Tuple[Request, int, int]]
                            ) -> Tuple[Dict[str, object], dict]:
@@ -687,7 +789,8 @@ class ModelRunner:
             batch.tokens = inject_tokens(batch.tokens,
                                          self._upload(prep.tok_src),
                                          self._board)
-        logits = self.model.serve_step(params, self.buffer, batch)
+        logits = self.model.serve_step(params, self.buffer, batch,
+                                       prefill=info["prefill"])
         tokens_h = None
         if prep.samp is not None:
             sm = prep.samp

@@ -155,8 +155,8 @@ def test_main_path_feeds_the_kernel_valid_inputs(monkeypatch):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        port_engine(batching_mode="padded")
+    for mode in ("padded", "serial"):        # ported: they construct
+        assert port_engine(batching_mode=mode).cfg.batching_mode == mode
     with pytest.raises(NotImplementedError):
         port_engine(autotune_budgets=True)
     eng = port_engine()
