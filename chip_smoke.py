@@ -30,6 +30,19 @@ Phases, each of which raises on failure:
    and on the CPU (plain versions) with the same weights; greedy outputs
    of the card's packed, padded and serial engines must agree with the
    CPU's packed engine up to genuine near-ties (TIE_FORK_TOL).
+5. Training (the dense training path, after phase 2b below has held its
+   kernels against their plain version): full-width granite-3-2b trained
+   4 steps by ``repro_torch.training.Trainer`` with fp32 masters (2 x 2048
+   tokens per micro-batch, 2 micro-batches), finite losses and exact dense
+   kernel launch counts, then one more step traced by ``torch.profiler``
+   (device time by kernel group); reduced granite card vs CPU losses,
+   exact resume from a checkpoint and the NaN watchdog.
+
+Phase 2b holds the dense flash kernels (forward; backward dK/dV and dQ)
+against their plain version at granite-3-2b's training shape (B=2, H=32,
+KVL=8, D=64, T=S=2048, causal), with a window of 512, non-causal at
+T=512, internlm2's heads (D=128, G=2) and a ragged T > S case: errors,
+bitwise-repeatable gradients, times, bounds and one SDPA call's time.
 
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -94,7 +108,11 @@ def phase_env():
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            entry = re.search(r"entry function .*?([a-z][a-z_]*_kernel)"
+                              r"ILi(\d+)E", line)
+            if entry:
+                log(f"[ptxas {name}] {entry.group(1)}<{entry.group(2)}>:")
+            elif "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
     return smi
 
@@ -359,6 +377,143 @@ def phase_paged_kernel():
     return results
 
 
+# ---------------------------------------------------------------- phase 2b
+GRAD_TOL = 1e-2     # dQ/dK/dV: max abs err over the largest |gradient|
+
+
+def dense_cases():
+    """(name, B, H, KVL, D, T, S, causal, window): granite-3-2b's training
+    shape, its window and non-causal variants, internlm2's heads (D 128,
+    G 2), and a ragged case whose T > S + window - 1 tail rows see nothing
+    (their output is mean(V))."""
+    return [
+        ("granite train T=2048 causal", 2, 32, 8, 64, 2048, 2048, True, 0),
+        ("window=512 T=2048", 2, 32, 8, 64, 2048, 2048, True, 512),
+        ("causal=False T=512", 2, 32, 8, 64, 512, 512, False, 0),
+        ("internlm2 heads D=128 G=2 T=2048", 2, 16, 8, 128, 2048, 2048,
+         True, 0),
+        ("ragged T=333 S=200 window=50 D=32", 1, 4, 2, 32, 333, 200, True,
+         50),
+    ]
+
+
+def phase_dense_kernel():
+    """The dense flash kernels against their plain version on the card:
+    forward output and dQ/dK/dV, bitwise-repeatable backward, times and
+    bounds, and one SDPA call as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        dense_flash_attention, dense_flash_bwd, dense_flash_fwd,
+        flash_attention_plain)
+    from repro_torch.kernels.flash_attention.dense import dense_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    results = []
+    for name, B, H, KVL, D, T, S, causal, w in dense_cases():
+        BH, KVH = B * H, B * KVL
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+
+        q, k, v, dout = rnd(BH, T, D), rnd(KVH, S, D), rnd(KVH, S, D), \
+            rnd(BH, T, D)
+        kw = dict(causal=causal, window=w)
+        out, lse = dense_flash_fwd(q, k, v, **kw)
+        grads = dense_flash_bwd(q, k, v, out, lse, dout, **kw)
+        again = dense_flash_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        if not bitwise:
+            raise AssertionError(f"dense {name}: two backward calls differ")
+        leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        ref = flash_attention_plain(*leaves, **kw)
+        ref_grads = torch.autograd.grad(ref, leaves, dout)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not np.isfinite(err) or err > TOL:
+            raise AssertionError(f"dense {name}: forward max abs err {err} "
+                                 f"> {TOL}")
+        gerr, grel = [], []
+        for label, a, b in zip("qkv", grads, ref_grads):
+            e = (a.float() - b.float()).abs().max().item()
+            scale = max(1.0, b.float().abs().max().item())
+            if not np.isfinite(e) or e > GRAD_TOL * scale:
+                raise AssertionError(f"dense {name}: d{label} max abs err {e}"
+                                     f" > {GRAD_TOL} x {scale}")
+            gerr.append(e)
+            grel.append(e / scale)
+        # the autograd route gives the same bytes as the direct calls
+        if name.startswith("granite"):
+            lv = [a.detach().requires_grad_(True) for a in (q, k, v)]
+            o2 = dense_flash_attention(*lv, **kw)
+            g2 = torch.autograd.grad(o2, lv, dout)
+            if not (torch.equal(o2, out) and
+                    all(torch.equal(a, b) for a, b in zip(g2, grads))):
+                raise AssertionError("dense: autograd route differs from the"
+                                     " direct kernel calls")
+        del ref, ref_grads, leaves
+
+        ms = cuda_time_ms(lambda: dense_flash_fwd(q, k, v, **kw), iters=10)
+        bwd_ms = cuda_time_ms(
+            lambda: dense_flash_bwd(q, k, v, out, lse, dout, **kw), iters=10)
+
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_plain(q, k, v, **kw), iters=3, warmup=1)
+        lv = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        ref = flash_attention_plain(*lv, **kw)
+        plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            ref, lv, dout, retain_graph=True), iters=3, warmup=1)
+        del ref, lv
+        # yardstick only (never called by the port): one SDPA call
+        sq = q.view(B, H, T, D)
+        sk, sv = k.view(B, KVL, S, D), v.view(B, KVL, S, D)
+        mask = dense_mask(T, S, causal, w, dev)
+        sd = dict(is_causal=True) if causal and not w and T == S else \
+            dict(attn_mask=mask)
+        lv = [a.detach().requires_grad_(True) for a in (sq, sk, sv)]
+        lib_out = F.scaled_dot_product_attention(*lv, enable_gqa=True, **sd)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, enable_gqa=True, **sd), iters=10)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, lv, dout.view(B, H, T, D), retain_graph=True), iters=10)
+        del lib_out, lv
+
+        pairs = int(mask.sum().item()) * BH
+        el = 2 * (q.numel() + k.numel() + v.numel())     # bf16 q, k, v
+        fwd_bytes = el + 2 * q.numel() + 4 * BH * T      # + out, lse
+        bwd_bytes = el + 2 * 2 * q.numel() + 4 * BH * T + el  # + out, dO, lse; dq dk dv
+        bounds = []
+        for nbytes, flops in ((fwd_bytes, 4.0 * D * pairs),
+                              (bwd_bytes, 10.0 * D * pairs)):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_FLOPS_PER_S * 1e3
+            bounds.append((max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations"))
+        log(f"[kernel dense_flash] {name} fwd max_abs_err={err:.3e} (tol "
+            f"{TOL}) dq/dk/dv max_abs_err={gerr[0]:.3e}/{gerr[1]:.3e}/"
+            f"{gerr[2]:.3e} (rel to max {max(grel):.2e}, tol {GRAD_TOL}) "
+            f"bwd bitwise repeatable={bitwise} fwd_ms={ms:.4f} "
+            f"bwd_ms={bwd_ms:.4f} plain_fwd_ms={plain_ms:.4f} "
+            f"plain_bwd_ms={plain_bwd_ms:.4f} "
+            f"sdpa_fwd_ms={lib_ms:.4f} sdpa_bwd_ms={lib_bwd_ms:.4f} "
+            f"bound_fwd_ms={bounds[0][0]:.5f} ({bounds[0][1]}) "
+            f"bound_bwd_ms={bounds[1][0]:.5f} ({bounds[1][1]}; "
+            f"{pairs / 1e6:.1f} M visible pairs)")
+        results.append(dict(case=name, err=err, grad_err=max(gerr), ms=ms,
+                            bwd_ms=bwd_ms, plain_ms=plain_ms,
+                            plain_bwd_ms=plain_bwd_ms,
+                            library_ms=lib_ms, library_bwd_ms=lib_bwd_ms,
+                            bound_ms=bounds[0][0], bound_by=bounds[0][1],
+                            bwd_bound_ms=bounds[1][0],
+                            bwd_bound_by=bounds[1][1]))
+        del q, k, v, dout, out, lse, grads, again
+        torch.cuda.empty_cache()
+    return results
+
+
 # ----------------------------------------------------------------- phase 3
 def _prompts(n, vocab, seed=0):
     rng = np.random.default_rng(seed)
@@ -571,6 +726,187 @@ def phase_small_reference():
         f"abs diff {diff:.3e}")
 
 
+# ----------------------------------------------------------------- phase 5
+TRAIN_LOSS_TOL = 1e-2   # card vs CPU losses, reduced granite (bf16 sums in another order)
+
+
+def _poisoned(params):
+    return {k: ({n: w * float("nan") for n, w in v.items()}
+                if k == "layers" else v * float("nan"))
+            for k, v in params.items()}
+
+
+def _trace_train_step(tr, params, state, data, step):
+    """One more full-width training step under ``torch.profiler`` (after
+    the counted ones): wall ms, device kernel ms and busy share, and device
+    time by kernel group. Returns (params, state)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, _ = tr.run(params, state, data, num_steps=step + 1,
+                                  start_step=step)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or \
+            getattr(e, "cuda_time_total", 0.0)
+
+    kernels = [e for e in prof.key_averages() if dev_us(e) > 0 and
+               str(getattr(e, "device_type", "")).endswith("CUDA")]
+    groups = {}
+    for e in kernels:
+        key = e.key.lower()
+        name = next((g for g, words in (
+            ("dense_flash fwd", ("dense_fwd",)),
+            ("dense_flash bwd", ("dense_dkv", "dense_dq", "dense_delta")),
+            ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+            ("elementwise and copies", ("elementwise", "copy")),
+            ("reductions", ("reduce",)),
+        ) if any(w in key for w in words)), "other")
+        ms, n = groups.get(name, (0.0, 0))
+        groups[name] = (ms + dev_us(e) / 1e3, n + e.count)
+    dev_ms = sum(ms for ms, _ in groups.values())
+    log(f"[train trace] one step under the profiler: wall {wall:.1f} ms, "
+        f"device kernels {dev_ms:.1f} ms (busy share {dev_ms / wall:.3f}), "
+        f"{sum(n for _, n in groups.values())} kernel launches")
+    for name, (ms, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
+        log(f"[train trace]   {name}: {ms:.1f} ms over {n} launches "
+            f"({ms / dev_ms:.3f} of device time)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        log(f"[train trace]   {dev_us(e) / 1e3:9.2f} ms x{e.count:5d} "
+            f"{e.key[:80]}")
+    return params, state
+
+
+def phase_train():
+    """Training. (a) Full-width granite-3-2b with fp32 masters from seed 0,
+    4 steps of 2 x 2048-token sequences in 2 micro-batches: finite losses,
+    the dense kernels launched exactly 2 x 40 x micro x steps (forward; the
+    2 is the recomputation) and 40 x micro x steps (backward) times, step
+    ms, tokens/s and peak memory. (b) Reduced granite with the same fp32
+    weights on the card and on the CPU: 3 steps' losses within
+    TRAIN_LOSS_TOL, exact resume from a checkpoint (rtol 1e-5), and the NaN
+    watchdog restoring."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels.flash_attention import (
+        dense_flash_bwd, dense_flash_fwd, flash_attention_varlen)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.models import DecoderLM
+    from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
+                                      TrainerConfig, init)
+    from repro_torch.training.optimizer import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=ROOT / "build")
+    try:
+        # ---- (a) full width
+        cfg = ARCHS["granite-3-2b"]
+        micro, steps, seq, batch = 2, 4, 2048, 4
+        tr = Trainer(DecoderLM(cfg), AdamWConfig(),
+                     TrainerConfig(micro_batches=micro, ckpt_every=1 << 30,
+                                   ckpt_dir=f"{ckpt_root}/full"))
+        t0 = time.perf_counter()
+        params, state = tr.init_state(0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params["layers"].values()) + \
+            params["embed"].numel() + params["final_norm"].numel()
+        log(f"[train] granite-3-2b full width: {cfg.num_layers} layers, "
+            f"{n_params} params fp32, init {time.perf_counter() - t0:.2f} s")
+        data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           mode="markov")
+        # one step untimed and uncounted (cuBLAS handles, allocator)
+        params, state, warm = tr.run(params, state, data, num_steps=1)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for fn in (dense_flash_fwd, dense_flash_bwd, flash_attention_varlen,
+                   paged_decode_attention):
+            fn.launches = 0
+        params, state, hist = tr.run(
+            params, state, data, num_steps=1 + steps, start_step=1,
+            log_every=1, on_metrics=lambda s, m: times.append(
+                m["sec_per_step"]))
+        fwd, bwd = dense_flash_fwd.launches, dense_flash_bwd.launches
+        other = flash_attention_varlen.launches + \
+            paged_decode_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        if len(hist) != steps or not np.isfinite(hist).all() or tr.restores:
+            raise AssertionError(f"full-width losses {hist} (restores "
+                                 f"{tr.restores})")
+        want = (2 * cfg.num_layers * micro * steps,
+                cfg.num_layers * micro * steps)
+        if (fwd, bwd) != want or other:
+            raise AssertionError(f"dense (fwd, bwd) launches {(fwd, bwd)}, "
+                                 f"expected {want}; serve kernels {other}")
+        step_ms = 1e3 * float(np.mean(times))
+        tok_s = batch * seq / (step_ms / 1e3)
+        log(f"[train] full width: losses {[round(x, 4) for x in warm + hist]}"
+            f" (first untimed) step_ms={[round(1e3 * t, 1) for t in times]} "
+            f"mean_step_ms={step_ms:.1f} train_tok_per_s={tok_s:.1f} "
+            f"peak_mem_gb={peak / 1e9:.2f} dense_fwd_launches={fwd} "
+            f"dense_bwd_launches={bwd} (= 2 x {cfg.num_layers} x {micro} x "
+            f"{steps} and {cfg.num_layers} x {micro} x {steps})")
+        params, state = _trace_train_step(tr, params, state, data,
+                                          1 + steps)
+        del params, state, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) reduced granite: card vs CPU, resume, watchdog
+        rcfg = reduced(ARCHS["granite-3-2b"])
+        adamw = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=200)
+        rdata = SyntheticLM(rcfg.vocab_size, seq_len=32, global_batch=8,
+                            mode="markov")
+
+        def trainer(name, every=5):
+            return Trainer(DecoderLM(rcfg), adamw,
+                           TrainerConfig(micro_batches=2, ckpt_every=every,
+                                         ckpt_dir=f"{ckpt_root}/{name}"))
+
+        cpu_tr = trainer("cpu", 1 << 30)
+        cpu_p, cpu_s = cpu_tr.init_state(0, device="cpu")
+        gpu_tr = trainer("gpu", 1 << 30)
+        gpu_p = tree_map(lambda t: t.cuda(), cpu_p)
+        _, _, h_cpu = cpu_tr.run(cpu_p, cpu_s, rdata, num_steps=3)
+        _, _, h_gpu = gpu_tr.run(gpu_p, init(gpu_p), rdata, num_steps=3)
+        diff = float(np.abs(np.array(h_cpu) - np.array(h_gpu)).max())
+        if diff > TRAIN_LOSS_TOL:
+            raise AssertionError(f"reduced card vs CPU losses {h_gpu} vs "
+                                 f"{h_cpu}: {diff} > {TRAIN_LOSS_TOL}")
+        tr1 = trainer("resume")
+        p, s = tr1.init_state(0, device="cuda")
+        p, s, hist = tr1.run(p, s, rdata, num_steps=12)
+        tr2 = trainer("resume")
+        p2, s2, _ = tr2.restore(10, device="cuda")
+        _, _, hist2 = tr2.run(p2, s2, rdata, num_steps=12, start_step=10)
+        if not np.allclose(hist[-2:], hist2, rtol=1e-5):
+            raise AssertionError(f"resume: {hist[-2:]} vs {hist2}")
+        _, _, hist3 = tr1.run(_poisoned(p), s, rdata, num_steps=14,
+                              start_step=12)
+        if tr1.restores < 1 or not np.isfinite(hist3).all():
+            raise AssertionError(f"watchdog: restores {tr1.restores}, "
+                                 f"losses {hist3}")
+        log(f"[train] reduced granite card vs CPU losses {h_gpu} vs {h_cpu}"
+            f" (max diff {diff:.2e}, tol {TRAIN_LOSS_TOL}); exact resume "
+            f"steps 10-11 {hist2} vs {hist[-2:]} (rtol 1e-5); NaN watchdog "
+            f"restored {tr1.restores}x, losses {hist3}")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return dict(fwd_launches=fwd, bwd_launches=bwd, step_ms=step_ms,
+                tok_s=tok_s, peak=peak)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -579,9 +915,13 @@ def main() -> int:
     smi = phase_env()
     kres = phase_kernels()
     pres = phase_paged_kernel()
+    dres = phase_dense_kernel()
     launches, _ = phase_engine()
     phase_small_reference()
-    mixed, decode = kres[0], pres[0]
+    train = phase_train()
+    mixed, decode, dense = kres[0], pres[0], dres[0]
+    dense_src = "src/repro_torch/kernels/flash_attention/csrc/dense_flash.cu"
+    dense_tpu = "src/repro/kernels/flash_attention/kernel.py:21"
     record = {"kernels": [{
         "name": "varlen_flash",
         "route": "cuda",
@@ -608,6 +948,30 @@ def main() -> int:
         "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "dense_flash_fwd",
+        "route": "cuda",
+        "source": dense_src,
+        "replaces": dense_tpu,
+        "launches": train["fwd_launches"],
+        "max_abs_err": max(r["err"] for r in dres),
+        "ms": dense["ms"],
+        "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"],
+        "bound_by": dense["bound_by"],
+        "library_ms": dense["library_ms"],
+    }, {
+        "name": "dense_flash_bwd",
+        "route": "cuda",
+        "source": dense_src,
+        "replaces": dense_tpu,
+        "launches": train["bwd_launches"],
+        "max_abs_err": max(r["grad_err"] for r in dres),
+        "ms": dense["bwd_ms"],
+        "plain_ms": dense["plain_bwd_ms"],
+        "bound_ms": dense["bwd_bound_ms"],
+        "bound_by": dense["bwd_bound_by"],
+        "library_ms": dense["library_bwd_ms"],
     }]}
     log(f"card: {smi}")
     print(json.dumps(record))

@@ -25,6 +25,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES: Dict[str, pathlib.Path] = {
     "varlen_flash": _PKG / "flash_attention" / "csrc" / "varlen_flash.cu",
     "paged_decode": _PKG / "paged_attention" / "csrc" / "paged_decode.cu",
+    "dense_flash": _PKG / "flash_attention" / "csrc" / "dense_flash.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,6 +1,9 @@
-"""Transformer blocks of the serve path (``repro/models/blocks_attn.py``):
-the QKV projection, the attention phases (gather, compute, write) and the
-SwiGLU MLP, on one device.
+"""Transformer blocks (``repro/models/blocks_attn.py``): the QKV
+projection, the serve path's attention phases (gather, compute, write),
+training's self-attention and the SwiGLU MLP, on one device.
+
+Training attention (``attn_train``) runs through the dense flash kernel,
+forward and backward, in one call per layer.
 
 Packed self-attention always runs through the varlen flash kernel in one
 call over [old page slots ++ fresh chunk K/V] (the reference's
@@ -15,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention_varlen
+from ..kernels.flash_attention import (dense_flash_attention,
+                                      flash_attention_varlen)
 from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
@@ -208,6 +212,30 @@ def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
     out = paged_decode_attention(q[:, 0], buf.view(view_shape)[:, layer],
                                  tables, page_pos, qpos, window=window)
     return x + dense(out.reshape(b, 1, -1), p["o"])
+
+
+def attn_train(p, x, *, kv_local, head_dim, rope, window=0, causal=True,
+               norm_eps=1e-5):
+    """Full/SWA self-attention for training (no cache): RMSNorm, the QKV
+    projection with rope at positions ``arange(T)`` (``rope``: their
+    ``rotary.rope_tables``), attention, the o-projection and the residual.
+
+    The reference scans 1024-row q chunks so that jnp's score tensor stays
+    bounded; the flash kernel never materialises scores, so one call over
+    all T rows computes the same function. q (B,T,KVL,G,D) goes to the
+    kernel as (B*H, T, D) and k/v as (B*KVL, T, D): q head b*H + kvl*G + g
+    reads kv head b*KVL + kvl, the kernel's h // G."""
+    b, t, _ = x.shape
+    xn = rms_norm(x, p["attn_norm"], norm_eps)
+    q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
+                       rope=rope)
+    g = q.shape[3]
+    qh = q.permute(0, 2, 3, 1, 4).contiguous().view(-1, t, head_dim)
+    kh = k.permute(0, 2, 1, 3).contiguous().view(-1, t, head_dim)
+    vh = v.permute(0, 2, 1, 3).contiguous().view(-1, t, head_dim)
+    out = dense_flash_attention(qh, kh, vh, causal=causal, window=window)
+    out = out.view(b, kv_local * g, t, head_dim).transpose(1, 2)
+    return x + dense(out.reshape(b, t, -1), p["o"])
 
 
 def mlp_block(p, x, norm_eps=1e-5):

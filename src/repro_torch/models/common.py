@@ -39,10 +39,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: torch.Tensor = None) -> torch.Tensor:
     """x: (..., in), w: (in, out). bf16 operands, fp32 accumulation, one
-    rounding of the output to ``x.dtype``. With a bias the sum is formed
-    in fp32 before that rounding, as the reference does; the bf16 product
-    is exact in fp32, so the fp32 matmul there computes the same sum."""
+    rounding of the output to ``x.dtype``. ``w`` is rounded to ``x.dtype``
+    first (the reference's ``w.astype(x.dtype)``), so fp32 training masters
+    and bf16 serving weights give the same product. With a bias the sum is
+    formed in fp32 before that rounding, as the reference does; the bf16
+    product is exact in fp32, so the fp32 matmul there computes the same
+    sum."""
+    w = _as(w, x.dtype)
     if b is None:
-        return torch.matmul(x, _as(w, x.dtype))
-    y = torch.matmul(x.float(), w.float()) + b.float()
+        return torch.matmul(x, w)
+    y = torch.matmul(x.float(), w.float()) + _as(b, torch.float32)
     return y.to(x.dtype)

@@ -1,11 +1,12 @@
-"""Decoder-only LM, dense family: the packed and padded serve steps
-(``repro/models/lm.py``)."""
+"""Decoder-only LM, dense family: the training loss and the packed and
+padded serve steps (``repro/models/lm.py``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -15,7 +16,8 @@ from . import blocks_attn as BA
 from .common import rms_norm, set_matmul_precision
 from .params import MATRICES
 from .rotary import rope_tables
-from .tp import embed_lookup, logits_local, mask_pad_vocab
+from .tp import embed_lookup, logits_local, mask_pad_vocab, \
+    sharded_softmax_xent
 
 
 @dataclasses.dataclass
@@ -125,13 +127,16 @@ class DecoderLM:
             tree["unembed"] = (self.v_pad, d)
         return tree
 
-    def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    def init(self, seed: int = 0, device="cuda",
+             master: bool = False) -> Dict[str, Any]:
         """Random weights from ``seed`` with the reference template's
         shapes and scales (normal 0.02; o/down 0.02/sqrt(2L); norms ones;
         biases zeros), drawn by a ``torch.Generator`` on ``device``.
-        Matrices are bf16, norms and biases fp32. The draws differ from
-        the reference's ``jax.random`` ones: tests that compare the two
-        packages convert the reference's params (``params_from_numpy``)."""
+        Matrices are bf16 (serving) or, with ``master``, fp32 like every
+        other leaf (training's masters, the reference's ``PARAM_DTYPE``);
+        norms and biases are fp32. The draws differ from the reference's
+        ``jax.random`` ones: tests that compare the two packages convert
+        the reference's params (``params_from_numpy``)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -145,7 +150,9 @@ class DecoderLM:
             scale = out_scale if name in ("o", "down") else 0.02
             w = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=dev) * scale
-            return w.to(torch.bfloat16 if name in MATRICES else torch.float32)
+            if master or name not in MATRICES:
+                return w
+            return w.to(torch.bfloat16)
 
         shapes = self.param_shapes()
         params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}
@@ -155,6 +162,49 @@ class DecoderLM:
 
     def _unembed(self, params):
         return params.get("unembed", params["embed"])
+
+    # --------------------------------------------------------------- train
+    def train_loss(self, params, tokens: torch.Tensor, targets: torch.Tensor,
+                   *, mm_embeds=None, mm_mask=None, mrope_pos=None):
+        """Mean next-token cross-entropy of (B, T) int ``tokens`` against
+        ``targets`` (the reference's ``train_loss``): a scalar fp32 tensor
+        to call ``backward`` on. Each cycle of the attention pattern is
+        recomputed in the backward (``torch.utils.checkpoint``), as the
+        reference checkpoints each cycle of its scan, so the forward runs
+        twice per layer and the backward once."""
+        if mm_embeds is not None or mm_mask is not None or \
+                mrope_pos is not None:
+            raise NotImplementedError(
+                "multimodal training: the vlm family is a later slice")
+        return self._train_body(params, tokens, targets)
+
+    def _train_body(self, params, tokens, targets):
+        cfg = self.cfg
+        t = tokens.shape[1]
+        x = embed_lookup(tokens, params["embed"])
+        rope = rope_tables(torch.arange(t, dtype=torch.int32,
+                                        device=tokens.device),
+                           cfg.head_dim, cfg.rope_theta)
+        layers = self._layer_params(params)
+        for cycle in range(self.cycles):
+            pjs = layers[cycle * self.period:(cycle + 1) * self.period]
+            x = checkpoint(self._train_cycle, x, rope, pjs,
+                           use_reentrant=False)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = logits_local(x, self._unembed(params))
+        return sharded_softmax_xent(logits, targets)
+
+    def _train_cycle(self, x, rope, pjs):
+        """One cycle of the pattern: each layer's attention (its kind's
+        window) and MLP."""
+        cfg = self.cfg
+        for pj, kind in zip(pjs, self.period_kinds):
+            x = BA.attn_train(
+                pj, x, kv_local=self.kv_local, head_dim=cfg.head_dim,
+                rope=rope, window=cfg.sliding_window if kind == "swa" else 0,
+                norm_eps=cfg.norm_eps)
+            x = BA.mlp_block(pj, x, cfg.norm_eps)
+        return x
 
     # --------------------------------------------------------------- serve
     def _layer_views(self, buffer_flat: torch.Tensor):

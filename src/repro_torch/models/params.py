@@ -3,9 +3,11 @@ port's parameter dict.
 
 The port's parameters mirror the reference tree with its size-1 tp dim
 dropped (``DecoderLM._squeeze_params``) and the (L, ...) layer stacking
-kept. Matrices are stored bf16 — ``dense`` rounds them to bf16 before the
-product anyway, so this loses nothing — while norm weights and biases stay
-fp32, since they enter fp32 arithmetic.
+kept. For serving, matrices are stored bf16 — ``dense`` rounds them to
+bf16 before the product anyway, so this loses nothing — while norm weights
+and biases stay fp32, since they enter fp32 arithmetic. Training keeps the
+reference's fp32 masters instead (``master=True``, the counterpart of the
+reference's ``model.param_dtype`` override).
 """
 from __future__ import annotations
 
@@ -33,25 +35,40 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(name: str, a, device) -> torch.Tensor:
+def squeeze_tp(name: str, a) -> np.ndarray:
+    """A reference leaf (numpy) with its size-1 tp axis dropped."""
     a = np.asarray(a)
     ax = _TP_AXIS.get(name)
     if ax is not None:
         if a.shape[ax] != 1:
             raise ValueError(f"{name}: tp dim {a.shape[ax]} != 1 "
-                             "(the port serves on one device)")
+                             "(the port runs on one device)")
         a = np.squeeze(a, axis=ax)
-    t = tensor_from_numpy(a).to(device)
+    return a
+
+
+def expand_tp(name: str, a: np.ndarray) -> np.ndarray:
+    """The inverse of ``squeeze_tp``: the reference's expanded layout."""
+    ax = _TP_AXIS.get(name)
+    return a if ax is None else np.expand_dims(a, ax)
+
+
+def _leaf(name: str, a, device, master: bool) -> torch.Tensor:
+    t = tensor_from_numpy(squeeze_tp(name, a)).to(device)
+    if master:
+        return t.float()
     return t.to(torch.bfloat16 if name in MATRICES else torch.float32)
 
 
-def params_from_numpy(tree: Dict, cfg, device) -> Dict:
+def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
     """Convert the reference's dense-family param tree (leaves as numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``) for ``cfg``."""
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) for ``cfg``. With
+    ``master`` every leaf stays fp32 (training's masters); otherwise
+    matrices become bf16 (serving)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r}: dense only")
-    out = {name: _leaf(name, a, device)
+    out = {name: _leaf(name, a, device, master)
            for name, a in tree.items() if name != "layers"}
-    out["layers"] = {name: _leaf(name, a, device)
+    out["layers"] = {name: _leaf(name, a, device, master)
                      for name, a in tree["layers"].items()}
     return out

@@ -1,5 +1,5 @@
 """Single-device twins of the reference's vocab-parallel heads
-(``repro/models/tp.py``): the port serves on one card, so the tp axis has
+(``repro/models/tp.py``): the port runs on one card, so the tp axis has
 size 1 and every vocab shard is the whole table."""
 from __future__ import annotations
 
@@ -33,3 +33,26 @@ def mask_pad_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return torch.where(gid < vocab_size, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
+
+
+def sharded_softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                         mask: torch.Tensor = None) -> torch.Tensor:
+    """Cross-entropy over fp32 logits (..., V): the reference's
+    vocab-sharded head with one shard. The max shift is detached (it
+    cancels in d/dx logsumexp); nll = logz - gold, with targets outside the
+    vocab scoring a gold logit of 0; the mean runs over ``mask`` when given
+    (at least 1 in the denominator)."""
+    v = logits.shape[-1]
+    lmax = logits.detach().amax(-1)
+    z = torch.exp(logits - lmax[..., None]).sum(-1)
+    logz = torch.log(z) + lmax
+    ok = (targets >= 0) & (targets < v)
+    idx = targets.clamp(0, v - 1).long()
+    gold = logits.gather(-1, idx[..., None])[..., 0]
+    gold = torch.where(ok, gold, torch.zeros((), dtype=gold.dtype,
+                                             device=gold.device))
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

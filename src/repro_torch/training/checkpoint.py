@@ -1,0 +1,144 @@
+"""Checkpoints in the reference's on-disk format (``repro/training/
+checkpoint.py``), with async save.
+
+Format: one ``.npy`` per leaf plus ``meta.json``, each file named as the
+reference names it (``jax.tree_util.keystr`` of the leaf's path, sanitised:
+``params_layers_q.npy``, ``opt_.mu_embed.npy``, ``opt_.step.npy``) and
+holding the reference's layout, with its size-1 tp axis. So a checkpoint
+written by the reference's ``Trainer`` restores here, and one written here
+restores there. Saves snapshot every leaf to host memory synchronously and
+write the files on a background thread (``wait()`` joins it before the
+next save).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+import threading
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.params import expand_tp, squeeze_tp, tensor_from_numpy
+
+
+def _walk(node, path: str, name: str, out: List[Tuple[str, str, Any]]):
+    """(keystr path, leaf name, leaf) in the reference's flatten order:
+    dict keys sorted, NamedTuple fields in order."""
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], f"{path}['{key}']", key, out)
+    elif hasattr(node, "_fields"):
+        for field in node._fields:
+            _walk(getattr(node, field), f"{path}.{field}", field, out)
+    else:
+        out.append((path, name, node))
+
+
+def _leaf_files(tree) -> List[Tuple[str, str, Any]]:
+    """(file name, leaf name, leaf) for every leaf of ``tree``."""
+    out: List[Tuple[str, str, Any]] = []
+    _walk(tree, "", "", out)
+    return [(re.sub(r"[^A-Za-z0-9_.-]+", "_", path).strip("_") + ".npy",
+             name, leaf) for path, name, leaf in out]
+
+
+def _rebuild(node, it):
+    if isinstance(node, dict):
+        return {key: _rebuild(node[key], it) for key in sorted(node)}
+    if hasattr(node, "_fields"):
+        return type(node)(*(_rebuild(getattr(node, f), it)
+                            for f in node._fields))
+    return next(it)
+
+
+def _to_host(name: str, t: torch.Tensor) -> np.ndarray:
+    if t.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"{name}: checkpoints hold float32 and int32 "
+                        f"leaves, not {t.dtype}")
+    return expand_tp(name, t.detach().cpu().numpy())
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------------ save
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             blocking: bool = False) -> None:
+        self.wait()
+        # snapshot to host memory synchronously, then write the files on a
+        # background thread (async checkpointing)
+        host = [(f, _to_host(name, t)) for f, name, t in _leaf_files(tree)]
+        meta = {"step": int(step), "extra": extra or {},
+                "leaves": [f for f, _ in host]}
+
+        def write():
+            tmp = tempfile.mkdtemp(dir=self.dir)
+            for fname, arr in host:
+                np.save(os.path.join(tmp, fname), arr)
+            with open(os.path.join(tmp, "meta.json"), "w") as fh:
+                json.dump(meta, fh)
+            final = os.path.join(self.dir, f"step_{step:08d}")
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self._gc()
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # --------------------------------------------------------------- restore
+    def all_steps(self):
+        out = []
+        for d in os.listdir(self.dir):
+            m = re.fullmatch(r"step_(\d+)", d)
+            if m and os.path.exists(os.path.join(self.dir, d, "meta.json")):
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, target_tree: Any, device=None):
+        """Load into the structure of ``target_tree`` (tensors, possibly on
+        the ``meta`` device, giving each leaf's shape and dtype). Leaves go
+        to ``device`` (default: each target leaf's device) in the target's
+        dtype, the size-1 tp axis squeezed. Returns (tree, meta)."""
+        d = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(d, "meta.json")) as fh:
+            meta = json.load(fh)
+        leaves = _leaf_files(target_tree)
+        if [f for f, _, _ in leaves] != list(meta["leaves"]):
+            raise ValueError(f"{d}: tree structure changed")
+        out = []
+        for fname, name, ref in leaves:
+            arr = squeeze_tp(name, np.load(os.path.join(d, fname)))
+            if arr.shape != tuple(ref.shape):
+                raise ValueError(f"{fname}: shape {arr.shape}, expected "
+                                 f"{tuple(ref.shape)}")
+            out.append(tensor_from_numpy(arr).to(
+                device=ref.device if device is None else device,
+                dtype=ref.dtype))
+        return _rebuild(target_tree, iter(out)), meta
