@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
 
 1. Environment: the card's name and power limit, the torch/CUDA versions,
    and the build of every CUDA kernel from the sources in this checkout.
-2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (granite-3-2b: H=32, KVL=8, G=4, D=64, bf16), with its
+2. Each attention kernel against its plain PyTorch version on the card,
+   at the main path's shapes (granite-3-2b: H=32, KVL=8, G=4, D=64, bf16;
+   zamba2-1.2b's G=1 besides), with its
    time, the plain version's time, one library call's time where one
    exists and the least time the card could take for the same work: the
    varlen kernel on packed streams, the paged decode kernel on 8 rows of
@@ -37,6 +38,20 @@ Phases, each of which raises on failure:
    kernel launch counts, then one more step traced by ``torch.profiler``
    (device time by kernel group); reduced granite card vs CPU losses,
    exact resume from a checkpoint and the NaN watchdog.
+
+The hybrid path (since the Mamba2 chunk-scan kernel): phase 2c holds the
+scan kernel against its plain version at zamba2-1.2b's widths (H 64, P 64,
+N 64) on a packed mixed step, a packed decode step (non-zero initial
+states, a killed segment as a zero-length row) and a padded step, with
+repeatable bytes; phase 2 and the paged phase add zamba2's G = 1 heads
+(the paged case at tokens_per_page 19). Phase 3b serves full-width
+zamba2-1.2b (random weights from seed 0, tokens_per_page 19, a pool of 4
+large pages) with the 8 prompts of phase 3: packed at depths 1, 2 and 4
+(bitwise equal, mamba launches == dispatches x 38), packed at a 256-token
+budget (noise floor), padded and serial (fork-aware equal to packed within
+twice that floor), every leg drained with no leaked page and state
+checkpoint copies made. Phase 4b serves reduced zamba2 on the card and on
+the CPU.
 
 Phase 2b holds the dense flash kernels (forward; backward dK/dV and dQ)
 against their plain version at granite-3-2b's training shape (B=2, H=32,
@@ -90,6 +105,32 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel, iters=20):
+    """Mean device time of the CUDA kernels whose name contains
+    ``kernel``, over ``iters`` calls of ``fn`` under ``torch.profiler``:
+    the kernel's own time even where back-to-back calls are bound by the
+    host's cost per call (which ``cuda_time_ms`` then measures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in evs)
+    if n != iters:
+        raise AssertionError(f"profiler saw {n} {kernel} launches, not "
+                             f"{iters}")
+    return sum(_dev_us(e) for e in evs) / n / 1e3
+
+
+def _dev_us(e):
+    return getattr(e, "device_time_total", None) or \
+        getattr(e, "cuda_time_total", 0.0)
+
+
 # ----------------------------------------------------------------- phase 1
 def phase_env():
     import torch
@@ -109,9 +150,10 @@ def phase_env():
     for name, text in logs.items():
         for line in text.splitlines():
             entry = re.search(r"entry function .*?([a-z][a-z_]*_kernel)"
-                              r"ILi(\d+)E", line)
+                              r"I((?:Li\d+E)+)", line)
             if entry:
-                log(f"[ptxas {name}] {entry.group(1)}<{entry.group(2)}>:")
+                args = ",".join(re.findall(r"\d+", entry.group(2)))
+                log(f"[ptxas {name}] {entry.group(1)}<{args}>:")
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
     return smi
@@ -164,6 +206,9 @@ def kernel_cases():
               dead_slots=4608 - 512 - 1024 - 2048 - 896),
         _case("no visible slot T=512 S=4608", mixed, t_total=512,
               novis_segs=(1, 3)),
+        # zamba2-1.2b's shared attention: 32 kv heads for 32 q heads
+        dict(_case("zamba2 G=1 mixed T=512 S=4608", mixed, t_total=512),
+             kvl=32),
     ]
 
 
@@ -176,10 +221,11 @@ def phase_kernels():
     from repro_torch.serving.sampler import band_pick, greedy_token
 
     dev = torch.device("cuda")
-    H, KVL, D = 32, 8, 64
+    H, D = 32, 64
     rng = np.random.default_rng(0)
     results = []
     for case in kernel_cases():
+        KVL = case.get("kvl", 8)
         t, s = len(case["q_seg"]), len(case["kv_seg"])
         q = torch.tensor(rng.standard_normal((H, t, D)), dtype=torch.bfloat16,
                          device=dev)
@@ -243,6 +289,7 @@ def phase_kernels():
         results.append(dict(case=case["name"], err=err, ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound, bound_by=by))
+        del q, k, v, kr, vr
 
     # the fused greedy tail picks what the host picks, bit for bit
     rows = rng.standard_normal((64, 49155)).astype(np.float32)
@@ -259,7 +306,7 @@ def phase_kernels():
 
 def paged_cases():
     """Decode batches as the padded serve path builds them: 8 rows whose
-    query positions are 64-1056 (their pages, TPP 16, in a P=128 table
+    query positions are 64-1056 (their pages, TPP 16 or 19, in a P=128 table
     padded with -1 / SENTINEL entries), the pages scattered over a pool of
     ``layers`` layers that the kernel reads one strided layer of."""
     lens = np.random.default_rng(2).integers(64, 1057, 8)
@@ -271,6 +318,10 @@ def paged_cases():
              lens=lens, invalid=True, pad=2),
         dict(name="qwen2.5-32b heads D=128 G=5", d=128, g=5, layers=8,
              lens=lens),
+        # zamba2-1.2b's shared attention at tokens_per_page 19: G=1, one
+        # layer of its 6-layer attention pool
+        dict(name="zamba2 heads G=1 TPP=19", d=64, g=1, layers=6,
+             lens=lens, kvl=32, tpp=19),
     ]
 
 
@@ -281,13 +332,14 @@ def phase_paged_kernel():
         paged_decode_attention, paged_decode_attention_plain)
 
     dev = torch.device("cuda")
-    KVL, TPP, P, B = 8, 16, 128, 8
+    P, B = 128, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rng = np.random.default_rng(3)
     results = []
     for case in paged_cases():
         D, G, L, w = case["d"], case["g"], case["layers"], case.get("window", 0)
+        KVL, TPP = case.get("kvl", 8), case.get("tpp", 16)
         n_pages = [int(n) // TPP + 1 for n in case["lens"]]
         vp = sum(n_pages) + 1
         pool = torch.randn((vp, L, 2, TPP, KVL, D), generator=gen,
@@ -374,6 +426,117 @@ def phase_paged_kernel():
                             plain_ms=plain_ms, two_calls_ms=two_ms,
                             bound_ms=bound, bound_by=by))
         del pool
+    return results
+
+
+# ---------------------------------------------------------------- phase 2c
+MAMBA_TOL = 1e-3    # fp32 scan: max abs err over the largest |value|, sums in another order
+
+
+def mamba_cases():
+    """(name, row_start, row_len, TT) of scan calls as the zamba2 serve
+    path makes them: a packed mixed step (TT 512, 8 ragged segments, one
+    killed in flight: length 0), a packed decode step (8 one-token
+    segments, one killed) and a padded step (4 rows of T 256, ragged)."""
+    mixed = [256, 150, 1, 1, 1, 60, 0, 30]
+    starts = np.concatenate([[0], np.cumsum(mixed)[:-1]])
+    decode = [1, 1, 1, 0, 1, 1, 1, 1]
+    dstarts = np.concatenate([[0], np.cumsum(decode)[:-1]])
+    return [
+        ("packed mixed TT=512 R=8", starts, mixed, 512),
+        ("packed decode TT=8 R=8", dstarts, decode, 8),
+        ("padded B=4 T=256", np.arange(4) * 256, [256, 100, 1, 37], 1024),
+    ]
+
+
+def _scan_work(lens, h, p, n, chunk=64):
+    """FLOPs the scan needs on these rows: per head and chunk of l tokens,
+    the causal (t, s) pairs' C.B and score @ x products, the state read
+    and the state update."""
+    flops = 0.0
+    for ln in lens:
+        for c0 in range(0, int(ln), chunk):
+            l_ = min(chunk, int(ln) - c0)
+            pairs = l_ * (l_ + 1) / 2
+            flops += h * (pairs * (2 * n + 2 * p + 3) + l_ * 4 * p * n
+                          + 2 * p * n)
+    return flops
+
+
+def phase_mamba_kernel():
+    """The Mamba2 chunk-scan kernel against its plain version on the card
+    at zamba2-1.2b's widths (H 64, P 64, N 64), with x, B and C passed as
+    the serve path passes them (views of one xbc row per token) and
+    non-zero initial states (a strided view of the per-row state):
+    outputs and final states within MAMBA_TOL, two calls giving the same
+    bytes, the kernel's device time (``device_ms``), the time per
+    back-to-back call, the plain version's time and the bound."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (
+        mamba_chunk_scan_varlen, mamba_chunk_scan_varlen_plain)
+
+    dev = torch.device("cuda")
+    H, P, N, conv = 64, 64, 64, 12672
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    results = []
+    for name, starts, lens, tt in mamba_cases():
+        r = len(lens)
+        xbc = (0.5 * torch.randn((tt, H * P + 2 * N), generator=gen,
+                                 device=dev)).to(torch.bfloat16)
+        x = xbc[:, :H * P].view(tt, H, P)
+        bm, cm = xbc[:, H * P:H * P + N], xbc[:, H * P + N:]
+        dt = torch.nn.functional.softplus(
+            torch.randn((tt, H), generator=gen, device=dev))
+        a_log = 0.5 * torch.randn((H,), generator=gen, device=dev)
+        flat = 0.3 * torch.randn((r, H * P * N + conv), generator=gen,
+                                 device=dev)
+        s0 = flat[:, :H * P * N].view(r, H, P, N)
+        rows = [torch.tensor(np.asarray(v), dtype=torch.int32, device=dev)
+                for v in (starts, lens)]
+        args = (x, bm, cm, dt, a_log, *rows, s0)
+        y, s1 = mamba_chunk_scan_varlen(*args)
+        y2, s2 = mamba_chunk_scan_varlen(*args)
+        ry, rs = mamba_chunk_scan_varlen_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(s1, s2)):
+            raise AssertionError(f"mamba {name}: two calls differ")
+        errs = []
+        for label, a, b in (("y", y, ry), ("state", s1, rs)):
+            e = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            if not np.isfinite(e) or e > MAMBA_TOL * scale:
+                raise AssertionError(f"mamba {name}: {label} max abs err {e}"
+                                     f" > {MAMBA_TOL} x {scale}")
+            errs.append((e, e / scale))
+        for i, ln in enumerate(lens):
+            if ln == 0 and not torch.equal(s1[i], s0[i]):
+                raise AssertionError(f"mamba {name}: a zero-length row "
+                                     "changed its state")
+        ms = device_ms(lambda: mamba_chunk_scan_varlen(*args),
+                       "mamba_scan_kernel")
+        call_ms = cuda_time_ms(lambda: mamba_chunk_scan_varlen(*args))
+        plain_ms = cuda_time_ms(lambda: mamba_chunk_scan_varlen_plain(*args),
+                                iters=5)
+        live = int(np.sum(lens))
+        nbytes = (live * (H * P * 2 + 2 * N * 2 + H * 4) + H * 4 + 2 * r * 4
+                  + 2 * r * H * P * N * 4 + tt * H * P * 4)
+        flops = _scan_work(lens, H, P, N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernel mamba_scan] {name} rows={list(map(int, lens))} "
+            f"y max_abs_err={errs[0][0]:.3e} (rel {errs[0][1]:.2e}) state "
+            f"max_abs_err={errs[1][0]:.3e} (rel {errs[1][1]:.2e}; tol "
+            f"{MAMBA_TOL}) repeatable=True ms={ms:.4f} (device time; "
+            f"{call_ms:.4f} per back-to-back call) plain_ms="
+            f"{plain_ms:.4f} library_ms=none bound_ms={bound:.5f} ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        results.append(dict(case=name, err=max(e for e, _ in errs), ms=ms,
+                            call_ms=call_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by))
+        del xbc, flat, y, y2, s1, s2, ry, rs
     return results
 
 
@@ -521,20 +684,31 @@ def _prompts(n, vocab, seed=0):
     return [rng.integers(0, vocab, int(ln)).tolist() for ln in lens]
 
 
-def _drain(model, params, cfg_kw, prompts, new_tokens, device):
+def _drain(model, params, cfg_kw, prompts, new_tokens, device,
+           count_copies=False, no_sync=False):
     """Drain ``prompts`` through a new ``Engine``. Returns the engine, the
     wall seconds, and the number of its T == 1 padded dispatches (the
-    ones that go through the paged decode kernel)."""
+    ones that go through the paged decode kernel); with ``count_copies``
+    also the kinds of its state-page copies. With ``no_sync`` every
+    dispatch runs under torch's sync debug mode "error", so a host sync
+    inside it raises."""
     import torch
     from repro_torch.serving import Engine, EngineConfig, Request, \
         SamplingParams
     eng = Engine(model, EngineConfig(**cfg_kw), params=params, device=device)
+    copies = _count_state_copies(eng) if count_copies else None
     decode = [0]
     dispatch = eng.runner.dispatch
 
     def counting(params_, prep):
         decode[0] += not prep.info["prefill"]
-        return dispatch(params_, prep)
+        if not no_sync:
+            return dispatch(params_, prep)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(params_, prep)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
     eng.runner.dispatch = counting
     for i, p in enumerate(prompts):
@@ -546,7 +720,10 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device):
     eng.run_until_done()
     if device != "cpu":
         torch.cuda.synchronize()
-    return eng, time.perf_counter() - t0, decode[0]
+    wall = time.perf_counter() - t0
+    if count_copies:
+        return eng, wall, decode[0], copies
+    return eng, wall, decode[0]
 
 
 def _first_row_diff(ref, other):
@@ -587,10 +764,10 @@ def phase_engine():
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention import flash_attention_varlen
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
 
     cfg = ARCHS["granite-3-2b"]
-    model = DecoderLM(cfg)
+    model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -693,10 +870,10 @@ def phase_engine():
 # ----------------------------------------------------------------- phase 4
 def phase_small_reference():
     from repro_torch.configs import ARCHS, reduced
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
 
     cfg = reduced(ARCHS["granite-3-2b"])
-    model = DecoderLM(cfg)
+    model = build_model(cfg)
     cpu_params = model.init(seed=0, device="cpu")
     gpu_params = {k: (v.cuda() if k != "layers" else
                       {n: w.cuda() for n, w in v.items()})
@@ -726,6 +903,198 @@ def phase_small_reference():
         f"abs diff {diff:.3e}")
 
 
+# ---------------------------------------------------------------- phase 3b
+def hybrid_serving_setup():
+    """zamba2-1.2b at its published widths and depth, with
+    ``tokens_per_page`` 19 (the default 16 makes the LCM page 29.9 GiB,
+    and serving needs three of them), and the engine settings of the
+    smoke's hybrid legs: a pool of 4 large pages, the granite legs'
+    budget, chunk and batch."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.spec import BYTES_PER_UNIT, lcm
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(ARCHS["zamba2-1.2b"], tokens_per_page=19)
+    model = build_model(cfg)
+    big = lcm([sp.page_units for sp in model.kv_specs()])
+    base = dict(kv_pool_bytes=4 * big * BYTES_PER_UNIT,
+                max_num_batched_tokens=512, chunk_size=256, max_running=8)
+    return cfg, model, base
+
+
+def _count_state_copies(eng):
+    """Wrap the runner's ``apply_copies``; returns the list it fills with
+    the kind of every state-page copy (checkpoint / restore)."""
+    kinds = []
+    apply = eng.runner.apply_copies
+
+    def counting(ops):
+        kinds.extend(op.kind for op in ops if op.type_name == "mamba")
+        return apply(ops)
+
+    eng.runner.apply_copies = counting
+    return kinds
+
+
+def phase_hybrid_engine():
+    """Full-width zamba2-1.2b (random bf16 weights from seed 0) served by
+    ``Engine`` with the 8 prompts of phase 3: packed at depths 1, 2 and 4
+    (outputs bitwise equal, mamba launches == dispatches x 38, varlen ==
+    dispatches x 6; the depth-4 dispatches under sync debug mode "error"),
+    packed at a 256-token budget as the noise floor, and
+    padded and serial at depth 1 (fork-aware equal to packed within twice
+    that floor; mamba launches == T > 1 dispatches x 38, paged == T == 1
+    dispatches x 6). Every leg drains with no leaked page."""
+    import gc
+    import types
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_varlen
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_varlen
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+
+    # each leg's pool is 9.3 GiB: let the earlier phases' engines (held in
+    # reference cycles through their wrapped dispatch) go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, base = hybrid_serving_setup()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for v in params.values()
+                   for w in (v.values() if isinstance(v, dict) else [v]))
+    n_super = cfg.num_layers // cfg.attn_every
+    log(f"[hybrid] zamba2-1.2b full width: {cfg.num_layers} Mamba2 layers, "
+        f"shared attention x {n_super}, {n_params / 1e9:.3f} B params, "
+        f"tokens_per_page {cfg.tokens_per_page}, pool "
+        f"{base['kv_pool_bytes'] / 2 ** 30:.2f} GiB (4 large pages), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = _prompts(8, cfg.vocab_size)
+    for mode in ("packed", "padded"):
+        _drain(model, params, dict(base, batching_mode=mode),
+               [prompts[0][:64], prompts[1][:64]], 2, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    legs = [("packed", "packed", 1, rec),
+            ("packed", "packed", 2,
+             dict(async_scheduling=True, pipeline_depth=2)),
+            ("packed", "packed", 4,
+             dict(async_scheduling=True, pipeline_depth=4)),
+            ("packed-b256", "packed", 1,
+             dict(rec, max_num_batched_tokens=256)),
+            ("padded", "padded", 1, rec), ("serial", "serial", 1, rec)]
+    # the depth-4 leg issues every dispatch under torch's sync debug mode
+    # "error": a host sync inside the hybrid step would serialise the ring
+    kernels = (mamba_chunk_scan_varlen, flash_attention_varlen,
+               paged_decode_attention)
+    launches = dict(mamba=0, varlen=0, paged=0)
+    outs, ref, rows = {}, {}, []
+    for name, mode, depth, kw in legs:
+        label = f"hybrid {name} depth={depth}"
+        for fn in kernels:
+            fn.launches = 0
+        eng, wall, decode, copies = _drain(
+            model, params, dict(base, batching_mode=mode, **kw), prompts,
+            32, "cuda", count_copies=True, no_sync=depth == 4)
+        got = dict(zip(launches, (fn.launches for fn in kernels)))
+        for k in launches:
+            launches[k] += got[k]
+        if len(eng.finished) != len(prompts):
+            raise AssertionError(f"{label}: {len(eng.finished)} of "
+                                 f"{len(prompts)} requests finished")
+        eng.mgr.check_invariants()
+        stats = eng.mgr.memory_stats()
+        if stats.used_units != 0:
+            raise AssertionError(f"{label}: leaked pages: {stats}")
+        full = eng.runner.dispatch_count - decode
+        want = dict(mamba=full * cfg.num_layers,
+                    varlen=full * n_super if mode == "packed" else 0,
+                    paged=0 if mode == "packed" else decode * n_super)
+        if got != want or (mode != "packed" and decode == 0):
+            raise AssertionError(f"{label}: launches {got}, expected {want} "
+                                 f"({decode} T == 1 dispatches)")
+        if not copies.count("checkpoint"):
+            raise AssertionError(f"{label}: no state checkpoint copy")
+        if depth == 1:
+            for rid, rws in eng.sample_log.items():
+                for r in rws:
+                    if r.shape != (cfg.vocab_size,) or \
+                            not np.isfinite(r).all():
+                        raise AssertionError(f"{label} {rid}: bad logits")
+            # what the fork checks read; the engine and its pool go
+            ref[name] = types.SimpleNamespace(sample_log=eng.sample_log,
+                                              finished=eng.finished)
+        outs[name, depth] = {r.rid: list(r.output) for r in eng.finished}
+        n_out = sum(len(o) for o in outs[name, depth].values())
+        steps = eng.step_count
+        log(f"[hybrid] mode={name} depth={depth} steps={steps} dispatches="
+            f"{eng.runner.dispatch_count} decode_dispatches={decode} "
+            f"wall_s={wall:.3f} output_tok_per_s={n_out / wall:.1f} "
+            f"mean_step_ms={wall / steps * 1e3:.2f} mamba_launches="
+            f"{got['mamba']} varlen_launches={got['varlen']} paged_launches="
+            f"{got['paged']} state_checkpoints={copies.count('checkpoint')}"
+            f" (caught up after deferral: {eng.mgr.catchup_checkpoints}) "
+            f"output_tokens={n_out}")
+        rows.append(dict(mode=name, depth=depth, steps=steps, wall_s=wall))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not outs["packed", 1] == outs["packed", 2] == outs["packed", 4]:
+        raise AssertionError("hybrid packed: outputs differ across depths")
+    noise = _first_row_diff(ref["packed"], ref["packed-b256"])
+    tol = max(TIE_FORK_TOL, 2 * noise)
+    forks = {}
+    for name in ("packed-b256", "padded", "serial"):
+        diff = _first_row_diff(ref["packed"], ref[name])
+        if diff > tol:
+            raise AssertionError(f"hybrid {name}: first-token logits differ "
+                                 f"from packed by {diff} > {tol}")
+        forks[name] = (_fork_aware_equal(ref["packed"], ref[name], name,
+                                         tol), round(diff, 4))
+    log("[hybrid] packed outputs bitwise equal across depths 1, 2, 4; noise "
+        f"floor (packed vs packed-b256 first-token logits) {noise:.4f}, fork "
+        f"tolerance {tol:.4f}; (forks, first-token diff) vs packed: {forks};"
+        " 0 leaked pages")
+    del params
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_hybrid_small_reference():
+    """Reduced zamba2-1.2b served on the card (kernels) and on the CPU
+    (plain versions) with the same weights: the card's packed, padded and
+    serial engines against the CPU's packed engine, up to genuine near-ties
+    (TIE_FORK_TOL)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(ARCHS["zamba2-1.2b"])
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0, device="cpu")
+    gpu_params = {k: ({n: w.cuda() for n, w in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in cpu_params.items()}
+    kw = dict(kv_pool_bytes=8 << 20, max_running=4, chunk_size=8,
+              max_num_batched_tokens=64, record_sample_logits=True)
+    prompts = _prompts(4, cfg.vocab_size, seed=1)
+    prompts = [p[:8 + 5 * i] for i, p in enumerate(prompts)]
+    ref, _, _ = _drain(model, cpu_params, kw, prompts, 8, "cpu")
+    for mode in ("packed", "padded", "serial"):
+        eng, _, decode = _drain(model, gpu_params,
+                                dict(kw, batching_mode=mode), prompts, 8,
+                                "cuda")
+        n = _fork_aware_equal(ref, eng, f"hybrid {mode} card vs packed CPU")
+        diff = _first_row_diff(ref, eng)
+        log(f"[reference] reduced zamba2 {mode} on the card vs packed on the"
+            f" CPU: {decode} T == 1 dispatches, {n} forked at near-ties "
+            f"(TIE_FORK_TOL {TIE_FORK_TOL}), first-token logits max abs "
+            f"diff {diff:.3e}")
+
+
 # ----------------------------------------------------------------- phase 5
 TRAIN_LOSS_TOL = 1e-2   # card vs CPU losses, reduced granite (bf16 sums in another order)
 
@@ -752,11 +1121,7 @@ def _trace_train_step(tr, params, state, data, step):
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or \
-            getattr(e, "cuda_time_total", 0.0)
-
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0 and
+    kernels = [e for e in prof.key_averages() if _dev_us(e) > 0 and
                str(getattr(e, "device_type", "")).endswith("CUDA")]
     groups = {}
     for e in kernels:
@@ -769,7 +1134,7 @@ def _trace_train_step(tr, params, state, data, step):
             ("reductions", ("reduce",)),
         ) if any(w in key for w in words)), "other")
         ms, n = groups.get(name, (0.0, 0))
-        groups[name] = (ms + dev_us(e) / 1e3, n + e.count)
+        groups[name] = (ms + _dev_us(e) / 1e3, n + e.count)
     dev_ms = sum(ms for ms, _ in groups.values())
     log(f"[train trace] one step under the profiler: wall {wall:.1f} ms, "
         f"device kernels {dev_ms:.1f} ms (busy share {dev_ms / wall:.3f}), "
@@ -777,8 +1142,8 @@ def _trace_train_step(tr, params, state, data, step):
     for name, (ms, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
         log(f"[train trace]   {name}: {ms:.1f} ms over {n} launches "
             f"({ms / dev_ms:.3f} of device time)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        log(f"[train trace]   {dev_us(e) / 1e3:9.2f} ms x{e.count:5d} "
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:12]:
+        log(f"[train trace]   {_dev_us(e) / 1e3:9.2f} ms x{e.count:5d} "
             f"{e.key[:80]}")
     return params, state
 
@@ -801,7 +1166,7 @@ def phase_train():
     from repro_torch.kernels.flash_attention import (
         dense_flash_bwd, dense_flash_fwd, flash_attention_varlen)
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
     from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
                                       TrainerConfig, init)
     from repro_torch.training.optimizer import tree_map
@@ -814,7 +1179,7 @@ def phase_train():
         # ---- (a) full width
         cfg = ARCHS["granite-3-2b"]
         micro, steps, seq, batch = 2, 4, 2048, 4
-        tr = Trainer(DecoderLM(cfg), AdamWConfig(),
+        tr = Trainer(build_model(cfg), AdamWConfig(),
                      TrainerConfig(micro_batches=micro, ckpt_every=1 << 30,
                                    ckpt_dir=f"{ckpt_root}/full"))
         t0 = time.perf_counter()
@@ -870,7 +1235,7 @@ def phase_train():
                             mode="markov")
 
         def trainer(name, every=5):
-            return Trainer(DecoderLM(rcfg), adamw,
+            return Trainer(build_model(rcfg), adamw,
                            TrainerConfig(micro_batches=2, ckpt_every=every,
                                          ckpt_dir=f"{ckpt_root}/{name}"))
 
@@ -915,9 +1280,12 @@ def main() -> int:
     smi = phase_env()
     kres = phase_kernels()
     pres = phase_paged_kernel()
+    mres = phase_mamba_kernel()
     dres = phase_dense_kernel()
     launches, _ = phase_engine()
     phase_small_reference()
+    hybrid, _ = phase_hybrid_engine()
+    phase_hybrid_small_reference()
     train = phase_train()
     mixed, decode, dense = kres[0], pres[0], dres[0]
     dense_src = "src/repro_torch/kernels/flash_attention/csrc/dense_flash.cu"
@@ -947,6 +1315,18 @@ def main() -> int:
         "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mamba_chunk_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:19",
+        "launches": hybrid["mamba"],
+        "max_abs_err": max(r["err"] for r in mres),
+        "ms": mres[0]["ms"],
+        "plain_ms": mres[0]["plain_ms"],
+        "bound_ms": mres[0]["bound_ms"],
+        "bound_by": mres[0]["bound_by"],
         "library_ms": None,
     }, {
         "name": "dense_flash_fwd",

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where a serving step of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/trace_torch_step.py [--mode packed|padded|serial]
+    python3 scripts/trace_torch_step.py [--arch granite-3-2b|zamba2-1.2b]
+                                        [--mode packed|padded|serial]
                                         [--skip N] [--steps N]
 
 Serves the workload of ``chip_smoke.py`` phase 3 (full-width granite-3-2b,
-random weights from seed 0, 8 greedy requests) synchronously (pipeline
-depth 1) in one batching mode and, after ``--skip`` untraced steps, traces
-a window of engine steps with ``torch.profiler``:
+random weights from seed 0, 8 greedy requests) or, with ``--arch
+zamba2-1.2b``, of its phase 3b (full-width zamba2-1.2b at
+tokens_per_page 19, the same 8 requests) synchronously (pipeline depth 1)
+in one batching mode and, after ``--skip`` untraced steps, traces a window
+of engine steps with ``torch.profiler``:
 host wall time per step, device kernel time per step (the sum over CUDA
 kernels, so the device's busy share is device ms / wall ms), kernel
 launches per step, and the kernels and host ops that take the most time.
@@ -27,6 +30,9 @@ sys.path.insert(0, str(ROOT))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b",
+                    choices=("granite-3-2b", "zamba2-1.2b"),
+                    help="the model: chip_smoke's dense or hybrid legs")
     ap.add_argument("--mode", default="packed",
                     choices=("packed", "padded", "serial"),
                     help="EngineConfig.batching_mode")
@@ -39,9 +45,9 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import _prompts
+    from chip_smoke import _prompts, hybrid_serving_setup
     from repro_torch.configs import ARCHS
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
     from repro_torch.serving import (Engine, EngineConfig, Request,
                                      SamplingParams)
 
@@ -49,13 +55,16 @@ def main() -> int:
         print("trace_torch_step: no CUDA device is available",
               file=sys.stderr)
         return 1
-    cfg = ARCHS["granite-3-2b"]
-    model = DecoderLM(cfg)
+    if args.arch == "zamba2-1.2b":
+        cfg, model, base = hybrid_serving_setup()
+    else:
+        cfg = ARCHS[args.arch]
+        model = build_model(cfg)
+        base = dict(kv_pool_bytes=2 << 30, max_num_batched_tokens=512,
+                    chunk_size=256, max_running=8)
     params = model.init(seed=0, device="cuda")
-    eng = Engine(model, EngineConfig(
-        kv_pool_bytes=2 << 30, max_num_batched_tokens=512, chunk_size=256,
-        max_running=8, batching_mode=args.mode), params=params,
-        device="cuda")
+    eng = Engine(model, EngineConfig(batching_mode=args.mode, **base),
+                 params=params, device="cuda")
     for i, p in enumerate(_prompts(8, cfg.vocab_size)):
         eng.submit(Request(rid=f"r{i}", prompt=p,
                            sampling=SamplingParams(max_new_tokens=32)))
@@ -91,7 +100,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; mode {args.mode}; {args.steps} steps traced after "
+    print(f"card: {smi}; {args.arch}; mode {args.mode}; {args.steps} steps "
+          f"traced after "
           f"{args.skip} (profiler on: host times include its overhead)")
     for tok, dec, ms in rows:
         print(f"[step] tokens={tok} decodes={dec} wall_ms={ms:.2f}")

@@ -26,6 +26,7 @@ SOURCES: Dict[str, pathlib.Path] = {
     "varlen_flash": _PKG / "flash_attention" / "csrc" / "varlen_flash.cu",
     "paged_decode": _PKG / "paged_attention" / "csrc" / "paged_decode.cu",
     "dense_flash": _PKG / "flash_attention" / "csrc" / "dense_flash.cu",
+    "mamba_scan": _PKG / "mamba_scan" / "csrc" / "mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

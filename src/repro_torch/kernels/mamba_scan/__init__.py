@@ -1,0 +1,5 @@
+from .kernel import (mamba_chunk_scan, mamba_chunk_scan_plain,
+                     mamba_chunk_scan_varlen, mamba_chunk_scan_varlen_plain)
+
+__all__ = ["mamba_chunk_scan", "mamba_chunk_scan_plain",
+           "mamba_chunk_scan_varlen", "mamba_chunk_scan_varlen_plain"]

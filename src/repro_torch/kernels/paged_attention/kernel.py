@@ -28,7 +28,10 @@ def paged_decode_attention_plain(q, kv_view, tables, page_pos, positions, *,
     Entries < 0 clamp to page 0; a slot is visible iff slot_pos <= qpos
     (and > qpos - window). Masked scores are -1e30 with no zero-row guard,
     so a row with no visible slot returns mean(V) over its P*TPP slots.
-    Returns (B, KVL, G, D) in q.dtype."""
+    In a row that sees some slot, masked slots' V enter as zeros, as the
+    kernel (which never reads them) has it: page 0 may hold another type's
+    bytes, and their probability 0 times a non-finite value would still
+    be NaN. Returns (B, KVL, G, D) in q.dtype."""
     b, kvl, g, d = q.shape
     tpp = kv_view.shape[2]
     p = tables.shape[1]
@@ -46,6 +49,8 @@ def paged_decode_attention_plain(q, kv_view, tables, page_pos, positions, *,
                         torch.full((), NEG_INF, device=logit.device))
     pr = torch.exp(logit - logit.amax(-1, keepdim=True))
     pr = pr / torch.clamp(pr.sum(-1, keepdim=True), min=1e-30)
+    unread = ~mask & mask.any(-1, keepdim=True)
+    v = v.masked_fill(unread[:, :, None, None], 0)
     return torch.einsum("bkgs,bskd->bkgd", pr, v).to(q.dtype)
 
 

@@ -188,3 +188,39 @@ def write_token_kv(buf, view_shape, layer, eids, slots, k_new, v_new):
     (B, T, KVL, D)."""
     return write_kv_rows(buf, view_shape, layer,
                          kv_rows(view_shape, eids, slots), k_new, v_new)
+
+
+def bf16_pair_to_f32(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2U) bf16 -> (..., U) fp32 holding the same bytes: fp32
+    recurrent state lives bit-exact in the bf16 unified buffer, one fp32
+    unit per two buffer units. On the little-endian byte order of both
+    devices this is the reference's ``bitcast_convert_type`` of (U, 2)."""
+    assert x.dtype == torch.bfloat16 and x.shape[-1] % 2 == 0
+    return x.contiguous().view(torch.float32)
+
+
+def f32_to_bf16_pair(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``bf16_pair_to_f32``: (..., U) fp32 -> (..., 2U)."""
+    assert x.dtype == torch.float32
+    return x.contiguous().view(torch.bfloat16)
+
+
+def read_state(view, layer, eids):
+    """State view: (VP, L, 2U) bf16; eids: (B,) int. Returns (B, U) fp32.
+    Invalid (< 0: pad, killed) eids read as zero state: a clamped gather
+    would hand foreign bytes that decode as NaN to the recurrent scan."""
+    st = view[:, layer].index_select(0, eids.clamp(min=0).long())
+    st = st.masked_fill((eids < 0)[:, None], 0)
+    return bf16_pair_to_f32(st)
+
+
+def write_state(buf, view_shape, layer, eids, state):
+    """Store (B, U) fp32 ``state`` bit-exact as bf16 pairs into one layer
+    of the state view (VP, L, 2U), in place on the flat ``buf``. eids < 0
+    go to the SCRATCH page at the buffer tail (``kv_rows``): the reference
+    drops them, and no table ever names that page."""
+    vp, nl, u2 = view_shape
+    data = f32_to_bf16_pair(state.float())
+    eid = torch.where(eids < 0, vp - 1, eids).long()
+    buf.view(-1, u2).index_copy_(0, eid * nl + layer, data)
+    return buf

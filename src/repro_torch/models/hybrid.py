@@ -1,0 +1,221 @@
+"""Zamba2-style hybrid (``repro/models/hybrid.py``): a Mamba2 backbone with
+one *shared* attention block (and its MLP) applied after every
+``attn_every`` Mamba2 blocks. KV types: one Mamba state spec covering all
+Mamba2 layers, and one full-attention spec with a cache layer per
+shared-block invocation.
+
+Serving only: packed steps run the Mamba2 scans through the chunk-scan
+kernel (``blocks_seq.mamba2_packed``) and the shared attention through the
+varlen kernel; padded T > 1 steps through the chunk-scan kernel
+(``mamba2_chunked``) and plain-torch attention; padded T == 1 steps through
+``mamba2_step`` (plain torch) and the paged decode kernel. Training is a
+later slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..core.spec import KVCacheSpec, attention_spec, mamba_spec
+from . import attention as A
+from . import blocks_attn as BA
+from . import blocks_seq as BS
+from .common import set_matmul_precision
+from .lm import DecodeBatch, DecoderLM, unstack
+from .params import MATRICES
+from .tp import embed_lookup
+
+
+class HybridLM(DecoderLM):
+    """Hybrid family on one device. Parameters mirror the reference tree
+    with the tp dim dropped: ``embed``, ``final_norm``, ``mamba_main``
+    ((n_super * attn_every, ...) stacks), ``mamba_tail`` (when
+    ``num_layers % attn_every``), ``shared_attn`` (unstacked) and
+    ``unembed`` (untied configs)."""
+
+    def __init__(self, cfg: ModelConfig):
+        cfg.validate()
+        if cfg.family != "hybrid":
+            raise ValueError(f"family {cfg.family!r} is not hybrid")
+        assert cfg.attn_every > 0
+        set_matmul_precision()
+        self.cfg = cfg
+        self.kv_local = cfg.num_kv_heads
+        self.v_pad = cfg.vocab_size
+        self.n_super = cfg.num_layers // cfg.attn_every
+        self.n_tail = cfg.num_layers % cfg.attn_every
+        self.md = BS.mamba2_dims(cfg.d_model, cfg.mamba_expand,
+                                 cfg.mamba_headdim, cfg.mamba_d_state,
+                                 cfg.mamba_conv_width)
+
+    # ----------------------------------------------------------- kv specs
+    def kv_specs(self) -> Tuple[KVCacheSpec, ...]:
+        cfg, md = self.cfg, self.md
+        return (
+            attention_spec(
+                "full_attn", num_layers=self.n_super,
+                kv_heads=self.kv_local, head_dim=cfg.head_dim,
+                tokens_per_page=cfg.tokens_per_page),
+            # fp32 state stored as bf16 pairs -> x2 units
+            mamba_spec("mamba", num_layers=cfg.num_layers,
+                       conv_units=2 * md["conv_units"],
+                       ssm_units=2 * md["ssm_units"]),
+        )
+
+    def page_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        cfg, md = self.cfg, self.md
+        return {
+            "full_attn": (2, cfg.tokens_per_page, self.kv_local,
+                          cfg.head_dim),
+            "mamba": (2 * (md["ssm_units"] + md["conv_units"]),),
+        }
+
+    # --------------------------------------------------------------- init
+    def _mamba_shapes(self, n: int) -> Dict[str, Tuple[int, ...]]:
+        cfg, md = self.cfg, self.md
+        d, dil, hl = cfg.d_model, md["d_in_local"], md["h_local"]
+        ns, w = cfg.mamba_d_state, cfg.mamba_conv_width
+        return {"norm": (n, d), "w_z": (n, d, dil), "w_x": (n, d, dil),
+                "w_B": (n, d, ns), "w_C": (n, d, ns), "w_dt": (n, d, hl),
+                "dt_bias": (n, hl), "A_log": (n, hl), "D": (n, hl),
+                "conv_w": (n, w, dil + 2 * ns), "out_norm": (n, dil),
+                "w_out": (n, dil, d)}
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template with the tp dim dropped."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        qd, kvd = cfg.num_heads * hd, self.kv_local * hd
+        tree = {
+            "embed": (self.v_pad, d), "final_norm": (d,),
+            "mamba_main": self._mamba_shapes(self.n_super * cfg.attn_every),
+            "shared_attn": {"attn_norm": (d,), "q": (d, qd), "k": (d, kvd),
+                            "v": (d, kvd), "o": (qd, d), "mlp_norm": (d,),
+                            "gate": (d, cfg.d_ff), "up": (d, cfg.d_ff),
+                            "down": (cfg.d_ff, d)},
+        }
+        if self.n_tail:
+            tree["mamba_tail"] = self._mamba_shapes(self.n_tail)
+        if not cfg.tie_embeddings:
+            tree["unembed"] = (self.v_pad, d)
+        return tree
+
+    def init(self, seed: int = 0, device="cuda",
+             master: bool = False) -> Dict[str, Any]:
+        """Random weights from ``seed`` with the reference template's
+        shapes and scales (normal 0.02; ``conv_w`` 0.2; ``w_out``
+        0.02/sqrt(2L); norms and ``D`` ones; ``dt_bias`` and ``A_log``
+        zeros), drawn by a ``torch.Generator`` on ``device``. Matrices are
+        bf16 unless ``master``; ``conv_w`` and the vectors stay fp32. The
+        draws differ from the reference's ``jax.random`` ones."""
+        if master:
+            raise NotImplementedError(
+                "hybrid training (fp32 masters) is a later slice")
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out_scale = 0.02 / (2 * self.cfg.num_layers) ** 0.5
+
+        def leaf(name, shape):
+            if name.endswith("norm") or name == "D":
+                return torch.ones(shape, dtype=torch.float32, device=dev)
+            if name in ("dt_bias", "A_log"):
+                return torch.zeros(shape, dtype=torch.float32, device=dev)
+            scale = {"conv_w": 0.2, "w_out": out_scale}.get(name, 0.02)
+            w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=dev) * scale
+            return w.to(torch.bfloat16) if name in MATRICES else w
+
+        return {name: ({n: leaf(n, s) for n, s in shape.items()}
+                       if isinstance(shape, dict) else leaf(name, shape))
+                for name, shape in self.param_shapes().items()}
+
+    # --------------------------------------------------------------- train
+    def train_loss(self, params, tokens, targets, **_):
+        raise NotImplementedError(
+            "hybrid training: a later slice (mamba2_chunked's backward)")
+
+    # --------------------------------------------------------------- serve
+    def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,
+                   prefill: Optional[bool] = None) -> torch.Tensor:
+        """One serving step in the reference ``_serve_body``'s order: per
+        super-block, the shared attention's pages are gathered first, then
+        ``attn_every`` Mamba2 layers each read their state and write it
+        back, then the shared attention block and MLP, then its K/V write;
+        the tail Mamba2 layers come last. Writes K/V and state into
+        ``buffer`` IN PLACE and returns fp32 logits, one row per segment
+        (packed) or per batch row (padded)."""
+        cfg = self.cfg
+        packed = batch.seg_ids is not None
+        positions = batch.positions
+        if prefill is None:
+            prefill = packed or positions.shape[1] > 1
+        x = embed_lookup(batch.tokens, params["embed"])
+        views = self._layer_views(buffer)
+        aview, mview = views["full_attn"], views["mamba"]
+        if packed:
+            rope, step = self._packed_invariants(batch, views)
+            seg = dict(seg_ids=batch.seg_ids[0],
+                       seg_start=batch.seg_start_tok[0],
+                       seg_last=batch.seg_last_tok)
+            seg["meta"] = BS.packed_meta(**seg,
+                                         conv_width=cfg.mamba_conv_width)
+        else:
+            rope, step = self._padded_invariants(batch, views, prefill)
+            lidx = batch.last_idx
+            lmask = None if lidx is None else torch.arange(
+                positions.shape[1], device=lidx.device)[None] <= lidx[:, None]
+        st = step["full_attn"]
+        eids = batch.state_eids["mamba"].reshape(-1)
+        mkw = dict(d_state=cfg.mamba_d_state, headdim=cfg.mamba_headdim,
+                   conv_width=cfg.mamba_conv_width, norm_eps=cfg.norm_eps)
+        akw = dict(rope=rope, kv_local=self.kv_local, head_dim=cfg.head_dim,
+                   norm_eps=cfg.norm_eps)
+
+        def run_mamba(pj, x, layer):
+            s0 = A.read_state(buffer.view(mview), layer, eids)
+            if packed:
+                x, s1 = BS.mamba2_packed(pj, x, self.md, init_state=s0,
+                                         **seg, **mkw)
+            elif prefill:
+                x, s1 = BS.mamba2_chunked(pj, x, self.md, init_state=s0,
+                                          length_mask=lmask, last_idx=lidx,
+                                          **mkw)
+            else:
+                x, s1 = BS.mamba2_step(pj, x, s0, self.md, **mkw)
+            A.write_state(buffer, mview, layer, eids, s1)
+            return x
+
+        main = unstack(params["mamba_main"])
+        shared = params["shared_attn"]
+        ae = cfg.attn_every
+        qpos = positions[:, 0].contiguous()
+        for cyc in range(self.n_super):
+            if prefill:
+                gathered = BA.attn_gather(buffer, aview, st["tables"], cyc,
+                                          st["index"])
+            for j in range(ae):
+                x = run_mamba(main[cyc * ae + j], x, cyc * ae + j)
+            k = None
+            if packed:
+                x, k, v = BA.attn_compute(shared, x, *gathered,
+                                          meta=st["meta"], **akw)
+            elif prefill:
+                x, k, v = BA.attn_compute_padded(shared, x, *gathered,
+                                                 meta=st["meta"], **akw)
+            else:
+                x = BA.attn_decode(shared, x, buffer, aview, cyc,
+                                   rows=st["rows"], tables=st["tables"],
+                                   page_pos=st["page_pos"], qpos=qpos,
+                                   **akw)
+            x = BA.mlp_block(shared, x, cfg.norm_eps)
+            if k is not None:
+                A.write_kv_rows(buffer, aview, cyc, st["rows"], k, v)
+        if self.n_tail:
+            base = self.n_super * ae
+            for i, pj in enumerate(unstack(params["mamba_tail"])):
+                x = run_mamba(pj, x, base + i)
+        return self._head(params, x, batch)

@@ -50,6 +50,13 @@ class DecodeBatch:
     page_seg: Any = None         # type -> (1, 1, 1, P) i32 owning segment
 
 
+def unstack(tree: Dict[str, torch.Tensor]):
+    """Per-layer views of a dict of (L, ...) stacked parameters."""
+    names = list(tree)
+    return [dict(zip(names, ws))
+            for ws in zip(*(tree[n].unbind(0) for n in names))]
+
+
 class DecoderLM:
     """Dense decoder on one device. Parameters are a plain dict mirroring
     the reference tree with the tp dim dropped (see ``models.params``)."""
@@ -224,9 +231,7 @@ class DecoderLM:
     @staticmethod
     def _layer_params(params):
         """Per-layer views of the stacked layer parameters."""
-        names = list(params["layers"])
-        return [dict(zip(names, ws)) for ws in
-                zip(*(params["layers"][n].unbind(0) for n in names))]
+        return unstack(params["layers"])
 
     def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,
                    prefill: Optional[bool] = None) -> torch.Tensor:
@@ -247,22 +252,9 @@ class DecoderLM:
         if batch.seg_ids is None:
             return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg
-        positions = batch.positions
         x = embed_lookup(batch.tokens, params["embed"])
         views = self._layer_views(buffer)
-        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        step = {}                          # type -> per-step invariants
-        for tname, view in views.items():
-            sq = {f: getattr(batch, f)[tname].reshape(1, -1)
-                  for f in ("tables", "page_pos", "page_seg", "write_eids")}
-            slot_pos, slot_seg = BA.page_slots(sq["page_pos"],
-                                               sq["page_seg"], view[3])
-            step[tname] = dict(
-                index=A.page_index(sq["tables"]), tables=sq["tables"],
-                meta=BA.packed_attention_meta(slot_pos, slot_seg, positions,
-                                              batch.seg_ids,
-                                              batch.chunk_start),
-                rows=A.kv_rows(view, sq["write_eids"], positions % view[3]))
+        rope, step = self._packed_invariants(batch, views)
         layers = self._layer_params(params)
         for cycle in range(self.cycles):
             gathered = []
@@ -287,35 +279,45 @@ class DecoderLM:
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,
                                 step[tname]["rows"], k, v)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        # one logits row per SEGMENT: its last token in the stream
-        x = x[0].index_select(0, batch.seg_last_tok.long())
-        logits = logits_local(x, self._unembed(params))
-        return mask_pad_vocab(logits, cfg.vocab_size)
+        return self._head(params, x, batch)
 
-    def _serve_padded(self, params, buffer: torch.Tensor, batch: DecodeBatch,
-                      prefill: Optional[bool]) -> torch.Tensor:
-        """One padded serving step (the reference's non-packed
-        ``_serve_body``): one (B, T) row per sequence with per-row tables,
-        page positions and write targets; SENTINEL positions on pad slots,
-        -1 tables and write targets on pad and killed rows.
+    def _attn_views(self, views):
+        """The attention types' entries of ``_layer_views``."""
+        kinds = {s.name: s.kind for s in self.kv_specs()}
+        return {n: v for n, v in views.items()
+                if kinds[n] in ("full_attn", "swa")}
 
-        ``prefill`` (T > 1): per cycle, every layer's old pages are
-        gathered, attention runs in plain torch (``attn_compute_padded``),
-        and the cycle's K/V writes come last. Otherwise (T == 1) each layer
-        writes its token's K/V and reads its pages in place through the
-        paged decode kernel (``attn_decode``): no gather at all. Returns
-        (B, V_pad) fp32 logits, row b taken at ``last_idx[b]``."""
+    def _packed_invariants(self, batch: DecodeBatch, views):
+        """What every layer of a packed step shares: the rope tables and,
+        per attention type, the page index, the varlen call's metadata and
+        the K/V write rows. Returns (rope, {type: dict})."""
+        positions = batch.positions
+        rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        step = {}
+        for tname, view in self._attn_views(views).items():
+            sq = {f: getattr(batch, f)[tname].reshape(1, -1)
+                  for f in ("tables", "page_pos", "page_seg", "write_eids")}
+            slot_pos, slot_seg = BA.page_slots(sq["page_pos"],
+                                               sq["page_seg"], view[3])
+            step[tname] = dict(
+                index=A.page_index(sq["tables"]), tables=sq["tables"],
+                meta=BA.packed_attention_meta(slot_pos, slot_seg, positions,
+                                              batch.seg_ids,
+                                              batch.chunk_start),
+                rows=A.kv_rows(view, sq["write_eids"], positions % view[3]))
+        return rope, step
+
+    def _padded_invariants(self, batch: DecodeBatch, views, prefill: bool):
+        """What every layer of a padded step shares: the rope tables and,
+        per attention type, its tables, page starts, window and K/V write
+        rows, plus (T > 1) the page index and masks. Returns (rope,
+        {type: dict})."""
         cfg = self.cfg
         positions = batch.positions
         b, t = positions.shape
-        if prefill is None:
-            prefill = t > 1
-        x = embed_lookup(batch.tokens, params["embed"])
-        views = self._layer_views(buffer)
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        step = {}                          # type -> per-step invariants
-        for tname, view in views.items():
+        step = {}
+        for tname, view in self._attn_views(views).items():
             tables = batch.tables[tname].reshape(b, -1)
             page_pos = batch.page_pos[tname].reshape(b, -1)
             window = cfg.sliding_window \
@@ -332,6 +334,44 @@ class DecoderLM:
                           meta=BA.padded_prefill_meta(slot_pos, positions,
                                                       window=window))
             step[tname] = st
+        return rope, step
+
+    def _head(self, params, x, batch: DecodeBatch) -> torch.Tensor:
+        """Final norm and fp32 logits with pad-vocab columns at -1e30: one
+        row per segment (packed: its last token in the stream) or per
+        batch row (padded: its last real token, or its last slot when the
+        batch has no ``last_idx``)."""
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if batch.seg_ids is not None:
+            x = x[0].index_select(0, batch.seg_last_tok.long())
+        elif batch.last_idx is not None:
+            x = x[torch.arange(x.shape[0], device=x.device),
+                  batch.last_idx.long()]
+        else:
+            x = x[:, -1]
+        logits = logits_local(x, self._unembed(params))
+        return mask_pad_vocab(logits, self.cfg.vocab_size)
+
+    def _serve_padded(self, params, buffer: torch.Tensor, batch: DecodeBatch,
+                      prefill: Optional[bool]) -> torch.Tensor:
+        """One padded serving step (the reference's non-packed
+        ``_serve_body``): one (B, T) row per sequence with per-row tables,
+        page positions and write targets; SENTINEL positions on pad slots,
+        -1 tables and write targets on pad and killed rows.
+
+        ``prefill`` (T > 1): per cycle, every layer's old pages are
+        gathered, attention runs in plain torch (``attn_compute_padded``),
+        and the cycle's K/V writes come last. Otherwise (T == 1) each layer
+        writes its token's K/V and reads its pages in place through the
+        paged decode kernel (``attn_decode``): no gather at all. Returns
+        (B, V_pad) fp32 logits, row b taken at ``last_idx[b]``."""
+        cfg = self.cfg
+        positions = batch.positions
+        if prefill is None:
+            prefill = positions.shape[1] > 1
+        x = embed_lookup(batch.tokens, params["embed"])
+        views = self._layer_views(buffer)
+        rope, step = self._padded_invariants(batch, views, prefill)
         layers = self._layer_params(params)
         qpos = positions[:, 0].contiguous()
         for cycle in range(self.cycles):
@@ -365,8 +405,4 @@ class DecoderLM:
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,
                                 step[tname]["rows"], k, v)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        # one logits row per batch row: its last real token
-        x = x[torch.arange(b, device=x.device), batch.last_idx.long()]
-        logits = logits_local(x, self._unembed(params))
-        return mask_pad_vocab(logits, cfg.vocab_size)
+        return self._head(params, x, batch)

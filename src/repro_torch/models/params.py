@@ -21,7 +21,15 @@ _TP_AXIS = {"embed": 0, "unembed": 0, "q": 1, "k": 1, "v": 1, "o": 1,
             "gate": 1, "up": 1, "down": 1, "q_bias": 1, "k_bias": 1,
             "v_bias": 1}
 MATRICES = frozenset({"embed", "unembed", "q", "k", "v", "o", "gate", "up",
-                      "down"})
+                      "down", "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out"})
+# hybrid subtrees: stacked Mamba2 leaves carry tp at axis 1 (their "norm"
+# has none); the shared attention block's matrices at axis 0
+_HYBRID_TP_AXIS = {
+    "mamba": {n: 1 for n in ("w_z", "w_x", "w_B", "w_C", "w_dt", "dt_bias",
+                             "A_log", "D", "conv_w", "out_norm", "w_out")},
+    "shared_attn": {n: 0 for n in ("q", "k", "v", "o", "gate", "up",
+                                   "down")},
+}
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -35,10 +43,12 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def squeeze_tp(name: str, a) -> np.ndarray:
-    """A reference leaf (numpy) with its size-1 tp axis dropped."""
+def squeeze_tp(name: str, a, axes=None) -> np.ndarray:
+    """A reference leaf (numpy) with its size-1 tp axis dropped (``axes``:
+    the leaf-name -> tp-axis map of its subtree, the dense one by
+    default)."""
     a = np.asarray(a)
-    ax = _TP_AXIS.get(name)
+    ax = (_TP_AXIS if axes is None else axes).get(name)
     if ax is not None:
         if a.shape[ax] != 1:
             raise ValueError(f"{name}: tp dim {a.shape[ax]} != 1 "
@@ -53,20 +63,33 @@ def expand_tp(name: str, a: np.ndarray) -> np.ndarray:
     return a if ax is None else np.expand_dims(a, ax)
 
 
-def _leaf(name: str, a, device, master: bool) -> torch.Tensor:
-    t = tensor_from_numpy(squeeze_tp(name, a)).to(device)
+def _leaf(name: str, a, device, master: bool, axes=None) -> torch.Tensor:
+    t = tensor_from_numpy(squeeze_tp(name, a, axes)).to(device)
     if master:
         return t.float()
     return t.to(torch.bfloat16 if name in MATRICES else torch.float32)
 
 
 def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
-    """Convert the reference's dense-family param tree (leaves as numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``) for ``cfg``. With
-    ``master`` every leaf stays fp32 (training's masters); otherwise
-    matrices become bf16 (serving)."""
+    """Convert the reference's param tree (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) of a dense or hybrid ``cfg``.
+    With ``master`` every leaf stays fp32 (training's masters); otherwise
+    matrices become bf16 (serving). The hybrid's ``conv_w`` stays fp32:
+    the reference multiplies bf16 activations by it in fp32."""
+    if cfg.family == "hybrid":
+        out = {}
+        for name, a in tree.items():
+            if isinstance(a, dict):
+                axes = _HYBRID_TP_AXIS["shared_attn" if name == "shared_attn"
+                                       else "mamba"]
+                out[name] = {n: _leaf(n, x, device, master, axes)
+                             for n, x in a.items()}
+            else:
+                out[name] = _leaf(name, a, device, master)
+        return out
     if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: dense only")
+        raise NotImplementedError(
+            f"family {cfg.family!r}: dense and hybrid only")
     out = {name: _leaf(name, a, device, master)
            for name, a in tree.items() if name != "layers"}
     out["layers"] = {name: _leaf(name, a, device, master)

@@ -526,7 +526,8 @@ class ModelRunner:
                     continue
                 if x.dtype != np.int32:
                     raise NotImplementedError(
-                        f"batch field {f} ({x.dtype}): dense family only")
+                        f"batch field {f} ({x.dtype}): int32 fields only "
+                    "(multimodal inputs are a later slice)")
                 fields.append((f, k, x))
         dev = self._upload(np.concatenate([x.reshape(-1)
                                            for _, _, x in fields]))
