@@ -57,7 +57,11 @@ Phase 2b holds the dense flash kernels (forward; backward dK/dV and dQ)
 against their plain version at granite-3-2b's training shape (B=2, H=32,
 KVL=8, D=64, T=S=2048, causal), with a window of 512, non-causal at
 T=512, internlm2's heads (D=128, G=2) and a ragged T > S case: errors,
-bitwise-repeatable gradients, times, bounds and one SDPA call's time.
+bitwise-repeatable gradients, times, achieved TFLOP/s and share of the
+bound, bounds and one SDPA call's time; each kernel's device time at the
+training shape; every instance's ptxas register/spill line, and its
+tensor-core (HGMMA) instructions counted in the library's SASS (the phase
+fails if a forward, dK/dV or dQ instance has none).
 
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
@@ -560,10 +564,48 @@ def dense_cases():
     ]
 
 
+def _dense_build_facts():
+    """The dense library's ptxas register/spill line of every kernel
+    instance and the tensor-core (HGMMA) instructions of each in its SASS
+    (``cuobjdump -sass``), printed. Raises if a forward, dK/dV or dQ
+    instance has none: a silent fall back to CUDA-core FMAs cannot pass."""
+    import shutil
+    from repro_torch.kernels import build
+    lib = build.library_path("dense_flash")
+    name, regs = None, {}
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        entry = re.search(r"entry function .*?(dense_[a-z]+_kernel)I"
+                          r"Li(\d+)E", line)
+        if entry:
+            name = f"{entry.group(1)}<{entry.group(2)}>"
+        elif name and ("registers" in line or "spill" in line):
+            regs[name] = (regs.get(name, "") + " " + line.split(":")[-1]
+                          .strip()).strip()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : .*?(dense_[a-z]+_kernel)ILi(\d+)E", line)
+        if fn:
+            name = f"{fn.group(1)}<{fn.group(2)}>"
+            hgmma[name] = 0
+        elif name and "HGMMA" in line:
+            hgmma[name] += 1
+    for name in sorted(set(regs) | set(hgmma)):
+        log(f"[kernel dense_flash] {name}: {regs.get(name, '?')}; "
+            f"{hgmma.get(name, 0)} HGMMA instructions in its SASS")
+    missing = [n for n in hgmma if "delta" not in n and not hgmma[n]]
+    if len(hgmma) != 16 or missing:
+        raise AssertionError(f"dense SASS: HGMMA counts {hgmma}; instances "
+                             f"without tensor-core products: {missing}")
+
+
 def phase_dense_kernel():
     """The dense flash kernels against their plain version on the card:
-    forward output and dQ/dK/dV, bitwise-repeatable backward, times and
-    bounds, and one SDPA call as the library yardstick."""
+    forward output and dQ/dK/dV, bitwise-repeatable backward, times,
+    achieved TFLOP/s and share of the bound, one SDPA call as the library
+    yardstick; the instances' ptxas lines and HGMMA counts."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -571,6 +613,7 @@ def phase_dense_kernel():
         flash_attention_plain)
     from repro_torch.kernels.flash_attention.dense import dense_mask
 
+    _dense_build_facts()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -655,6 +698,8 @@ def phase_dense_kernel():
             t_ops = flops / BF16_FLOPS_PER_S * 1e3
             bounds.append((max(t_bytes, t_ops),
                            "bytes" if t_bytes >= t_ops else "operations"))
+        fwd_tflops = 4.0 * D * pairs / (ms * 1e-3) / 1e12
+        bwd_tflops = 10.0 * D * pairs / (bwd_ms * 1e-3) / 1e12
         log(f"[kernel dense_flash] {name} fwd max_abs_err={err:.3e} (tol "
             f"{TOL}) dq/dk/dv max_abs_err={gerr[0]:.3e}/{gerr[1]:.3e}/"
             f"{gerr[2]:.3e} (rel to max {max(grel):.2e}, tol {GRAD_TOL}) "
@@ -664,7 +709,20 @@ def phase_dense_kernel():
             f"sdpa_fwd_ms={lib_ms:.4f} sdpa_bwd_ms={lib_bwd_ms:.4f} "
             f"bound_fwd_ms={bounds[0][0]:.5f} ({bounds[0][1]}) "
             f"bound_bwd_ms={bounds[1][0]:.5f} ({bounds[1][1]}; "
-            f"{pairs / 1e6:.1f} M visible pairs)")
+            f"{pairs / 1e6:.1f} M visible pairs) fwd_tflops={fwd_tflops:.1f} "
+            f"bwd_tflops={bwd_tflops:.1f} (10 D FLOPs per pair) "
+            f"fwd_share_of_bound={bounds[0][0] / ms:.3f} "
+            f"bwd_share_of_bound={bounds[1][0] / bwd_ms:.3f}")
+        if name.startswith("granite"):
+            # device time of each kernel: forward; delta, dK/dV, dQ
+            def bwd():
+                return dense_flash_bwd(q, k, v, out, lse, dout, **kw)
+            parts = {"fwd": device_ms(lambda: dense_flash_fwd(q, k, v, **kw),
+                                      "dense_fwd_kernel", iters=10)}
+            for part in ("delta", "dkv", "dq"):
+                parts[part] = device_ms(bwd, f"dense_{part}_kernel", iters=10)
+            log(f"[kernel dense_flash] {name} device ms: " + " ".join(
+                f"{part}={t:.4f}" for part, t in parts.items()))
         results.append(dict(case=name, err=err, grad_err=max(gerr), ms=ms,
                             bwd_ms=bwd_ms, plain_ms=plain_ms,
                             plain_bwd_ms=plain_bwd_ms,

@@ -1,12 +1,15 @@
 """Dense flash attention, forward and backward: the CUDA kernels' wrappers,
 their ``torch.autograd.Function`` and the plain PyTorch version.
 
-The kernels (``csrc/dense_flash.cu``) replace the TPU kernel
+The kernels (``csrc/dense_flash.cu``: wgmma tensor-core products fed by
+TMA copies) replace the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_tpu`` with one
 change of contract, as the varlen kernel made: k/v carry ``BH / G`` heads
 and q head ``h`` reads kv head ``h // G``. Row i sits at position i and
 column j at j; ``causal`` and ``window`` mask as in the TPU kernel, and any
-T and S are accepted.
+T and S are accepted. The kernels multiply bf16 x bf16 into fp32 and round
+P and dS to bf16 before their products; the plain version keeps fp32
+throughout and is the contract they are held to.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from .. import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_HEADS = 65535          # q heads ride on the grid's y axis
+MAX_HEADS = 65535          # the kernels' contract since their first version
 
 
 def dense_mask(t, s, causal, window, device):

@@ -11,7 +11,12 @@ of up to S terms of O(1) products taken in another order). GQA: the JAX
 side takes K/V repeated G times, the port maps q head h to kv head h // G.
 On the card, bf16 outputs within 2e-2 abs and bf16 gradients within 1e-2
 of the largest |gradient| (a few bf16 ulps, summed in another order).
+A tiled emulation of the tensor-core kernels' arithmetic (bf16 products
+into fp32, P and dS rounded to bf16 before their products) is held to
+those same card tolerances on the CPU.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -27,7 +32,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     dense_flash_attention, dense_flash_bwd, dense_flash_fwd,
     flash_attention_plain)
 from repro_torch.kernels.flash_attention.dense import (  # noqa: E402
-    check_inputs, flash_lse_plain)
+    check_inputs, dense_mask, flash_lse_plain)
 
 
 def _inputs(seed, bh, kvh, t, s, d):
@@ -206,3 +211,124 @@ def test_kernels_match_plain_on_card():
             assert torch.equal(a, b)
             scale = max(1.0, c.float().abs().max().item())
             assert (a.float() - c.float()).abs().max().item() <= 1e-2 * scale
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' arithmetic, emulated tile by tile on the CPU.
+LOG2E = 1.4426950408889634
+MASKED2 = -1e30 * LOG2E       # a masked score, in log2 units
+FWD_KV_TILE = 128             # kv rows per forward tile
+DKV_Q_TILE = 64               # q rows per dK/dV tile
+DQ_KV_TILE = 64               # kv rows per dQ tile
+TOL, GRAD_TOL = 2e-2, 1e-2    # chip_smoke.py's card tolerances
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_fwd(q, k, v, causal, window):
+    """bf16 q, k, v stay unscaled; scores are fp32 products scaled after
+    the product into log2 units; the online softmax runs over kv tiles of
+    FWD_KV_TILE in order; P is rounded to bf16 before P V while the row sum
+    adds the fp32 P. Returns (out bf16, lse fp32)."""
+    g = q.shape[0] // k.shape[0]
+    t, s, d = q.shape[1], k.shape[1], q.shape[2]
+    qf = q.float()
+    kf, vf = (a.repeat_interleave(g, 0).float() for a in (k, v))
+    sl2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * LOG2E
+    mask = dense_mask(t, s, causal, window, q.device)
+    m = torch.full(q.shape[:2], MASKED2)
+    l = torch.zeros(q.shape[:2])
+    acc = torch.zeros(q.shape)
+    for j0 in range(0, s, FWD_KV_TILE):
+        j1 = min(j0 + FWD_KV_TILE, s)
+        sc = torch.einsum("btd,bsd->bts", qf, kf[:, j0:j1]) * sl2
+        sc = torch.where(mask[None, :, j0:j1], sc, torch.tensor(MASKED2))
+        mn = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.exp2(sc - mn[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bts,bsd->btd", _bf(p), vf[:, j0:j1])
+        m = mn
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+    return out, (m + torch.log2(l)) * math.log(2.0)
+
+
+def _emulate_bwd(q, k, v, out, lse, dout, causal, window):
+    """P = exp2(S * scale * log2e - lse * log2e) and dS = P (dP - delta)
+    in fp32, rounded to bf16 before dV += P^T dO, dK += dS^T Q (q tiles of
+    DKV_Q_TILE, the G q heads of a kv head in order) and dQ += dS K (kv
+    tiles of DQ_KV_TILE); dK and dQ are scaled once at the end; rows that
+    see nothing add their 1/S share of dO to every dV row."""
+    kvh, s, d = k.shape
+    bh, t = q.shape[:2]
+    g = bh // kvh
+    qf, of = q.float(), dout.float()
+    kf, vf = (a.repeat_interleave(g, 0).float() for a in (k, v))
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    mask = dense_mask(t, s, causal, window, q.device)
+    delta = (out.float() * of).sum(-1)
+    sc = torch.einsum("btd,bsd->bts", qf, kf)
+    p = torch.exp2(sc * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    p = torch.where(mask[None], p, torch.zeros(()))
+    dp = torch.einsum("btd,bsd->bts", of, vf)
+    ds = p * (dp - delta[..., None])
+    pb, dsb = _bf(p), _bf(ds)
+    dk = torch.zeros((kvh, s, d))
+    dv = torch.zeros((kvh, s, d))
+    for hq in range(bh):
+        for i0 in range(0, t, DKV_Q_TILE):
+            i1 = min(i0 + DKV_Q_TILE, t)
+            dv[hq // g] += pb[hq, i0:i1].T @ of[hq, i0:i1]
+            dk[hq // g] += dsb[hq, i0:i1].T @ qf[hq, i0:i1]
+    dq = torch.zeros(q.shape)
+    for j0 in range(0, s, DQ_KV_TILE):
+        j1 = min(j0 + DQ_KV_TILE, s)
+        dq += torch.einsum("bts,bsd->btd", dsb[:, :, j0:j1], kf[:, j0:j1])
+    if window > 0 and s + window - 1 < t:
+        tail = of[:, s + window - 1:].sum(1).view(kvh, g, d).sum(1)
+        dv += tail[:, None, :] / s
+    return tuple(a.to(torch.bfloat16) for a in (dq * scale, dk * scale, dv))
+
+
+# chip_smoke.py's dense_cases() at reduced sizes: (bh, kvh, t, s, d,
+# causal, window)
+EMULATED_CASES = {
+    "granite D=64 G=4 causal": (8, 2, 256, 256, 64, True, 0),
+    "window": (8, 2, 320, 320, 64, True, 96),
+    "non-causal": (8, 2, 192, 192, 64, False, 0),
+    "internlm2 D=128 G=2": (4, 2, 256, 256, 128, True, 0),
+    "ragged T > S + window D=32": (4, 2, 333, 200, 32, True, 50),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED_CASES))
+def test_tensor_core_rounding_fits_card_tolerances(case):
+    """The kernels round P and dS to bf16 before their products and scale
+    the fp32 scores after the product; an emulation of exactly that, tile
+    by tile, stays within the card's TOL (output) and GRAD_TOL (gradients,
+    of the largest |gradient|) of the plain version. The tolerances are
+    chip_smoke.py's, unchanged: bf16 outputs a few ulps off, the bf16
+    rounding of P and dS adding relative errors of 2^-9 per term that
+    average out over the sums."""
+    bh, kvh, t, s, d, causal, window = EMULATED_CASES[case]
+    rng = np.random.default_rng(17)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16) for shape in (
+            (bh, t, d), (kvh, s, d), (kvh, s, d), (bh, t, d)))
+    out, lse = _emulate_fwd(q, k, v, causal, window)
+    grads = _emulate_bwd(q, k, v, out, lse, dout, causal, window)
+
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    ref = flash_attention_plain(*leaves, causal=causal, window=window)
+    ref_grads = torch.autograd.grad(ref, leaves, dout)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL
+    ref_lse = flash_lse_plain(q, k, causal=causal, window=window)
+    seen = dense_mask(t, s, causal, window, q.device).any(-1)
+    torch.testing.assert_close(lse[:, seen], ref_lse[:, seen], rtol=0,
+                               atol=1e-4)
+    for ours, theirs in zip(grads, ref_grads):
+        bound = GRAD_TOL * max(1.0, theirs.float().abs().max().item())
+        assert (ours.float() - theirs.float()).abs().max().item() <= bound
