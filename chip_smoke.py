@@ -12,7 +12,16 @@ Phases, each of which raises on failure:
    zamba2-1.2b's G=1 besides), with its
    time, the plain version's time, one library call's time where one
    exists and the least time the card could take for the same work: the
-   varlen kernel on packed streams, the paged decode kernel on 8 rows of
+   varlen kernel on packed streams (mixed, decode, window, pad rows and
+   dead slots, rows with no visible slot, G=1; the mixed and decode
+   streams also in the serve path's token-major layout, held byte for
+   byte against the head-major one; internlm2-1.8b's heads (D=128, G=2),
+   qwen2.5-32b's (D=128, G=5) and the reduced configs' (D=16, G=2) on the
+   mixed stream), each within TOL over rows with q_seg >= 0, exact zeros
+   on rows with no visible slot, two calls byte-identical, with its
+   device time, achieved TFLOP/s and share of the bound; every varlen
+   instance's ptxas register/spill line and HGMMA count (the phase fails
+   if one has none); the paged decode kernel on 8 rows of
    64-1056 tokens read from one layer of a 40-layer pool (window 64,
    invalid entries and pad rows, and qwen2.5-32b's D=128, G=5 besides).
 3. The main paths at full width: full granite-3-2b (random weights from
@@ -109,25 +118,33 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel, iters=20):
+def device_ms(fn, kernel, iters=20, tries=5):
     """Mean device time of the CUDA kernels whose name contains
     ``kernel``, over ``iters`` calls of ``fn`` under ``torch.profiler``:
     the kernel's own time even where back-to-back calls are bound by the
-    host's cost per call (which ``cuda_time_ms`` then measures)."""
+    host's cost per call (which ``cuda_time_ms`` then measures). The
+    profiler now and then hands back a window that lacks some or all of
+    its device events (seen on the card: a window with none, and one
+    with 17 of 20): a window whose count is not ``iters`` is taken
+    again, up to ``tries`` times, and the call fails if none has
+    exactly ``iters``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    n = sum(e.count for e in evs)
-    if n != iters:
-        raise AssertionError(f"profiler saw {n} {kernel} launches, not "
-                             f"{iters}")
-    return sum(_dev_us(e) for e in evs) / n / 1e3
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        n = sum(e.count for e in evs)
+        if n == iters:
+            return sum(_dev_us(e) for e in evs) / n / 1e3
+        seen.append(n)
+    raise AssertionError(f"profiler saw {seen} {kernel} launches in "
+                         f"{tries} windows, never {iters}")
 
 
 def _dev_us(e):
@@ -202,6 +219,10 @@ def kernel_cases():
     decode = [(511, 1, 511)] * 16                      # 16 decodes, S = 8192
     padded = [(0, 128, 0), (1024, 100, 1024), (2048, 1, 2048),
               (896, 1, 896)]
+    # granite-3-2b's heads (H 32, KVL 8, D 64) unless a case says otherwise;
+    # "token" cases lay q/k/v out as the serve path passes them (head-major
+    # views of token-major tensors) and are held byte for byte against the
+    # same values in contiguous head-major tensors
     return [
         _case("mixed T=512 S=4608", mixed, t_total=512),
         _case("decode T=16 S=8192", decode, t_total=16),
@@ -213,7 +234,83 @@ def kernel_cases():
         # zamba2-1.2b's shared attention: 32 kv heads for 32 q heads
         dict(_case("zamba2 G=1 mixed T=512 S=4608", mixed, t_total=512),
              kvl=32),
+        dict(_case("mixed T=512 S=4608 token-major", mixed, t_total=512),
+             layout="token"),
+        dict(_case("decode T=16 S=8192 token-major", decode, t_total=16),
+             layout="token"),
+        # internlm2-1.8b's and qwen2.5-32b's heads (configs/archs.py)
+        dict(_case("internlm2 heads D=128 G=2 mixed T=512", mixed,
+                   t_total=512), h=16, kvl=8, d=128, layout="token"),
+        dict(_case("qwen2.5-32b heads D=128 G=5 mixed T=512", mixed,
+                   t_total=512), h=40, kvl=8, d=128, layout="token"),
+        # the reduced configs' heads (phases 4 and 4b serve them)
+        dict(_case("reduced heads D=16 G=2 mixed T=512", mixed,
+                   t_total=512), h=4, kvl=2, d=16, layout="token"),
     ]
+
+
+def _varlen_inputs(case, rng, dev):
+    """q (H, T, D), k, v (KVL, S, D) bf16 from ``rng`` and the case's int32
+    metadata on ``dev``; with layout "token" also the same values as the
+    serve path lays them out (views of (T, H, D) and (S, KVL, D))."""
+    import torch
+    H, KVL, D = case.get("h", 32), case.get("kvl", 8), case.get("d", 64)
+    t, s = len(case["q_seg"]), len(case["kv_seg"])
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+                            device=dev)
+               for shape in ((H, t, D), (KVL, s, D), (KVL, s, D)))
+    meta = [torch.tensor(case[n], device=dev)
+            for n in ("q_seg", "kv_seg", "q_pos", "kv_pos")]
+    token = None
+    if case.get("layout") == "token":
+        token = [a.transpose(0, 1).contiguous().transpose(0, 1)
+                 for a in (q, k, v)]
+    return q, k, v, meta, token
+
+
+def _varlen_check(case, q, k, v, meta, token, kv_tiles):
+    """One case's kernel output against the plain version over rows with
+    q_seg >= 0, exact zeros on rows with no visible slot, two calls
+    byte-identical, and (token layout) the serve layout's output equal to
+    the head-major one byte for byte. Returns (err, visible mask)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_varlen, flash_attention_varlen_plain)
+    dev = q.device
+    w = case["window"]
+    out_k = flash_attention_varlen(q, k, v, *meta, window=w,
+                                   kv_tiles=kv_tiles)
+    again = flash_attention_varlen(q, k, v, *meta, window=w,
+                                   kv_tiles=kv_tiles)
+    bare = flash_attention_varlen(q, k, v, *meta, window=w)
+    out_p = flash_attention_varlen_plain(q, k, v, *meta, window=w)
+    torch.cuda.synchronize()
+    name = case["name"]
+    if not (torch.equal(out_k, again) and torch.equal(out_k, bare)):
+        raise AssertionError(f"{name}: two kernel calls differ")
+    if token is not None:
+        out_t = flash_attention_varlen(*token, *meta, window=w,
+                                       kv_tiles=kv_tiles)
+        torch.cuda.synchronize()
+        if out_t.stride() != token[0].stride() or \
+                not torch.equal(out_t, out_k):
+            raise AssertionError(f"{name}: the token-major layout's output "
+                                 "differs from the head-major one")
+    qs, ks, qp, kp = (case[n] for n in ("q_seg", "kv_seg", "q_pos",
+                                        "kv_pos"))
+    mask = (ks[None, :] == qs[:, None]) & (kp[None, :] <= qp[:, None])
+    if w:
+        mask &= kp[None, :] > qp[:, None] - w
+    valid = torch.tensor(qs >= 0, device=dev)
+    err = (out_k.float() - out_p.float())[:, valid].abs().max().item()
+    if not np.isfinite(err) or err > TOL:
+        raise AssertionError(f"{name}: max abs err {err} > {TOL}")
+    empty_t = torch.tensor(~mask.any(axis=1), device=dev)
+    for label, out in (("kernel", out_k), ("plain", out_p)):
+        if bool((out[:, empty_t] != 0).any()):
+            raise AssertionError(f"{name}: {label} rows with no visible slot "
+                                 "are not exactly 0")
+    return err, mask
 
 
 def phase_kernels():
@@ -221,54 +318,35 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_varlen, flash_attention_varlen_plain)
-    from repro_torch.models.blocks_attn import sparse_blocks
+    from repro_torch.kernels.flash_attention.kernel import (varlen_kv_tiles,
+                                                            varlen_plan)
     from repro_torch.serving.sampler import band_pick, greedy_token
 
+    # every varlen instance must run its products on the tensor cores
+    _build_facts("varlen_flash", "varlen_flash", 4, exempt=())
     dev = torch.device("cuda")
-    H, D = 32, 64
     rng = np.random.default_rng(0)
     results = []
     for case in kernel_cases():
-        KVL = case.get("kvl", 8)
-        t, s = len(case["q_seg"]), len(case["kv_seg"])
-        q = torch.tensor(rng.standard_normal((H, t, D)), dtype=torch.bfloat16,
-                         device=dev)
-        k = torch.tensor(rng.standard_normal((KVL, s, D)),
-                         dtype=torch.bfloat16, device=dev)
-        v = torch.tensor(rng.standard_normal((KVL, s, D)),
-                         dtype=torch.bfloat16, device=dev)
-        meta = [torch.tensor(case[n], device=dev)
-                for n in ("q_seg", "kv_seg", "q_pos", "kv_pos")]
-        blk_q, blk_k = sparse_blocks(t, s)
+        q, k, v, meta, token = _varlen_inputs(case, rng, dev)
+        H, t, D = q.shape
+        KVL, s = k.shape[:2]
         w = case["window"]
+        # the serve path computes the skip metadata once per step
+        kv_tiles = varlen_kv_tiles(meta[1], meta[3])
+        err, mask = _varlen_check(case, q, k, v, meta, token, kv_tiles)
+        tq, n_qt, ns = varlen_plan(t, s, H // KVL, KVL)
+        args = token or (q, k, v)
 
         def kern():
-            return flash_attention_varlen(q, k, v, *meta, window=w,
-                                          blk_q=blk_q, blk_k=blk_k)
+            return flash_attention_varlen(*args, *meta, window=w,
+                                          kv_tiles=kv_tiles)
 
         def plain():
             return flash_attention_varlen_plain(q, k, v, *meta, window=w)
 
-        out_k = kern()
-        out_p = plain()
-        torch.cuda.synchronize()
-        qs, ks, qp, kp = (case[n] for n in ("q_seg", "kv_seg", "q_pos",
-                                            "kv_pos"))
-        mask = (ks[None, :] == qs[:, None]) & (kp[None, :] <= qp[:, None])
-        if w:
-            mask &= kp[None, :] > qp[:, None] - w
-        # pad q rows (seg -1) also match fresh pad slots when those carry
-        # -1; every case here tags them -2, so every row is comparable
-        err = (out_k.float() - out_p.float()).abs().max().item()
-        if not np.isfinite(err) or err > TOL:
-            raise AssertionError(f"{case['name']}: max abs err {err} > {TOL}")
-        empty = ~mask.any(axis=1)
-        empty_t = torch.tensor(empty, device=dev)
-        for label, out in (("kernel", out_k), ("plain", out_p)):
-            if bool((out[:, empty_t] != 0).any()):
-                raise AssertionError(f"{case['name']}: {label} rows with no "
-                                     "visible slot are not exactly 0")
-        ms = cuda_time_ms(kern)
+        ms = device_ms(kern, "varlen_flash_kernel")
+        call_ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=5)
         # yardstick only (never called by the port): SDPA with the same
         # boolean mask over K/V repeated to the q heads
@@ -285,15 +363,20 @@ def phase_kernels():
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[kernel varlen_flash] {case['name']} blk=({blk_q},{blk_k}) "
-            f"empty_rows={int(empty.sum())} max_abs_err={err:.3e} "
-            f"(tol {TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={bound:.5f} ({by}; "
-            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        n_empty = int((~mask.any(axis=1)).sum())
+        log(f"[kernel varlen_flash] {case['name']} H={H} KVL={KVL} D={D} "
+            f"layout={case.get('layout', 'head')} q_tile={tq} tokens "
+            f"x {n_qt}, splits<={ns} empty_rows={n_empty} max_abs_err="
+            f"{err:.3e} (tol {TOL}, rows with q_seg >= 0) repeatable=True "
+            f"ms={ms:.4f} (device time; {call_ms:.4f} per back-to-back "
+            f"call) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bound:.5f} ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB) tflops={flops / ms / 1e9:.1f} "
+            f"share_of_bound={bound / ms:.3f}")
         results.append(dict(case=case["name"], err=err, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound, bound_by=by))
-        del q, k, v, kr, vr
+                            call_ms=call_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bound, bound_by=by))
+        del q, k, v, kr, vr, token
 
     # the fused greedy tail picks what the host picks, bit for bit
     rows = rng.standard_normal((64, 49155)).astype(np.float32)
@@ -564,18 +647,20 @@ def dense_cases():
     ]
 
 
-def _dense_build_facts():
-    """The dense library's ptxas register/spill line of every kernel
-    instance and the tensor-core (HGMMA) instructions of each in its SASS
-    (``cuobjdump -sass``), printed. Raises if a forward, dK/dV or dQ
-    instance has none: a silent fall back to CUDA-core FMAs cannot pass."""
+def _build_facts(lib_name, prefix, n_instances, exempt):
+    """A kernel library's ptxas register/spill line of every kernel
+    instance (``<prefix>_..._kernel<D>``) and the tensor-core (HGMMA)
+    instructions of each in its SASS (``cuobjdump -sass``), printed.
+    Raises unless there are ``n_instances`` and each whose name holds no
+    word of ``exempt`` has HGMMA instructions: a silent fall back to
+    CUDA-core FMAs cannot pass."""
     import shutil
     from repro_torch.kernels import build
-    lib = build.library_path("dense_flash")
+    lib = build.library_path(lib_name)
+    pat = rf"({prefix}_[a-z_]*kernel)ILi(\d+)E"
     name, regs = None, {}
     for line in lib.with_suffix(".log").read_text().splitlines():
-        entry = re.search(r"entry function .*?(dense_[a-z]+_kernel)I"
-                          r"Li(\d+)E", line)
+        entry = re.search(r"entry function .*?" + pat, line)
         if entry:
             name = f"{entry.group(1)}<{entry.group(2)}>"
         elif name and ("registers" in line or "spill" in line):
@@ -586,19 +671,28 @@ def _dense_build_facts():
                           text=True, check=True, timeout=300).stdout
     hgmma, name = {}, None
     for line in sass.splitlines():
-        fn = re.search(r"Function : .*?(dense_[a-z]+_kernel)ILi(\d+)E", line)
+        fn = re.search(r"Function : .*?" + pat, line)
         if fn:
             name = f"{fn.group(1)}<{fn.group(2)}>"
             hgmma[name] = 0
         elif name and "HGMMA" in line:
             hgmma[name] += 1
     for name in sorted(set(regs) | set(hgmma)):
-        log(f"[kernel dense_flash] {name}: {regs.get(name, '?')}; "
+        log(f"[kernel {lib_name}] {name}: {regs.get(name, '?')}; "
             f"{hgmma.get(name, 0)} HGMMA instructions in its SASS")
-    missing = [n for n in hgmma if "delta" not in n and not hgmma[n]]
-    if len(hgmma) != 16 or missing:
-        raise AssertionError(f"dense SASS: HGMMA counts {hgmma}; instances "
-                             f"without tensor-core products: {missing}")
+    missing = [n for n in hgmma
+               if not any(x in n for x in exempt) and not hgmma[n]]
+    if len(hgmma) != n_instances or missing:
+        raise AssertionError(f"{lib_name} SASS: HGMMA counts {hgmma}; "
+                             f"instances without tensor-core products: "
+                             f"{missing}")
+
+
+def _dense_build_facts():
+    """The dense library's facts (``_build_facts``): a forward, dK/dV or dQ
+    instance without HGMMA instructions fails; the delta pre-pass has
+    none by design."""
+    _build_facts("dense_flash", "dense", 16, exempt=("delta",))
 
 
 def phase_dense_kernel():

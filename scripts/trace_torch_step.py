@@ -13,7 +13,9 @@ in one batching mode and, after ``--skip`` untraced steps, traces a window
 of engine steps with ``torch.profiler``:
 host wall time per step, device kernel time per step (the sum over CUDA
 kernels, so the device's busy share is device ms / wall ms), kernel
-launches per step, and the kernels and host ops that take the most time.
+launches per step, each of the port's own kernels' device time per step
+and share of the device time, and the kernels and host ops that take the
+most time.
 """
 from __future__ import annotations
 
@@ -109,6 +111,13 @@ def main() -> int:
           f"kernels {dev_ms:.1f} ms (busy share "
           f"{dev_ms / wall_ms:.3f}), {launches} kernel launches "
           f"({launches / args.steps:.0f} per step)")
+    for name in ("varlen_flash", "paged_decode", "mamba_scan"):
+        mine = [e for e in kernels if f"{name}_kernel" in e.key]
+        if mine:
+            ms = sum(dev_us(e) for e in mine) / 1e3
+            print(f"[trace] {name}_kernel: {ms / args.steps:.3f} ms per "
+                  f"step over {sum(e.count for e in mine) / args.steps:.0f} "
+                  f"launches ({ms / dev_ms:.3f} of device time)")
     print("[trace] kernels by device time:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:6d}  {e.key[:90]}")

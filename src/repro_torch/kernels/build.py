@@ -4,7 +4,8 @@ Each source under a ``csrc/`` directory exports plain C functions (device
 pointers and the stream passed as ``void*``). It is compiled for
 ``sm_90a`` into a shared library at first use, under ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``); the library's name
-carries a hash of its source, so an edited source is rebuilt. A failed
+carries a hash of its source and of every header it includes with
+``#include "..."``, so an edited source or header is rebuilt. A failed
 build raises: there is no fallback.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -46,9 +48,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: pathlib.Path, seen=None) -> list:
+    """``path`` and the local headers it includes, recursively (each
+    resolved next to the file that includes it), in the order found."""
+    seen = [] if seen is None else seen
+    path = path.resolve()
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(SOURCES[name]):
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import (dense_flash_attention,
                                       flash_attention_varlen)
+from ..kernels.flash_attention.kernel import varlen_kv_tiles
 from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
@@ -85,7 +86,9 @@ def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
     recovers each segment's chunk start, and slots at or past it — plus
     dead/pad slots (seg -2) — are re-tagged seg -2 so they never match.
     Fresh tokens ride with kv_pos = positions, so the kernel's
-    ``kpos <= qpos`` rule is the intra-chunk causal mask."""
+    ``kpos <= qpos`` rule is the intra-chunk causal mask. ``kv_tiles`` is
+    the kernel's per-tile skip metadata (``varlen_kv_tiles``), computed
+    here once for all layers."""
     t = seg_ids.shape[1]
     s = slot_pos.shape[1]
     sid = seg_ids[0]
@@ -98,8 +101,9 @@ def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
     kv_seg = torch.cat([torch.where(live, slot_seg[0], -2), sid])
     kv_pos = torch.cat([slot_pos[0], positions[0]])
     blk_q, blk_k = sparse_blocks(t, s + t)
-    return dict(q_seg=sid.int(), kv_seg=kv_seg.int(),
-                q_pos=positions[0].int(), kv_pos=kv_pos.int(),
+    kv_seg, kv_pos = kv_seg.int(), kv_pos.int()
+    return dict(q_seg=sid.int(), kv_seg=kv_seg, q_pos=positions[0].int(),
+                kv_pos=kv_pos, kv_tiles=varlen_kv_tiles(kv_seg, kv_pos),
                 blk_q=blk_q, blk_k=blk_k)
 
 
@@ -120,7 +124,7 @@ def packed_kernel_attention(q, k_old, v_old, k_fresh, v_fresh, meta, *,
         q[0].reshape(t, kvl * g, d).transpose(0, 1), kk.transpose(0, 1),
         vv.transpose(0, 1), meta["q_seg"], meta["kv_seg"], meta["q_pos"],
         meta["kv_pos"], window=window, blk_q=meta["blk_q"],
-        blk_k=meta["blk_k"])                               # (H, T, D)
+        blk_k=meta["blk_k"], kv_tiles=meta["kv_tiles"])    # (H, T, D)
     return out.transpose(0, 1).reshape(1, t, kvl, g, d)
 
 

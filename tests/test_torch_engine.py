@@ -139,8 +139,10 @@ def test_main_path_feeds_the_kernel_valid_inputs(monkeypatch):
     calls = []
 
     def spy(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, window=0, blk_q=128,
-            blk_k=128):
-        check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos, blk_q, blk_k)
+            blk_k=128, kv_tiles=None):
+        assert kv_tiles is not None        # the step's skip metadata
+        check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos, blk_q, blk_k,
+                     kv_tiles)
         calls.append(q.shape)
         return flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos,
                                             kv_pos, window=window)

@@ -6,7 +6,10 @@ packed serve-path wrapper and the segment-mask property.
 Tolerances: fp32 inputs 3e-5 (the JAX tests' own bound: online vs
 two-pass softmax in fp32); bf16 packed-path outputs 2e-2 (a few bf16 ulps
 at |out| ~ 1, with a different summation order). The CUDA kernel itself
-runs only on the card: its test is marked ``cuda`` and skips here.
+runs only on the card: its test is marked ``cuda`` and skips here; a
+tile-by-tile emulation of its numerics (GQA-packed q tiles, the hit list,
+split partials, bf16 P) is held here to the card's tolerance (2e-2, as
+``chip_smoke.py``'s ``TOL``).
 """
 import numpy as np
 import pytest
@@ -23,6 +26,8 @@ from repro.kernels.flash_attention.ref import \
 from repro.models import blocks_attn as JBA  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_varlen, flash_attention_varlen_plain)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    KV_TILE, SPLIT_TILES, check_inputs, varlen_kv_tiles, varlen_plan)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import blocks_attn as BA  # noqa: E402
 from repro_torch.models.params import tensor_from_numpy  # noqa: E402
@@ -189,10 +194,228 @@ def test_segment_mask_property():
     check()
 
 
+TOL = 2e-2          # chip_smoke.py's bf16 output tolerance
+LOG2E = 1.4426950408889634
+
+
+def _stream(segs, *, t_total, dead_slots=0, novis=()):
+    """A packed call as the serve path builds it (chip_smoke.py's
+    ``_case``): each segment is (old slots, fresh tokens, chunk start); kv =
+    old slots ++ dead slots (seg -2) ++ the fresh tokens; q pads (seg -1)
+    at the end, fresh pad slots tagged -2; segments in ``novis`` see no
+    slot. Returns q_seg, q_pos, kv_seg, kv_pos (int32 numpy)."""
+    q_seg, q_pos, kv_seg, kv_pos = [], [], [], []
+    for si, (old, fresh, start) in enumerate(segs):
+        kv_seg += [-2 if si in novis else si] * old
+        kv_pos += list(range(old))
+        q_seg += [si] * fresh
+        q_pos += list(range(start, start + fresh))
+    kv_seg += [-2] * dead_slots
+    kv_pos += [1 << 29] * dead_slots
+    n_pad = t_total - len(q_seg)
+    q_seg += [-1] * n_pad
+    q_pos += [1 << 29] * n_pad
+    kv_seg += [-2 if x in novis or x < 0 else x for x in q_seg]
+    kv_pos += q_pos
+    return tuple(np.array(a, np.int32) for a in (q_seg, q_pos, kv_seg,
+                                                 kv_pos))
+
+
+def _emulate_kernel(q, k, v, q_seg, kv_seg, q_pos, kv_pos, window=0):
+    """The CUDA kernel's arithmetic, tile by tile, on the CPU: q tiles of
+    ``varlen_plan`` tokens whose rows are GQA packed (row r: token r // G,
+    head r % G), each q tile's hit list from ``varlen_kv_tiles``, split
+    into runs of it as the kernel splits it, bf16 inputs multiplied
+    exactly and summed in fp32, the scale after the product, base-2
+    softmax with -inf masking, P rounded to bf16 before P V (l sums the
+    fp32 P), split partials combined in split order, out = acc / max(l,
+    1e-30). Returns (out bf16, the largest number of splits a q tile
+    used)."""
+    bh, t, d = q.shape
+    kvh, s = k.shape[:2]
+    g = bh // kvh
+    tq, n_qt, ns = varlen_plan(t, s, g, kvh)
+    tiles = varlen_kv_tiles(kv_seg, kv_pos)
+    sl2 = d ** -0.5 * LOG2E
+    qf, kf, vf = (a.float() for a in (q, k, v))
+    out = torch.zeros(bh, t, d)
+    most = 0
+    for qt in range(n_qt):
+        toks = torch.arange(qt * tq, min(t, (qt + 1) * tq))
+        seg, pos = q_seg[toks], q_pos[toks]
+        ok = seg >= 0
+        hits = []
+        if bool(ok.any()):
+            hit = (tiles[:, 0] <= seg[ok].max()) & \
+                (tiles[:, 1] >= seg[ok].min()) & (tiles[:, 2] <= pos[ok].max())
+            if window:
+                hit &= tiles[:, 3] > pos[ok].min() - window
+            hits = hit.nonzero().flatten().tolist()
+        used = max(1, min(ns, -(-len(hits) // SPLIT_TILES)))
+        most = max(most, used)
+        rt = toks.repeat_interleave(g)                 # row -> token
+        for kv in range(kvh):
+            rh = kv * g + torch.arange(g).repeat(len(toks))   # row -> head
+            qr, qsr, qpr = qf[rh, rt], q_seg[rt], q_pos[rt]
+            parts = []
+            for sp in range(used):
+                m = torch.full((len(rt),), -torch.inf)
+                l = torch.zeros(len(rt))
+                acc = torch.zeros(len(rt), d)
+                lo, hi = sp * len(hits) // used, (sp + 1) * len(hits) // used
+                for kt in hits[lo:hi]:
+                    j = torch.arange(kt * KV_TILE, min(s, (kt + 1) * KV_TILE))
+                    vis = (kv_seg[j][None] == qsr[:, None]) & \
+                        (kv_pos[j][None] <= qpr[:, None])
+                    if window:
+                        vis &= kv_pos[j][None] > qpr[:, None] - window
+                    sc = torch.where(vis, (qr @ kf[kv, j].T) * sl2,
+                                     -torch.inf)
+                    mn = torch.maximum(m, sc.amax(1))
+                    mu = torch.where(mn == -torch.inf, 0.0, mn)
+                    corr = torch.exp2(m - mu)
+                    p = torch.exp2(sc - mu[:, None])
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + \
+                        p.to(torch.bfloat16).float() @ vf[kv, j]
+                    m = mn
+                parts.append((m, l, acc))
+            m, l, acc = parts[0]
+            if used > 1:
+                mm = torch.stack([pt[0] for pt in parts]).amax(0)
+                mu = torch.where(mm == -torch.inf, 0.0, mm)
+                l, acc = torch.zeros_like(l), torch.zeros_like(acc)
+                for m_, l_, a_ in parts:
+                    w = torch.exp2(m_ - mu)
+                    l = l + l_ * w
+                    acc = acc + a_ * w[:, None]
+            out[rh, rt] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.to(torch.bfloat16), most
+
+
+_MIXED = [(0, 40, 0), (300, 30, 300), (700, 1, 700), (500, 1, 500),
+          (600, 1, 600)]
+# name -> (H, KVL, D, window, stream kwargs): the kernel's cases at reduced
+# sizes. Every case splits a q tile (the decode tokens' hit lists exceed
+# SPLIT_TILES tiles); pads, dead slots and rows without a visible slot as
+# named.
+EMULATED_VARLEN = {
+    "granite heads G=4 D=64, pads": (8, 2, 64, 0, dict(t_total=96)),
+    "zamba2 heads G=1 D=64, dead slots": (
+        4, 4, 64, 0, dict(t_total=96, dead_slots=70)),
+    "qwen2.5-32b heads G=5 D=128": (10, 2, 128, 0, dict(t_total=80)),
+    "internlm2 heads G=2 D=128, window": (4, 2, 128, 24, dict(t_total=96)),
+    "G=4 D=64 window 400, no visible slot": (
+        8, 2, 64, 400, dict(t_total=96, novis=(1, 3))),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED_VARLEN))
+def test_tensor_core_tiling_fits_card_tolerance(case):
+    """The emulated kernel (``_emulate_kernel``) against the plain version
+    and the JAX kernel (interpret mode) over rows with q_seg >= 0, within
+    the card's TOL; rows with no visible slot exactly 0."""
+    h, kvl, d, window, kw = EMULATED_VARLEN[case]
+    q_seg, q_pos, kv_seg, kv_pos = _stream(_MIXED, **kw)
+    t_, s = len(q_seg), len(kv_seg)
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+        for shape in ((h, t_, d), (kvl, s, d), (kvl, s, d)))
+    meta = tuple(map(t, (q_seg, kv_seg, q_pos, kv_pos)))
+    ours, most = _emulate_kernel(q, k, v, *meta, window=window)
+    assert most > 1                      # a q tile was split
+    valid = q_seg >= 0
+    plain = flash_attention_varlen_plain(q, k, v, *meta, window=window)
+    assert (ours.float() - plain.float())[:, valid].abs().max() <= TOL
+    jq, jk, jv = _jax_rep(*(a.float().numpy() for a in (q, k, v)))
+    kern = flash_attention_varlen_tpu(
+        jq, jk, jv, *map(jnp.asarray, (q_seg, kv_seg, q_pos, kv_pos)),
+        window=window, blk_q=t_, blk_k=512, interpret=True)
+    diff = np.abs(ours.float().numpy() - np.asarray(kern, np.float32))
+    assert diff[:, valid].max() <= TOL
+    mask = (kv_seg[None] == q_seg[:, None]) & (kv_pos[None] <= q_pos[:, None])
+    if window:
+        mask &= kv_pos[None] > q_pos[:, None] - window
+    empty = ~mask.any(1)
+    assert empty.any() == ("no visible" in case or bool((~valid).any()))
+    assert (ours[:, torch.from_numpy(empty)] == 0).all()
+
+
+def test_varlen_kv_tiles_match_numpy():
+    """Per-tile (seg lo, seg hi, pos lo, pos hi) over live slots, with the
+    empty marker for tiles of dead and pad slots and a ragged last tile."""
+    rng = np.random.default_rng(4)
+    s = 3 * KV_TILE + 37
+    kv_seg = rng.integers(-2, 5, s).astype(np.int32)
+    kv_seg[KV_TILE:2 * KV_TILE] = -2                   # a tile of no live slot
+    kv_pos = rng.integers(0, 1000, s).astype(np.int32)
+    got = varlen_kv_tiles(t(kv_seg), t(kv_pos)).numpy()
+    assert got.dtype == np.int32 and got.shape == (4, 4)
+    for i in range(4):
+        sg = kv_seg[i * KV_TILE:(i + 1) * KV_TILE]
+        ps = kv_pos[i * KV_TILE:(i + 1) * KV_TILE]
+        live = sg >= 0
+        want = ([sg[live].min(), sg[live].max(), ps[live].min(),
+                 ps[live].max()] if live.any() else
+                [1 << 30, -(1 << 30), 1 << 30, -(1 << 30)])
+        assert got[i].tolist() == want, i
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_packed_meta_tile_intervals_match_numpy(window):
+    """``packed_attention_meta``'s kv_tiles (computed once per step) equal
+    a numpy recomputation from its own kv_seg / kv_pos, and the one-call
+    packed path with them equals the call that computes them itself."""
+    q, k, v, kf, vf, seg, pos, cs, sseg, spos = packed_case(s=300)
+    meta = BA.packed_attention_meta(t(spos), t(sseg), t(pos), t(seg), t(cs))
+    ks, kp = meta["kv_seg"].numpy(), meta["kv_pos"].numpy()
+    n = -(-len(ks) // KV_TILE)
+    want = np.empty((n, 4), np.int64)
+    for i in range(n):
+        sg, ps = ks[i * KV_TILE:(i + 1) * KV_TILE], \
+            kp[i * KV_TILE:(i + 1) * KV_TILE]
+        live = sg >= 0
+        want[i] = ([sg[live].min(), sg[live].max(), ps[live].min(),
+                    ps[live].max()] if live.any() else
+                   [1 << 30, -(1 << 30), 1 << 30, -(1 << 30)])
+    assert np.array_equal(meta["kv_tiles"].numpy(), want)
+    ours = BA.packed_kernel_attention(t(q), t(k), t(v), t(kf), t(vf), meta,
+                                      window=window)
+    bare = dict(meta, kv_tiles=None)
+    assert torch.equal(ours, BA.packed_kernel_attention(
+        t(q), t(k), t(v), t(kf), t(vf), bare, window=window))
+
+
+def test_plan_and_checks():
+    """The launch plan's q tiles and splits (decode-like streams split,
+    large grids do not), and the wrapper's checks of the new inputs."""
+    assert varlen_plan(16, 8192, 4, 8) == (32, 1, 64 // SPLIT_TILES)
+    assert varlen_plan(512, 4608, 4, 8) == (32, 16, 3)
+    assert varlen_plan(512, 4608, 5, 8) == (24, 22, 2)
+    assert varlen_plan(512, 4608, 1, 32) == (128, 4, 3)
+    assert varlen_plan(4096, 4608, 4, 8)[2] == 1
+    q, k, v, q_seg, q_pos, kv_seg, kv_pos = _inputs(5, 4, 32, 300, 16,
+                                                    kvh=2)
+    args = [t(x).to(torch.bfloat16) for x in (q, k, v)] + \
+        [t(x) for x in (q_seg, kv_seg, q_pos, kv_pos)]
+    tiles = varlen_kv_tiles(args[4], args[6])
+    assert check_inputs(*args, 128, 128, tiles) == (4, 32, 300, 16, 2)
+    with pytest.raises(ValueError):
+        check_inputs(*args, 128, 128, tiles[:2])
+    with pytest.raises(TypeError):
+        check_inputs(*args, 128, 128, tiles.long())
+    with pytest.raises(ValueError):                    # 65 q heads a kv head
+        check_inputs(args[0].repeat(33, 1, 1)[:130], args[1][:1].repeat(
+            2, 1, 1), *args[2:], 128, 128)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel against its plain version on the card (GQA, window,
-    pad rows, dead slots), exact zeros where no slot is visible."""
+    pad rows, dead slots; qwen2.5-32b's G=5 at D 128; the serve path's
+    token-major views; q tiles split over blocks), exact zeros where no
+    slot is visible, two calls byte-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU form")
     dev = torch.device("cuda")
@@ -209,3 +432,26 @@ def test_cuda_kernel_matches_plain():
         valid = torch.tensor(q_seg >= 0, device=dev)
         err = (out.float() - ref.float())[:, valid].abs().max().item()
         assert err < 2e-2, err
+    for (h, kvl, d), window in (((40, 8, 128), 0), ((8, 2, 64), 16),
+                                ((4, 4, 64), 0)):
+        q_seg, q_pos, kv_seg, kv_pos = _stream(_MIXED, t_total=96,
+                                               dead_slots=70)
+        rng = np.random.default_rng(h)
+        head = [torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+                             device=dev)
+                for shape in ((h, 96, d), (kvl, len(kv_seg), d),
+                              (kvl, len(kv_seg), d))]
+        token = [a.transpose(0, 1).contiguous().transpose(0, 1)
+                 for a in head]
+        meta = [t(x).to(dev) for x in (q_seg, kv_seg, q_pos, kv_pos)]
+        assert varlen_plan(96, len(kv_seg), h // kvl, kvl)[2] > 1
+        outs = [flash_attention_varlen(*qkv, *meta, window=window)
+                for qkv in (token, token, head)]
+        ref = flash_attention_varlen_plain(*head, *meta, window=window)
+        assert torch.equal(outs[0], outs[1])       # byte-identical repeats
+        assert torch.equal(outs[0], outs[2])       # layouts agree bit for bit
+        assert outs[0].stride() == token[0].stride()
+        valid = torch.tensor(q_seg >= 0, device=dev)
+        err = (outs[0].float() - ref.float())[:, valid].abs().max().item()
+        assert err < TOL, (h, kvl, d, err)
+        assert bool((outs[0][:, ~valid] == 0).all())   # pads see nothing

@@ -373,9 +373,10 @@ def test_hybrid_path_feeds_the_kernels_valid_inputs(monkeypatch, mode,
         return mamba_chunk_scan_varlen_plain(*args)
 
     def varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *, window=0,
-               blk_q=128, blk_k=128):
+               blk_q=128, blk_k=128, kv_tiles=None):
+        assert kv_tiles is not None        # the step's skip metadata
         varlen_kernel.check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos,
-                                   blk_q, blk_k)
+                                   blk_q, blk_k, kv_tiles)
         calls["varlen"] += 1
         return flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos,
                                             kv_pos, window=window)
