@@ -51,16 +51,22 @@ Phases, each of which raises on failure:
 The hybrid path (since the Mamba2 chunk-scan kernel): phase 2c holds the
 scan kernel against its plain version at zamba2-1.2b's widths (H 64, P 64,
 N 64) on a packed mixed step, a packed decode step (non-zero initial
-states, a killed segment as a zero-length row) and a padded step, with
-repeatable bytes; phase 2 and the paged phase add zamba2's G = 1 heads
-(the paged case at tokens_per_page 19). Phase 3b serves full-width
-zamba2-1.2b (random weights from seed 0, tokens_per_page 19, a pool of 4
-large pages) with the 8 prompts of phase 3: packed at depths 1, 2 and 4
-(bitwise equal, mamba launches == dispatches x 38), packed at a 256-token
-budget (noise floor), padded and serial (fork-aware equal to packed within
-twice that floor), every leg drained with no leaked page and state
-checkpoint copies made. Phase 4b serves reduced zamba2 on the card and on
-the CPU.
+states, a killed segment as a zero-length row), a padded step (gaps
+between rows), a 2048-token row beside 7 decodes (32 chained chunks) and
+the reduced widths (P = N = 16): y and final states within MAMBA_TOL,
+killed rows' states bit for bit, y exactly 0 outside rows, repeatable
+bytes, the device time, the
+wrapper's host time to issue a call, achieved TFLOP/s and share of the
+bound, and every scan instance's ptxas line and HGMMA count (the phase
+fails if an instance has none); phase 2 and the paged phase add
+zamba2's G = 1 heads (the paged case at tokens_per_page 19). Phase 3b
+serves full-width zamba2-1.2b (random weights from seed 0,
+tokens_per_page 19, a pool of 4 large pages) with the 8 prompts of phase
+3: packed at depths 1, 2 and 4 (bitwise equal, mamba launches ==
+dispatches x 38), packed at a 256-token budget (noise floor), padded and
+serial (fork-aware equal to packed within twice that floor), every leg
+drained with no leaked page and state checkpoint copies made. Phase 4b
+serves reduced zamba2 on the card and on the CPU.
 
 Phase 2b holds the dense flash kernels (forward; backward dK/dV and dQ)
 against their plain version at granite-3-2b's training shape (B=2, H=32,
@@ -120,14 +126,17 @@ def cuda_time_ms(fn, iters=20, warmup=3):
 
 def device_ms(fn, kernel, iters=20, tries=5):
     """Mean device time of the CUDA kernels whose name contains
-    ``kernel``, over ``iters`` calls of ``fn`` under ``torch.profiler``:
+    ``kernel``, over the calls of ``fn`` in a ``torch.profiler`` window:
     the kernel's own time even where back-to-back calls are bound by the
     host's cost per call (which ``cuda_time_ms`` then measures). The
-    profiler now and then hands back a window that lacks some or all of
-    its device events (seen on the card: a window with none, and one
-    with 17 of 20): a window whose count is not ``iters`` is taken
-    again, up to ``tries`` times, and the call fails if none has
-    exactly ``iters``."""
+    window makes ``iters + 2`` calls. The profiler now and then hands
+    back a window that lacks some or all of its device events (seen on
+    the card: a window with none, one with 17 of 20, and windows one
+    short): a window with fewer than ``iters`` or more than ``iters + 2``
+    of them is taken again, up to ``tries`` times, and the call fails if
+    none fits. The mean is over the launches the window recorded, which
+    of the calls they were is not checked: every call of ``fn`` does the
+    same work on the same inputs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -135,16 +144,17 @@ def device_ms(fn, kernel, iters=20, tries=5):
     seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(iters + 2):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if kernel in e.key]
         n = sum(e.count for e in evs)
-        if n == iters:
+        if iters <= n <= iters + 2:
             return sum(_dev_us(e) for e in evs) / n / 1e3
         seen.append(n)
     raise AssertionError(f"profiler saw {seen} {kernel} launches in "
-                         f"{tries} windows, never {iters}")
+                         f"{tries} windows of {iters + 2} calls, never "
+                         f"{iters} to {iters + 2}")
 
 
 def _dev_us(e):
@@ -521,19 +531,69 @@ MAMBA_TOL = 1e-3    # fp32 scan: max abs err over the largest |value|, sums in a
 
 
 def mamba_cases():
-    """(name, row_start, row_len, TT) of scan calls as the zamba2 serve
-    path makes them: a packed mixed step (TT 512, 8 ragged segments, one
-    killed in flight: length 0), a packed decode step (8 one-token
-    segments, one killed) and a padded step (4 rows of T 256, ragged)."""
+    """(name, row_start, row_len, TT, H, P, N) of scan calls as the zamba2
+    serve path makes them, at zamba2-1.2b's widths (H 64, P 64, N 64)
+    unless a case says otherwise: a packed mixed step (TT 512, 8 ragged
+    segments, one killed in flight: length 0), a packed decode step (8
+    one-token segments, one killed), a padded step (4 rows of T 256,
+    ragged, gaps between rows), a long row (one 2048-token prefill beside 7
+    decodes: 32 chunks chained) and the packed mixed step at the reduced
+    configs' widths (H 8, P 16, N 16; phase 4b serves them)."""
+    def packed(lens):
+        return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
+
     mixed = [256, 150, 1, 1, 1, 60, 0, 30]
-    starts = np.concatenate([[0], np.cumsum(mixed)[:-1]])
-    decode = [1, 1, 1, 0, 1, 1, 1, 1]
-    dstarts = np.concatenate([[0], np.cumsum(decode)[:-1]])
     return [
-        ("packed mixed TT=512 R=8", starts, mixed, 512),
-        ("packed decode TT=8 R=8", dstarts, decode, 8),
-        ("padded B=4 T=256", np.arange(4) * 256, [256, 100, 1, 37], 1024),
+        ("packed mixed TT=512 R=8", *packed(mixed), 512, 64, 64, 64),
+        ("packed decode TT=8 R=8", *packed([1, 1, 1, 0, 1, 1, 1, 1]), 8, 64,
+         64, 64),
+        ("padded B=4 T=256", np.arange(4) * 256, [256, 100, 1, 37], 1024, 64,
+         64, 64),
+        ("long row 2048 + 7 decodes", *packed([2048] + [1] * 7), 2055, 64,
+         64, 64),
+        ("reduced P=N=16 packed mixed", *packed(mixed), 512, 8, 16, 16),
     ]
+
+
+def mamba_inputs(case, gen, dev):
+    """One case's kernel arguments from ``gen``: x, B and C as the serve
+    path passes them (views of one xbc row per token), dt after softplus,
+    and non-zero initial states (a strided view of the per-row state, as
+    the state pages hold it beside the conv state)."""
+    import torch
+    _, starts, lens, tt, H, P, N = case
+    r, conv = len(lens), 3 * (H * P + 2 * N)
+    xbc = (0.5 * torch.randn((tt, H * P + 2 * N), generator=gen,
+                             device=dev)).to(torch.bfloat16)
+    x = xbc[:, :H * P].view(tt, H, P)
+    bm, cm = xbc[:, H * P:H * P + N], xbc[:, H * P + N:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((tt, H), generator=gen, device=dev))
+    a_log = 0.5 * torch.randn((H,), generator=gen, device=dev)
+    flat = 0.3 * torch.randn((r, H * P * N + conv), generator=gen,
+                             device=dev)
+    s0 = flat[:, :H * P * N].view(r, H, P, N)
+    rows = [torch.tensor(np.asarray(v), dtype=torch.int32, device=dev)
+            for v in (starts, lens)]
+    return (x, bm, cm, dt, a_log, *rows, s0)
+
+
+def host_issue_ms(fn, calls=100, tries=3):
+    """Host time to issue one call of ``fn``: the least over ``tries``
+    runs of ``calls`` back-to-back calls before a synchronise (the way
+    ``scripts/packed_step_time.py`` times the varlen wrapper)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(tries):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return best
 
 
 def _scan_work(lens, h, p, n, chunk=64):
@@ -552,36 +612,29 @@ def _scan_work(lens, h, p, n, chunk=64):
 
 def phase_mamba_kernel():
     """The Mamba2 chunk-scan kernel against its plain version on the card
-    at zamba2-1.2b's widths (H 64, P 64, N 64), with x, B and C passed as
-    the serve path passes them (views of one xbc row per token) and
-    non-zero initial states (a strided view of the per-row state):
-    outputs and final states within MAMBA_TOL, two calls giving the same
-    bytes, the kernel's device time (``device_ms``), the time per
-    back-to-back call, the plain version's time and the bound."""
+    (``mamba_cases``): outputs and final states within MAMBA_TOL, killed
+    rows' states bit for bit, y exactly 0 outside every row, two calls
+    giving the same bytes; the kernel's device time (``device_ms``), the
+    time per back-to-back call, the wrapper's host time to issue a call,
+    the plain version's time, the bound, achieved TFLOP/s and share of
+    the bound; every instance's ptxas register/spill line and HGMMA count
+    (the phase fails if one has none: every instance's chunk path runs its
+    products on the tensor cores)."""
     import torch
     from repro_torch.kernels.mamba_scan import (
         mamba_chunk_scan_varlen, mamba_chunk_scan_varlen_plain)
+    from repro_torch.kernels.mamba_scan.kernel import scan_blocks
 
+    _build_facts("mamba_scan", "mamba_scan", 16, exempt=())
     dev = torch.device("cuda")
-    H, P, N, conv = 64, 64, 64, 12672
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     results = []
-    for name, starts, lens, tt in mamba_cases():
+    for case in mamba_cases():
+        name, starts, lens, tt, H, P, N = case
         r = len(lens)
-        xbc = (0.5 * torch.randn((tt, H * P + 2 * N), generator=gen,
-                                 device=dev)).to(torch.bfloat16)
-        x = xbc[:, :H * P].view(tt, H, P)
-        bm, cm = xbc[:, H * P:H * P + N], xbc[:, H * P + N:]
-        dt = torch.nn.functional.softplus(
-            torch.randn((tt, H), generator=gen, device=dev))
-        a_log = 0.5 * torch.randn((H,), generator=gen, device=dev)
-        flat = 0.3 * torch.randn((r, H * P * N + conv), generator=gen,
-                                 device=dev)
-        s0 = flat[:, :H * P * N].view(r, H, P, N)
-        rows = [torch.tensor(np.asarray(v), dtype=torch.int32, device=dev)
-                for v in (starts, lens)]
-        args = (x, bm, cm, dt, a_log, *rows, s0)
+        args = mamba_inputs(case, gen, dev)
+        s0 = args[-1]
         y, s1 = mamba_chunk_scan_varlen(*args)
         y2, s2 = mamba_chunk_scan_varlen(*args)
         ry, rs = mamba_chunk_scan_varlen_plain(*args)
@@ -600,9 +653,18 @@ def phase_mamba_kernel():
             if ln == 0 and not torch.equal(s1[i], s0[i]):
                 raise AssertionError(f"mamba {name}: a zero-length row "
                                      "changed its state")
-        ms = device_ms(lambda: mamba_chunk_scan_varlen(*args),
-                       "mamba_scan_kernel")
-        call_ms = cuda_time_ms(lambda: mamba_chunk_scan_varlen(*args))
+        inside = np.zeros(tt, bool)
+        for st, ln in zip(starts, lens):
+            inside[st:st + ln] = True
+        if bool((y[torch.tensor(~inside, device=dev)] != 0).any()):
+            raise AssertionError(f"mamba {name}: y is not 0 outside rows")
+
+        def kern():
+            return mamba_chunk_scan_varlen(*args)
+
+        ms = device_ms(kern, "mamba_scan_kernel")
+        call_ms = cuda_time_ms(kern)
+        host_ms = host_issue_ms(kern)
         plain_ms = cuda_time_ms(lambda: mamba_chunk_scan_varlen_plain(*args),
                                 iters=5)
         live = int(np.sum(lens))
@@ -613,17 +675,21 @@ def phase_mamba_kernel():
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[kernel mamba_scan] {name} rows={list(map(int, lens))} "
-            f"y max_abs_err={errs[0][0]:.3e} (rel {errs[0][1]:.2e}) state "
-            f"max_abs_err={errs[1][0]:.3e} (rel {errs[1][1]:.2e}; tol "
-            f"{MAMBA_TOL}) repeatable=True ms={ms:.4f} (device time; "
-            f"{call_ms:.4f} per back-to-back call) plain_ms="
-            f"{plain_ms:.4f} library_ms=none bound_ms={bound:.5f} ({by}; "
-            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        blocks = scan_blocks(tt, r, H)
+        log(f"[kernel mamba_scan] {name} H={H} P={P} N={N} rows="
+            f"{list(map(int, lens))} blocks={blocks} y max_abs_err="
+            f"{errs[0][0]:.3e} (rel {errs[0][1]:.2e}) state max_abs_err="
+            f"{errs[1][0]:.3e} (rel {errs[1][1]:.2e}; tol {MAMBA_TOL}) "
+            f"repeatable=True killed_rows_bitwise=True zero_outside_rows=True "
+            f"ms={ms:.4f} (device time; {call_ms:.4f} per back-to-back call, "
+            f"host_ms={host_ms:.4f} to issue one) plain_ms={plain_ms:.4f} "
+            f"library_ms=none bound_ms={bound:.5f} ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
+            f"tflops={flops / ms / 1e9:.2f} share_of_bound={bound / ms:.3f}")
         results.append(dict(case=name, err=max(e for e, _ in errs), ms=ms,
-                            call_ms=call_ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by))
-        del xbc, flat, y, y2, s1, s2, ry, rs
+                            call_ms=call_ms, host_ms=host_ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+        del args, y, y2, s1, s2, ry, rs
     return results
 
 
@@ -649,20 +715,26 @@ def dense_cases():
 
 def _build_facts(lib_name, prefix, n_instances, exempt):
     """A kernel library's ptxas register/spill line of every kernel
-    instance (``<prefix>_..._kernel<D>``) and the tensor-core (HGMMA)
-    instructions of each in its SASS (``cuobjdump -sass``), printed.
+    instance (``<prefix>_..._kernel<args>``, named by all its template
+    arguments) and the tensor-core (HGMMA) instructions of each in its
+    SASS (``cuobjdump -sass``), printed.
     Raises unless there are ``n_instances`` and each whose name holds no
     word of ``exempt`` has HGMMA instructions: a silent fall back to
     CUDA-core FMAs cannot pass."""
     import shutil
     from repro_torch.kernels import build
     lib = build.library_path(lib_name)
-    pat = rf"({prefix}_[a-z_]*kernel)ILi(\d+)E"
+    pat = rf"({prefix}_[a-z_]*kernel)I((?:Li\d+E)+)"
+
+    def instance(m):
+        args = ",".join(re.findall(r"\d+", m.group(2)))
+        return f"{m.group(1)}<{args}>"
+
     name, regs = None, {}
     for line in lib.with_suffix(".log").read_text().splitlines():
         entry = re.search(r"entry function .*?" + pat, line)
         if entry:
-            name = f"{entry.group(1)}<{entry.group(2)}>"
+            name = instance(entry)
         elif name and ("registers" in line or "spill" in line):
             regs[name] = (regs.get(name, "") + " " + line.split(":")[-1]
                           .strip()).strip()
@@ -673,7 +745,7 @@ def _build_facts(lib_name, prefix, n_instances, exempt):
     for line in sass.splitlines():
         fn = re.search(r"Function : .*?" + pat, line)
         if fn:
-            name = f"{fn.group(1)}<{fn.group(2)}>"
+            name = instance(fn)
             hgmma[name] = 0
         elif name and "HGMMA" in line:
             hgmma[name] += 1

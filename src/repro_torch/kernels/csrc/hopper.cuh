@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels of this
-// directory (dense_flash.cu, varlen_flash.cu): mbarriers, TMA tile loads
+// Hopper (sm_90a) building blocks shared by the port's kernels (the
+// attention kernels dense_flash.cu and varlen_flash.cu, and the Mamba2
+// scan mamba_scan.cu): mbarriers, TMA tile loads
 // from tensor maps encoded on the host, wgmma descriptors and products
 // (bf16 x bf16 into fp32, A from shared memory or registers), setmaxnreg,
 // register-tile helpers and the host-side tensor-map encoder.

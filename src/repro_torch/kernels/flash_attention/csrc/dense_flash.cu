@@ -90,9 +90,9 @@
 //
 // The Hopper building blocks (mbarriers, TMA, wgmma descriptors and
 // products, setmaxnreg, register tiles, the tensor-map encoder) are in
-// hopper.cuh, shared with varlen_flash.cu.
+// kernels/csrc/hopper.cuh, shared with varlen_flash.cu and the Mamba2 scan.
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 

@@ -66,7 +66,7 @@
 // persistent grid that balances q tiles of unequal hit counts, and a
 // combine spread over several blocks.
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 

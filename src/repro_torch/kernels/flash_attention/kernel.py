@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import build
+from ..scratch import stream_scratch
 
 NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -170,23 +171,6 @@ def _bind():
     return lib
 
 
-_COUNTERS = {}
-
-
-def _counters(device, stream, n):
-    """The split combine's per-q-tile counters for launches on ``stream``:
-    zeroed once, left zero by every launch (the last block of a q tile
-    resets its own), so no launch needs a memset. Launches on one stream
-    run one after another and can share them; another stream gets its
-    own."""
-    key = (device, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
-
-
 def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
                            window=0, blk_q=128, blk_k=128, kv_tiles=None):
     """Varlen flash attention over one packed stream.
@@ -229,7 +213,7 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
                                dtype=torch.float32, device=q.device)
         part_ml = torch.empty((kvh * n_qt * ns, Q_ROWS, 2),
                               dtype=torch.float32, device=q.device)
-        counters = _counters(q.device, stream, kvh * n_qt)
+        counters = stream_scratch(q.device, stream, kvh * n_qt)
     ptr = [None if a is None else a.data_ptr()
            for a in (part_acc, part_ml, counters)]
     strides = (ctypes.c_int64 * 8)(*q.stride()[:2], *k.stride()[:2],

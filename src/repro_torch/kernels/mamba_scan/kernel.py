@@ -1,5 +1,5 @@
-"""Mamba2 SSD chunk scan: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""Mamba2 SSD chunk scan: the CUDA kernel's wrapper, its launch plan and its
+plain PyTorch version.
 
 The kernel (``csrc/mamba_scan.cu``) replaces the TPU kernel
 ``repro/kernels/mamba_scan/kernel.py::mamba_chunk_scan``. It computes the
@@ -16,6 +16,11 @@ Two public entries, both launching the one kernel:
   segment, padded steps one row per batch row.
 
 ``mamba_chunk_scan_varlen.launches`` counts launches of either entry.
+
+On the H100 a call is bound by the bytes it moves and, in practice, by
+latency; the kernel spreads the chunks of long rows over blocks that pass
+the state along in order, runs its products on the tensor cores, and
+takes a light path for one-token rows (``csrc/mamba_scan.cu``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from .. import build
 from ..flash_attention.kernel import _check
+from ..scratch import stream_scratch
 
 _DIMS = (16, 32, 64, 128)
 
@@ -99,40 +105,71 @@ def mamba_chunk_scan_plain(x, bm, cm, dt, a_log, *, chunk=64):
     return y
 
 
+# The kernel's launch plan (csrc/mamba_scan.cu): rows are cut into
+# CHUNK-token chunks, each split over its H heads, one block a head.
+CHUNK = 64
+ZERO_TILE = 16           # tokens of y a zeroing block checks
+_SYNC_BASE = 32          # the ticket, then one flag per (row, head)
+
+
+def scan_blocks(tt, r, h):
+    """The kernel's grid for TT = tt tokens in r rows of h heads. Row r has
+    max(1, ceil(len / CHUNK)) chunk units, at most tt // CHUNK + r over
+    all rows whatever the lengths (which the host never reads); each unit
+    takes h blocks, and ceil(tt / ZERO_TILE) more blocks zero y outside
+    the rows."""
+    return -(-tt // ZERO_TILE) + (tt // CHUNK + r) * h
+
+
 def check_inputs(x, bm, cm, dt, a_log, row_start, row_len, init_state):
     """Validate the kernel's inputs (any device) and return its launch
     sizes (tt, r, h, p, n). x (TT, H, P) and bm/cm (TT, N) are bf16 whose
-    inner dims are contiguous, with any token stride (bm and cm share
-    theirs); dt (TT, H), a_log (H,), row_start/row_len (R,) contiguous;
-    init_state (R, H, P, N) fp32 with contiguous (H, P, N) and any row
-    stride. P and N are 16, 32, 64 or 128."""
+    inner dims are contiguous, with token strides that are multiples of 8
+    (bm and cm share theirs) and 16-byte aligned data: the kernel reads
+    them through tensor maps. dt (TT, H), a_log (H,), row_start/row_len
+    (R,) contiguous; init_state (R, H, P, N) fp32 with contiguous
+    (H, P, N), a row stride that is a multiple of 4 and 16-byte aligned
+    data (16-byte state loads). P and N are 16, 32, 64 or 128. Every call
+    of the serve path makes these checks, so each tensor is tested in one
+    condition, and explained only when it fails."""
     tt, h, p = x.shape
     n = bm.shape[-1] if bm.dim() == 2 else -1
     r = row_start.shape[0] if row_start.dim() == 1 else -1
     if p not in _DIMS or n not in _DIMS:
         raise ValueError(f"head dim {p} / state dim {n} not in {_DIMS}")
     dev = x.device
-    _check("x", x, torch.bfloat16, (tt, h, p), dev)
-    if x.stride(2) != 1 or x.stride(1) != p:
-        raise ValueError(f"x: (H, P) must be contiguous (strides "
-                         f"{x.stride()})")
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    xs = x.stride()
+    if x.dtype is not bf16 or x.device != dev or xs[2] != 1 or \
+            xs[1] != p or xs[0] % 8 or x.data_ptr() % 16:
+        _check("x", x, bf16, (tt, h, p), dev)
+        raise ValueError(f"x: (H, P) must be contiguous, the token stride a "
+                         f"multiple of 8, the data 16-byte aligned (strides "
+                         f"{xs})")
+    bs = bm.stride(0)
     for name, v in (("bm", bm), ("cm", cm)):
-        _check(name, v, torch.bfloat16, (tt, n), dev)
-        if v.stride(1) != 1 or v.stride(0) != bm.stride(0):
-            raise ValueError(f"{name}: N must be contiguous, token stride "
-                             f"shared by bm and cm (strides {v.stride()})")
+        if v.dtype is not bf16 or v.shape != (tt, n) or v.device != dev or \
+                v.stride() != (bs, 1) or bs % 8 or v.data_ptr() % 16:
+            _check(name, v, bf16, (tt, n), dev)
+            raise ValueError(f"{name}: N must be contiguous, the token stride "
+                             f"a multiple of 8 shared by bm and cm, the data "
+                             f"16-byte aligned (strides {v.stride()})")
     for name, v, dtype, shape in (
-            ("dt", dt, torch.float32, (tt, h)),
-            ("a_log", a_log, torch.float32, (h,)),
-            ("row_start", row_start, torch.int32, (r,)),
-            ("row_len", row_len, torch.int32, (r,))):
-        _check(name, v, dtype, shape, dev)
-        if not v.is_contiguous():
+            ("dt", dt, f32, (tt, h)), ("a_log", a_log, f32, (h,)),
+            ("row_start", row_start, i32, (r,)),
+            ("row_len", row_len, i32, (r,))):
+        if v.dtype is not dtype or v.shape != shape or v.device != dev or \
+                not v.is_contiguous():
+            _check(name, v, dtype, shape, dev)
             raise ValueError(f"{name}: must be contiguous")
-    _check("init_state", init_state, torch.float32, (r, h, p, n), dev)
-    if init_state.stride()[1:] != (p * n, n, 1):
-        raise ValueError(f"init_state: (H, P, N) must be contiguous "
-                         f"(strides {init_state.stride()})")
+    s = init_state
+    if s.dtype is not f32 or s.shape != (r, h, p, n) or s.device != dev or \
+            s.stride()[1:] != (p * n, n, 1) or s.stride(0) % 4 or \
+            s.data_ptr() % 16:
+        _check("init_state", s, f32, (r, h, p, n), dev)
+        raise ValueError(f"init_state: (H, P, N) must be contiguous, the row "
+                         f"stride a multiple of 4, the data 16-byte aligned "
+                         f"(strides {s.stride()})")
     if not 1 <= r <= 65535 or tt < 1:
         raise ValueError(f"{r} rows over {tt} tokens: 1..65535 rows")
     return tt, r, h, p, n
@@ -144,7 +181,7 @@ def _bind():
     fn = lib.mamba_scan_varlen
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     fn.argtypes = [ptr, i64, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, i64,
-                   ptr, ptr, i64] + [ctypes.c_int] * 4 + [ptr]
+                   ptr, ptr, i64, ptr] + [ctypes.c_int] * 6 + [ptr]
     fn.restype = ctypes.c_int
     lib.mamba_scan_error_string.argtypes = [ctypes.c_int]
     lib.mamba_scan_error_string.restype = ctypes.c_char_p
@@ -173,17 +210,23 @@ def mamba_chunk_scan_varlen(x, bm, cm, dt, a_log, row_start, row_len,
         raise ValueError(f"unsupported device {x.device}")
     tt, r, h, p, n = check_inputs(x, bm, cm, dt, a_log, row_start, row_len,
                                   init_state)
+    dev = x.device
     lib = _bind()
-    y = torch.zeros((tt, h, p), dtype=torch.float32, device=x.device)
-    final = torch.empty((r, h, p, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.mamba_scan_varlen(
-            x.data_ptr(), x.stride(0), bm.data_ptr(), cm.data_ptr(),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    y = torch.empty((tt, h, p), dtype=torch.float32, device=dev)
+    final = torch.empty((r, h, p, n), dtype=torch.float32, device=dev)
+    sync = stream_scratch(dev, stream, _SYNC_BASE + r * h)
+    args = (x.data_ptr(), x.stride(0), bm.data_ptr(), cm.data_ptr(),
             bm.stride(0), dt.data_ptr(), a_log.data_ptr(),
             row_start.data_ptr(), row_len.data_ptr(), init_state.data_ptr(),
             init_state.stride(0), y.data_ptr(), final.data_ptr(),
-            final.stride(0), r, h, p, n,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            final.stride(0), sync.data_ptr(), tt, r, h, p, n,
+            scan_blocks(tt, r, h), stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.mamba_scan_varlen(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.mamba_scan_varlen(*args)
     if rc != 0:
         msg = lib.mamba_scan_error_string(rc).decode()
         raise RuntimeError(f"mamba_scan launch failed: {msg} ({rc})")

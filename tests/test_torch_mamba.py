@@ -42,7 +42,8 @@ from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_chunk_scan, mamba_chunk_scan_plain, mamba_chunk_scan_varlen,
     mamba_chunk_scan_varlen_plain)
-from repro_torch.kernels.mamba_scan.kernel import check_inputs  # noqa: E402
+from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
+    CHUNK, ZERO_TILE, check_inputs, scan_blocks)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import blocks_seq as BS  # noqa: E402
 from repro_torch.models import params_from_numpy  # noqa: E402
@@ -371,29 +372,231 @@ def test_read_write_state_match_jax_on_the_same_bytes():
             state[1])
 
 
+# ------------------------------------------------- the kernel's numerics
+MAMBA_TOL = 1e-3    # chip_smoke.py phase 2c's: of the largest |value|
+
+
+def device_items(row_len, tt, h):
+    """numpy mirror of the kernel's device-side work rule for a launch of
+    ``scan_blocks(tt, len(row_len), h)`` blocks: ticket w < ceil(tt /
+    ZERO_TILE) zeroes tile w of y; the rest map to chunk unit u = (w -
+    tiles) // h, head (w - tiles) % h, and the unit to (row, chunk) by a
+    prefix sum of max(1, ceil(len / 64)) over the rows. Returns (blocks,
+    items in ticket order: ("tile", k), ("chunk", r, c, head) or None for
+    a block past the real count)."""
+    blocks = scan_blocks(tt, len(row_len), h)
+    tiles = -(-tt // ZERO_TILE)
+    units = np.maximum(1, -(-np.asarray(row_len) // CHUNK))
+    ends = np.cumsum(units)
+    items = []
+    for w in range(blocks):
+        if w < tiles:
+            items.append(("tile", w))
+            continue
+        u, head = divmod(w - tiles, h)
+        r = int(np.searchsorted(ends, u, side="right"))
+        items.append(None if r >= len(units) else
+                     ("chunk", r, u - int(ends[r] - units[r]), head))
+    return blocks, items
+
+
+def _pairs(v):
+    """An fp32 operand as the bf16 hi + lo pair the kernel multiplies."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def emulate_kernel(x, bm, cm, dt, a_log, row_start, row_len, s0):
+    """The CUDA kernel's arithmetic, work item by work item in ticket order
+    (``device_items``): C B^T per chunk and head (exact: bf16 inputs,
+    fp32 sums); score @ x, (sfac x)^T B and C S^T with the
+    fp32 operand as a bf16 hi + lo pair; the state chained in chunk order
+    in fp32 (S_c = S_{c-1} exp(lc_last) + dS); one-token rows by the light
+    path (S' = S exp(dt a) + dt x B^T, y = C . S'); zero-length rows
+    copied; y zero outside every row."""
+    tt, h, p = x.shape
+    x, bm, cm = x.float(), bm.float(), cm.float()
+    a = -torch.exp(a_log.float())
+    y = torch.full((tt, h, p), float("nan"))
+    s1 = torch.full(s0.shape, float("nan"))
+    starts, lens = row_start.tolist(), row_len.tolist()
+    _, items = device_items(lens, tt, h)
+    covered = np.zeros(tt, bool)
+    for st, ln in zip(starts, lens):
+        covered[st:st + ln] = True
+    for item in items:
+        if item is None:
+            continue
+        if item[0] == "tile":
+            k = item[1]
+            for t_ in range(k * ZERO_TILE, min(tt, (k + 1) * ZERO_TILE)):
+                if not covered[t_]:
+                    y[t_] = 0
+            continue
+        _, r, c, head = item
+        hs = slice(head, head + 1)
+        st, ln = starts[r], lens[r]
+        if ln == 0:
+            s1[r, hs] = s0[r, hs]
+            continue
+        if ln == 1:
+            d = dt[st, hs]
+            s = s0[r, hs] * torch.exp(d * a[hs])[:, None, None] + \
+                (d[:, None] * x[st, hs])[..., None] * bm[st]
+            s1[r, hs] = s
+            y[st, hs] = (s * cm[st]).sum(-1)
+            continue
+        cl = min(CHUNK, ln - c * CHUNK)
+        tk = slice(st + c * CHUNK, st + c * CHUNK + cl)
+        xc, bc, cc, dc = x[tk, hs], bm[tk], cm[tk], dt[tk, hs]
+        cb = cc @ bc.T
+        lc = torch.cumsum(dc * a[hs], 0)                 # (l, G)
+        dec = torch.exp((lc[:, None] - lc[None]).clamp(max=0)) * dc[None]
+        tri = torch.ones(cl, cl, dtype=torch.bool).tril()[..., None]
+        score = torch.where(tri, cb[..., None] * dec, torch.zeros(()))
+        yi = sum(torch.einsum("tsg,sgp->tgp", q, xc) for q in _pairs(score))
+        sfac = torch.exp((lc[-1:] - lc).clamp(max=0)) * dc
+        ds = sum(torch.einsum("sgp,sn->gpn", q, bc)
+                 for q in _pairs(sfac[..., None] * xc))
+        prev = (s0 if c == 0 else s1)[r, hs]
+        ys = sum(torch.einsum("tn,gpn->tgp", cc, q) for q in _pairs(prev))
+        y[tk, hs] = yi + torch.exp(lc)[..., None] * ys
+        s1[r, hs] = prev * torch.exp(lc[-1])[:, None, None] + ds
+    return y, s1
+
+
+def _stream(seed, tt, h, p, n, starts, lens):
+    x, bm, cm, dt, a_log = scan_inputs(seed, tt, h, p, n)
+    rng = np.random.default_rng(seed + 1)
+    s0 = (0.3 * rng.standard_normal((len(lens), h, p, n))).astype(np.float32)
+    return [t(a) for a in (x, bm, cm, dt, a_log)] + [
+        t(np.asarray(v, np.int32)) for v in (starts, lens)] + [t(s0)]
+
+
+def _packed(lens):
+    return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
+
+
+# (tt, h, p, n, starts, lens): the serve path's layouts at reduced heads
+EMULATED_SCAN = {
+    "ragged, zero-length and one-token rows P=N=64": (
+        330, 4, 64, 64, *_packed([150, 1, 0, 37, 2, 64, 70, 1])),
+    "1024-token row beside one-token rows P=N=64": (
+        1027, 2, 64, 64, *_packed([1024, 1, 1, 1])),
+    "padded layout with gaps P=N=16": (
+        1024, 8, 16, 16, np.arange(4) * 256, [256, 100, 1, 37]),
+    "packed mixed step P=N=16": (
+        512, 8, 16, 16, *_packed([256, 150, 1, 1, 1, 60, 0, 30])),
+    "P=16 N=64, stream tail in no row": (
+        200, 4, 16, 64, *_packed([65, 64, 1, 3])),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED_SCAN))
+def test_tensor_core_rounding_fits_card_tolerance(case):
+    """The emulated kernel (``emulate_kernel``) against the plain version
+    and the token-sequential fp64 oracle, y and final states within
+    MAMBA_TOL of the largest |value| (with a tenfold margin: the hi + lo
+    pairs leave ~2^-17 relative errors that add up along a long row's
+    chunks), zero-length rows bit for bit, y exactly 0 outside rows."""
+    tt, h, p, n, starts, lens = EMULATED_SCAN[case]
+    args = _stream(31, tt, h, p, n, starts, lens)
+    args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+    y, s = emulate_kernel(*args)
+    ry, rs = mamba_chunk_scan_varlen_plain(*args)
+    sy, ss = sequential_rows(*(a.float().numpy() for a in args[:5]),
+                             starts, lens, args[7].numpy())
+    for ours, ref in ((y, ry), (s, rs), (y, sy), (s, ss)):
+        ref = torch.as_tensor(ref, dtype=torch.float32)
+        err = (ours - ref).abs().max().item()
+        assert err <= 0.1 * MAMBA_TOL * ref.abs().max().item(), err
+    inside = np.zeros(tt, bool)
+    for st, ln in zip(starts, lens):
+        inside[st:st + ln] = True
+    assert (y[torch.from_numpy(~inside)] == 0).all()
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert torch.equal(s[i], args[7][i])
+
+
+@pytest.mark.parametrize("b,t_,h,p,n", [(2, 192, 2, 64, 64),
+                                        (3, 128, 4, 16, 16)])
+def test_emulated_kernel_matches_pallas_on_tpu_shapes(b, t_, h, p, n):
+    """Equal rows and a zero initial state (the TPU kernel's contract):
+    the emulated kernel against the Pallas kernel in interpret mode,
+    within MAMBA_TOL of the largest |y|."""
+    x, bm, cm, dt, a_log = scan_inputs(8, b * t_, h, p, n)
+    starts, lens = np.arange(b) * t_, [t_] * b
+    bf = [t(a).to(torch.bfloat16) for a in (x, bm, cm)]
+    y, _ = emulate_kernel(*bf, t(dt), t(a_log),
+                          *(t(np.asarray(v, np.int32)) for v in (starts,
+                                                                  lens)),
+                          torch.zeros((b, h, p, n)))
+    jargs = [jnp.asarray(a.float().numpy().reshape(b, t_, *a.shape[1:]))
+             for a in bf] + [jnp.asarray(dt.reshape(b, t_, h)),
+                             jnp.asarray(a_log)]
+    ref = np.asarray(jax_kernel(*jargs, chunk=64, interpret=True))
+    err = np.abs(y.numpy().reshape(ref.shape) - ref).max()
+    assert err <= MAMBA_TOL * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("tt,h,lens", [
+    (512, 64, [256, 150, 1, 1, 1, 60, 0, 30]),     # chip_smoke's mixed
+    (8, 64, [1, 1, 1, 0, 1, 1, 1, 1]),             # decode
+    (2055, 64, [2048] + [1] * 7),                  # long row
+    (1024, 64, [256, 100, 1, 37]),                 # padded (gaps)
+    (512, 8, [256, 150, 1, 1, 1, 60, 0, 30]),      # reduced heads
+    (130, 6, [0, 0, 64, 65, 1]),                   # empty rows first
+    (4096, 64, [64] * 64),                         # every chunk full
+])
+def test_device_work_rule_covers_every_chunk_once(tt, h, lens):
+    """The device-side work rule (``device_items``) gives every (row,
+    chunk, head) of the rows exactly one block and every ZERO_TILE-token
+    tile of y one, within the grid ``scan_blocks`` sizes from TT // 64 + R
+    without reading the lengths; a chunk's predecessor in its row has the
+    smaller ticket (the order the chained state pass waits in)."""
+    blocks, items = device_items(lens, tt, h)
+    assert blocks == -(-tt // ZERO_TILE) + (tt // 64 + len(lens)) * h
+    want = {("chunk", r, c, head) for r, ln in enumerate(lens)
+            for c in range(max(1, -(-ln // 64))) for head in range(h)}
+    want |= {("tile", k) for k in range(-(-tt // ZERO_TILE))}
+    got = [i for i in items if i is not None]
+    assert len(got) == len(set(got)) and set(got) == want
+    ticket = {i: w for w, i in enumerate(items) if i is not None}
+    for (kind, *rest), w in ticket.items():
+        if kind == "chunk" and rest[1] > 0:
+            r, c, head = rest
+            assert ticket[("chunk", r, c - 1, head)] < w
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
+@pytest.mark.parametrize("tt,h,p,n,starts,lens", [
+    (300, 64, 64, 64, [0, 37, 37, 200], [30, 150, 0, 100]),
+    (1027, 64, 64, 64, *_packed([1024, 1, 1, 1])),          # long row
+    (8, 64, 64, 64, *_packed([1, 1, 1, 0, 1, 1, 1, 1])),    # one-token rows
+    (512, 8, 16, 16, *_packed([256, 150, 1, 1, 1, 60, 0, 30])),
+])
+def test_cuda_kernel_matches_plain(tt, h, p, n, starts, lens):
     """The CUDA kernel against its plain version on the card at zamba2's
-    widths (H 64, P 64, N 64): ragged rows with non-zero states, a
-    zero-length row, repeatable bytes. Tolerance 1e-3 of the largest
-    |value| (fp32 sums in another order)."""
+    widths (H 64, P 64, N 64) and the reduced ones (P = N = 16): ragged
+    rows with non-zero states, a zero-length row passing its state bit for
+    bit, a 1024-token row over 16 chained chunks, one-token rows,
+    repeatable bytes. Tolerance MAMBA_TOL of the largest |value| (fp32
+    sums in another order; bf16 hi + lo tensor-core operands)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU form")
     dev = torch.device("cuda")
-    h, p, n = 64, 64, 64
-    x, bm, cm, dt, a_log = scan_inputs(13, 300, h, p, n)
-    args = [t(a).to(dev) for a in (x, bm, cm, dt, a_log)]
-    for i in range(3):
-        args[i] = args[i].to(torch.bfloat16)
-    rows = [t(np.array(v, np.int32)).to(dev)
-            for v in ([0, 37, 37, 200], [30, 150, 0, 100])]
-    s0 = torch.randn((4, h, p, n), device=dev)
+    args = [a.to(dev) for a in _stream(13, tt, h, p, n, starts, lens)]
+    args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
     before = mamba_chunk_scan_varlen.launches
-    y, s = mamba_chunk_scan_varlen(*args, *rows, s0)
-    y2, s2 = mamba_chunk_scan_varlen(*args, *rows, s0)
+    y, s = mamba_chunk_scan_varlen(*args)
+    y2, s2 = mamba_chunk_scan_varlen(*args)
     torch.cuda.synchronize()
     assert mamba_chunk_scan_varlen.launches == before + 2
     assert torch.equal(y, y2) and torch.equal(s, s2)
-    ry, rs = mamba_chunk_scan_varlen_plain(*args, *rows, s0)
+    ry, rs = mamba_chunk_scan_varlen_plain(*args)
     for a, b in ((y, ry), (s, rs)):
-        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+        assert (a - b).abs().max().item() <= MAMBA_TOL * b.abs().max().item()
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert torch.equal(s[i], args[7][i])
