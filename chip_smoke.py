@@ -23,7 +23,12 @@ Phases, each of which raises on failure:
    instance's ptxas register/spill line and HGMMA count (the phase fails
    if one has none); the paged decode kernel on 8 rows of
    64-1056 tokens read from one layer of a 40-layer pool (window 64,
-   invalid entries and pad rows, and qwen2.5-32b's D=128, G=5 besides).
+   invalid entries and pad rows, and qwen2.5-32b's D=128, G=5 besides),
+   one 16,384-token row beside 7 decodes and 64 rows of 512-2048 tokens,
+   each within TOL and two calls byte-identical, with its device time
+   beside its time per back-to-back call and the wrapper's host time to
+   issue one (the step's plan built once, as the serve path does), and
+   every paged instance's ptxas register/spill line.
 3. The main paths at full width: full granite-3-2b (random weights from
    seed 0) served by ``Engine`` with greedy sampling, in packed mode at
    pipeline depths 1, 2 and 4, in padded mode at depths 1, 2 and 4, and in
@@ -405,8 +410,12 @@ def paged_cases():
     """Decode batches as the padded serve path builds them: 8 rows whose
     query positions are 64-1056 (their pages, TPP 16 or 19, in a P=128 table
     padded with -1 / SENTINEL entries), the pages scattered over a pool of
-    ``layers`` layers that the kernel reads one strided layer of."""
+    ``layers`` layers that the kernel reads one strided layer of; then one
+    16,384-token row beside 7 of those decodes (P 2048) and 64 rows of
+    512-2048 tokens (P 256), whose pools each call cycles through so that
+    consecutive calls miss the 50 MB L2."""
     lens = np.random.default_rng(2).integers(64, 1057, 8)
+    many = np.random.default_rng(4).integers(512, 2049, 64)
     return [
         dict(name="granite decode B=8 P=128", d=64, g=4, layers=40,
              lens=lens),
@@ -419,45 +428,74 @@ def paged_cases():
         # layer of its 6-layer attention pool
         dict(name="zamba2 heads G=1 TPP=19", d=64, g=1, layers=6,
              lens=lens, kvl=32, tpp=19),
+        dict(name="long row 16384 + 7 decodes P=2048", d=64, g=4, layers=40,
+             lens=np.concatenate([[16384], lens[:7]]), p=2048),
+        dict(name="64 rows of 512-2048 P=256", d=64, g=4, layers=8,
+             lens=many, p=256),
     ]
 
 
+def paged_inputs(case, gen, rng, dev):
+    """One case's kernel arguments: q, the pool (VP, layers, 2, TPP, KVL,
+    D), and int32 tables, page starts and positions on ``dev``, plus their
+    numpy copies."""
+    import torch
+    B, P = len(case["lens"]), case.get("p", 128)
+    D, G, L = case["d"], case["g"], case["layers"]
+    KVL, TPP = case.get("kvl", 8), case.get("tpp", 16)
+    n_pages = [int(n) // TPP + 1 for n in case["lens"]]
+    vp = sum(n_pages) + 1
+    pool = torch.randn((vp, L, 2, TPP, KVL, D), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    tables = np.full((B, P), -1, np.int32)
+    page_pos = np.full((B, P), SENTINEL, np.int32)
+    positions = np.full((B,), SENTINEL, np.int32)
+    perm = rng.permutation(vp)
+    off = 0
+    for b in range(B - case.get("pad", 0)):
+        npg = n_pages[b]
+        tables[b, :npg] = perm[off:off + npg]
+        page_pos[b, :npg] = np.arange(npg) * TPP
+        positions[b] = case["lens"][b]
+        if case.get("invalid"):
+            tables[b, 1], page_pos[b, 1] = -1, SENTINEL
+        off += npg
+    q = torch.randn((B, KVL, G, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    host = (tables, page_pos, positions)
+    meta = [torch.tensor(a, device=dev) for a in host]
+    return q, pool, meta, host
+
+
 def phase_paged_kernel():
+    """The paged decode kernel against its plain version on the card
+    (``paged_cases``): every case within TOL, two calls byte-identical; its
+    device time (``device_ms``) beside the time per back-to-back call and
+    the wrapper's host time to issue one (the step's plan built once
+    beforehand, as the serve path does), the plain version's time, gather +
+    SDPA as a two-call yardstick and the bound; every instance's ptxas
+    register/spill line and its mma.sync (HMMA) count (the phase fails if
+    an instance has none)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_plan)
 
+    _build_facts("paged_decode", "paged", 4, exempt=(), op="HMMA")
     dev = torch.device("cuda")
-    P, B = 128, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rng = np.random.default_rng(3)
     results = []
     for case in paged_cases():
-        D, G, L, w = case["d"], case["g"], case["layers"], case.get("window", 0)
-        KVL, TPP = case.get("kvl", 8), case.get("tpp", 16)
-        n_pages = [int(n) // TPP + 1 for n in case["lens"]]
-        vp = sum(n_pages) + 1
-        pool = torch.randn((vp, L, 2, TPP, KVL, D), generator=gen,
-                           device=dev).to(torch.bfloat16)
-        tables = np.full((B, P), -1, np.int32)
-        page_pos = np.full((B, P), SENTINEL, np.int32)
-        positions = np.full((B,), SENTINEL, np.int32)
-        perm = rng.permutation(vp)
-        off = 0
-        for b in range(B - case.get("pad", 0)):
-            npg = n_pages[b]
-            tables[b, :npg] = perm[off:off + npg]
-            page_pos[b, :npg] = np.arange(npg) * TPP
-            positions[b] = case["lens"][b]
-            if case.get("invalid"):
-                tables[b, 1], page_pos[b, 1] = -1, SENTINEL
-            off += npg
-        q = torch.randn((B, KVL, G, D), generator=gen,
-                        device=dev).to(torch.bfloat16)
-        meta = [torch.tensor(a, device=dev)
-                for a in (tables, page_pos, positions)]
+        w = case.get("window", 0)
+        q, pool, meta, (tables, page_pos, positions) = paged_inputs(
+            case, gen, rng, dev)
+        B, P = tables.shape
+        L, _, TPP, KVL, D = pool.shape[1:]
+        G = q.shape[2]
+        plan = paged_decode_plan(*meta, TPP, w)
         layer = [0]
 
         def view():
@@ -467,20 +505,26 @@ def phase_paged_kernel():
             return pool[:, layer[0]]
 
         def kern():
-            return paged_decode_attention(q, view(), *meta, window=w)
+            return paged_decode_attention(q, view(), *meta, window=w,
+                                          plan=plan)
 
         def plain():
             return paged_decode_attention_plain(q, view(), *meta, window=w)
 
         kv = pool[:, L // 2]
         out_k = paged_decode_attention(q, kv, *meta, window=w)
+        out_2 = paged_decode_attention(q, kv, *meta, window=w, plan=plan)
         out_p = paged_decode_attention_plain(q, kv, *meta, window=w)
         torch.cuda.synchronize()
+        if not torch.equal(out_k, out_2):
+            raise AssertionError(f"paged {case['name']}: two calls differ")
         err = (out_k.float() - out_p.float()).abs().max().item()
         if not np.isfinite(err) or err > TOL:
             raise AssertionError(f"paged {case['name']}: max abs err {err}"
                                  f" > {TOL}")
-        ms = cuda_time_ms(kern)
+        ms = device_ms(kern, "paged_decode_kernel")
+        call_ms = cuda_time_ms(kern)
+        host_ms = host_issue_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=5)
 
         slot_pos = (page_pos[:, :, None] + np.arange(TPP)).reshape(B, -1)
@@ -501,12 +545,12 @@ def phase_paged_kernel():
                 q.reshape(B, KVL * G, 1, D), k, v, attn_mask=mask_t,
                 enable_gqa=True)
 
-        two_ms = cuda_time_ms(two_calls)
+        two_ms = cuda_time_ms(two_calls, iters=5)
         # bytes: each page with a visible slot read once (K and V of one
         # layer), q in and out, the int32 metadata; operations: QK^T and PV
         # for the G q heads of every kv head at every visible slot
-        seen = {int(max(tables[b, p], 0)) for b in range(B) for p in range(P)
-                if mask[b, p * TPP:(p + 1) * TPP].any()}
+        vis = mask.reshape(B, P, TPP).any(-1)
+        seen = set(np.maximum(tables, 0)[vis].tolist())
         nbytes = (len(seen) * 2 * TPP * KVL * D * 2 + 2 * 2 * q.numel()
                   + 4 * (2 * B * P + B))
         flops = 4.0 * D * G * KVL * int(mask.sum())
@@ -514,15 +558,22 @@ def phase_paged_kernel():
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[kernel paged_decode] {case['name']} max_abs_err={err:.3e} "
-            f"(tol {TOL}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"two_calls_ms={two_ms:.4f} (gather + SDPA) bound_ms="
-            f"{bound:.5f} ({by}; {flops / 1e9:.4f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB, {int(mask.sum())} visible slots)")
+        items = int((plan.work[:, 0] >= 0).sum())
+        log(f"[kernel paged_decode] {case['name']} B={B} P={P} KVL={KVL} "
+            f"G={G} D={D} TPP={TPP} pages/row={plan.count.tolist()} "
+            f"work_items={items} "
+            f"max_abs_err={err:.3e} (tol {TOL}) repeatable=True "
+            f"ms={ms:.4f} (device time; {call_ms:.4f} per back-to-back "
+            f"call, host_ms={host_ms:.4f} to issue one) plain_ms="
+            f"{plain_ms:.4f} two_calls_ms={two_ms:.4f} (gather + SDPA) "
+            f"bound_ms={bound:.5f} ({by}; {flops / 1e9:.4f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB, {int(mask.sum())} visible slots) "
+            f"share_of_bound={bound / ms:.3f}")
         results.append(dict(case=case["name"], err=err, ms=ms,
+                            call_ms=call_ms, host_ms=host_ms,
                             plain_ms=plain_ms, two_calls_ms=two_ms,
                             bound_ms=bound, bound_by=by))
-        del pool
+        del pool, plan, out_k, out_2, out_p
     return results
 
 
@@ -713,13 +764,13 @@ def dense_cases():
     ]
 
 
-def _build_facts(lib_name, prefix, n_instances, exempt):
+def _build_facts(lib_name, prefix, n_instances, exempt, op="HGMMA"):
     """A kernel library's ptxas register/spill line of every kernel
     instance (``<prefix>_..._kernel<args>``, named by all its template
-    arguments) and the tensor-core (HGMMA) instructions of each in its
-    SASS (``cuobjdump -sass``), printed.
+    arguments) and the tensor-core instructions of each in its SASS
+    (``cuobjdump -sass``): ``op`` is HGMMA for wgmma, HMMA for mma.sync.
     Raises unless there are ``n_instances`` and each whose name holds no
-    word of ``exempt`` has HGMMA instructions: a silent fall back to
+    word of ``exempt`` has such instructions: a silent fall back to
     CUDA-core FMAs cannot pass."""
     import shutil
     from repro_torch.kernels import build
@@ -747,15 +798,15 @@ def _build_facts(lib_name, prefix, n_instances, exempt):
         if fn:
             name = instance(fn)
             hgmma[name] = 0
-        elif name and "HGMMA" in line:
+        elif name and re.search(rf"\b{op}\b", line):
             hgmma[name] += 1
     for name in sorted(set(regs) | set(hgmma)):
         log(f"[kernel {lib_name}] {name}: {regs.get(name, '?')}; "
-            f"{hgmma.get(name, 0)} HGMMA instructions in its SASS")
+            f"{hgmma.get(name, 0)} {op} instructions in its SASS")
     missing = [n for n in hgmma
                if not any(x in n for x in exempt) and not hgmma[n]]
     if len(hgmma) != n_instances or missing:
-        raise AssertionError(f"{lib_name} SASS: HGMMA counts {hgmma}; "
+        raise AssertionError(f"{lib_name} SASS: {op} counts {hgmma}; "
                              f"instances without tensor-core products: "
                              f"{missing}")
 

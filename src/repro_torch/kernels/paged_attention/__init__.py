@@ -1,3 +1,5 @@
-from .kernel import paged_decode_attention, paged_decode_attention_plain
+from .kernel import (paged_decode_attention, paged_decode_attention_plain,
+                     paged_decode_plan)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+           "paged_decode_plan"]

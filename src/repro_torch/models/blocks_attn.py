@@ -199,7 +199,8 @@ def attn_compute_padded(p, x, k_old, v_old, *, meta, rope, kv_local,
 
 
 def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
-                qpos, rope, kv_local, head_dim, window=0, norm_eps=1e-5):
+                qpos, plan, rope, kv_local, head_dim, window=0,
+                norm_eps=1e-5):
     """A padded T == 1 attention layer: project, write this token's K/V
     into its slot FIRST (``rows``: ``kv_rows``; pad and killed rows go to
     the scratch page), then one paged decode kernel call over this layer's
@@ -207,14 +208,16 @@ def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
     qpos``. Writing first makes the token's own slot visible, which equals
     the reference's old-part (``slot_pos < qpos``) plus fresh-token merge.
     Only this layer's slots are written before it reads, so every other
-    layer of the cycle still reads what it would before any write."""
+    layer of the cycle still reads what it would before any write.
+    ``plan``: the step's ``paged_decode_plan``, shared by every layer."""
     b = x.shape[0]
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
     A.write_kv_rows(buf, view_shape, layer, rows, k, v)
     out = paged_decode_attention(q[:, 0], buf.view(view_shape)[:, layer],
-                                 tables, page_pos, qpos, window=window)
+                                 tables, page_pos, qpos, window=window,
+                                 plan=plan)
     return x + dense(out.reshape(b, 1, -1), p["o"])
 
 

@@ -210,7 +210,7 @@ class HybridLM(DecoderLM):
                 x = BA.attn_decode(shared, x, buffer, aview, cyc,
                                    rows=st["rows"], tables=st["tables"],
                                    page_pos=st["page_pos"], qpos=qpos,
-                                   **akw)
+                                   plan=st["plan"], **akw)
             x = BA.mlp_block(shared, x, cfg.norm_eps)
             if k is not None:
                 A.write_kv_rows(buffer, aview, cyc, st["rows"], k, v)

@@ -11,6 +11,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.spec import KVCacheSpec, attention_spec
+from ..kernels.paged_attention import paged_decode_plan
 from . import attention as A
 from . import blocks_attn as BA
 from .common import rms_norm, set_matmul_precision
@@ -310,8 +311,8 @@ class DecoderLM:
     def _padded_invariants(self, batch: DecodeBatch, views, prefill: bool):
         """What every layer of a padded step shares: the rope tables and,
         per attention type, its tables, page starts, window and K/V write
-        rows, plus (T > 1) the page index and masks. Returns (rope,
-        {type: dict})."""
+        rows, plus (T > 1) the page index and masks or (T == 1) the paged
+        decode kernel's plan. Returns (rope, {type: dict})."""
         cfg = self.cfg
         positions = batch.positions
         b, t = positions.shape
@@ -333,6 +334,10 @@ class DecoderLM:
                 st.update(index=A.page_index(tables),
                           meta=BA.padded_prefill_meta(slot_pos, positions,
                                                       window=window))
+            else:
+                st["plan"] = paged_decode_plan(tables, page_pos,
+                                               positions[:, 0], view[3],
+                                               window)
             step[tname] = st
         return rope, step
 
@@ -400,7 +405,7 @@ class DecoderLM:
                     x = BA.attn_decode(
                         pj, x, buffer, views[tname], lit, rows=st["rows"],
                         tables=st["tables"], page_pos=st["page_pos"],
-                        qpos=qpos, **kw)
+                        qpos=qpos, plan=st["plan"], **kw)
                 x = BA.mlp_block(pj, x, cfg.norm_eps)
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,

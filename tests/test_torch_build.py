@@ -27,15 +27,16 @@ def test_header_edit_changes_library_path(tmp_path, monkeypatch):
 
 
 def test_flash_libraries_hash_the_shared_header():
-    """The two attention libraries and the Mamba2 scan include the Hopper
-    helpers' one header, shared from ``kernels/csrc``, and their names
-    cover it."""
+    """Every kernel library (the three attention kernels and the Mamba2
+    scan) includes the Hopper helpers' one header, shared from
+    ``kernels/csrc``, and their names cover it."""
     header = build.SOURCES["dense_flash"].parents[2] / "csrc" / "hopper.cuh"
-    for name in ("dense_flash", "varlen_flash", "mamba_scan"):
+    assert set(build.SOURCES) == {"dense_flash", "varlen_flash",
+                                  "mamba_scan", "paged_decode"}
+    for name in build.SOURCES:
         files = build._sources(build.SOURCES[name])
         assert [p.name for p in files] == [f"{name}.cu", "hopper.cuh"], files
         assert files[1] == header.resolve()
-    assert len(build._sources(build.SOURCES["paged_decode"])) == 1
 
 
 def test_stream_scratch_is_zeroed_shared_and_grows(monkeypatch):

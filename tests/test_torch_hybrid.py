@@ -381,11 +381,15 @@ def test_hybrid_path_feeds_the_kernels_valid_inputs(monkeypatch, mode,
         return flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos,
                                             kv_pos, window=window)
 
-    def paged(q, kv_view, tables, page_pos, positions, *, window=0):
-        paged_kernel.check_inputs(q, kv_view, tables, page_pos, positions)
+    def paged(q, kv_view, tables, page_pos, positions, *, window=0,
+              plan=None):
+        assert plan is not None            # the step's shared plan
+        paged_kernel.check_inputs(q, kv_view, tables, page_pos, positions,
+                                  window=window, plan=plan)
         calls["paged"] += 1
         return paged_decode_attention_plain(q, kv_view, tables, page_pos,
-                                            positions, window=window)
+                                            positions, window=window,
+                                            plan=plan)
 
     monkeypatch.setattr(blocks_seq, "mamba_chunk_scan_varlen", scan)
     monkeypatch.setattr(blocks_attn, "flash_attention_varlen", varlen)

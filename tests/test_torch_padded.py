@@ -14,7 +14,8 @@
   engines in the same modes, fork-aware (``assert_greedy_equiv``), the
   padded depths bitwise equal to each other, the pool drained clean;
 * every paged-kernel call of the padded engine passes the CUDA wrapper's
-  input checks, once per layer of every T == 1 dispatch;
+  input checks with the step's plan, once per layer of every T == 1
+  dispatch, and the plan is built once per attention type of such a step;
 * EOS inside the depth-4 ring in padded mode with PageSan on.
 """
 import numpy as np
@@ -253,13 +254,17 @@ def test_padded_path_feeds_the_kernel_valid_inputs(monkeypatch, mode, depth):
     the strided layer view), once per layer of every T == 1 dispatch."""
     calls, pool = [], []
 
-    def spy(q, kv_view, tables, page_pos, positions, *, window=0):
-        check_inputs(q, kv_view, tables, page_pos, positions)
+    def spy(q, kv_view, tables, page_pos, positions, *, window=0,
+            plan=None):
+        assert plan is not None            # the step's shared plan
+        check_inputs(q, kv_view, tables, page_pos, positions, window=window,
+                     plan=plan)
         # a view of the engine's own buffer, read where it lies
         assert kv_view.untyped_storage().data_ptr() == pool[0]
         calls.append(q.shape)
         return paged_decode_attention_plain(q, kv_view, tables, page_pos,
-                                            positions, window=window)
+                                            positions, window=window,
+                                            plan=plan)
 
     monkeypatch.setattr(blocks_attn, "paged_decode_attention", spy)
     kw = dict(DEPTHS)[depth]
@@ -269,6 +274,43 @@ def test_padded_path_feeds_the_kernel_valid_inputs(monkeypatch, mode, depth):
     drain(eng, workload(n=4), Request, SamplingParams)
     assert counts["decode"] > 0
     assert len(calls) == counts["decode"] * eng.model.cfg.num_layers
+
+
+def test_padded_step_builds_one_plan_per_attention_type(monkeypatch):
+    """The paged decode kernel's plan depends only on a step's tables, page
+    starts and positions: a T == 1 padded step builds it once per attention
+    type and hands that one plan to every layer's call, never one per
+    layer."""
+    from repro_torch.models import lm
+    builds, plans = [], []
+
+    def plan(*args, **kw):
+        builds.append(args[3])                     # tokens per page
+        return lm_plan(*args, **kw)
+
+    def spy(q, kv_view, tables, page_pos, positions, *, window=0,
+            plan=None):
+        plans.append(plan)
+        return paged_decode_attention_plain(q, kv_view, tables, page_pos,
+                                            positions, window=window,
+                                            plan=plan)
+
+    lm_plan = lm.paged_decode_plan
+    monkeypatch.setattr(lm, "paged_decode_plan", plan)
+    monkeypatch.setattr(blocks_attn, "paged_decode_attention", spy)
+    eng = port_engine(batching_mode="padded", max_num_batched_tokens=24)
+    counts = _count_decode_dispatches(eng)
+    drain(eng, workload(n=4), Request, SamplingParams)
+    n_layers = eng.model.cfg.num_layers
+    n_types = len(eng.model._attn_views(eng.model._layer_views(
+        eng.runner.buffer)))
+    assert counts["decode"] > 0
+    assert len(builds) == counts["decode"] * n_types
+    assert len(plans) == counts["decode"] * n_layers
+    # the layers of one step share one plan object
+    for step in range(counts["decode"]):
+        layer_plans = plans[step * n_layers:(step + 1) * n_layers]
+        assert all(x is layer_plans[0] for x in layer_plans)
 
 
 def test_padded_eos_in_deep_ring_rolls_back_and_drains_clean(monkeypatch):
