@@ -83,12 +83,40 @@ training shape; every instance's ptxas register/spill line, and its
 tensor-core (HGMMA) instructions counted in the library's SASS (the phase
 fails if a forward, dK/dV or dQ instance has none).
 
+Head dim 120 (h2o-danube-3-4b; the D 128 kernel instances with the true
+head dim at run time): phase 2, the paged phase and phase 2b add danube's
+heads (varlen mixed, with and without window 64; paged decode, and a
+6000-token row under window 4096; dense at window 512), each also run
+with its output laid inside a buffer filled with a sentinel that must
+survive past every stored row (varlen: columns 120-127 of every token-major
+row; paged and dense: the elements past the end).
+
+Seeded sampling (phase 3, after the greedy legs): full-width granite-3-2b
+at temperature 0.8, top-k 50, seed 42, packed at depth 1 (sync,
+``host_sample`` on the card), depth 2 (host), depth 2 with the fused
+device tail and depth 4 (device tail), all byte-equal; seed 43 differs;
+the CUDA launches and time of one fused tail over 8 sampled rows.
+
+Phase 6, the rest of the dense family at full width (random bf16 weights
+from seed 0, drawn on the card a layer at a time), each after the earlier
+phases' memory is released: h2o-danube-3-4b (24 layers, d 3840, 32 / 8
+heads of 120, window 4096 on every second layer) with phase 3's first 6
+prompts and 2 of 5,000-6,000 tokens, packed at depths 1 and 4, at budget
+256, padded and serial, its SWA pages of the longest prompt at the end of
+its prefill at most ceil(4096 / 16) + 1 while its full pages hold the
+prompt; internlm2-1.8b (packed, budget 256, padded) and qwen2.5-32b
+(65.5 GB of weights, the pool sized from the free memory; packed, budget
+256, padded; 16 new tokens), with phase 3's checks: launch counts, no
+leaked page, packed depths bitwise equal, padded and serial fork-aware
+equal to packed within twice the noise floor.
+
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
 CUDA device.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import re
@@ -108,6 +136,7 @@ BF16_FLOPS_PER_S = 989e12
 TOL = 2e-2          # bf16 output: a few ulps at |out| ~ 1, summed in another order
 TIE_FORK_TOL = 2.5e-2
 SENTINEL = 1 << 29
+SENTINEL_BF16 = 12345.0     # exact in bf16; no output of the checks nears it
 
 
 def log(*a):
@@ -168,13 +197,19 @@ def _dev_us(e):
 
 
 # ----------------------------------------------------------------- phase 1
-def phase_env():
-    import torch
-    from repro_torch.kernels import build
-    smi = subprocess.run(
+@functools.lru_cache(maxsize=None)
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def phase_env():
+    import torch
+    from repro_torch.kernels import build
+    smi = card()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
@@ -261,6 +296,13 @@ def kernel_cases():
         # the reduced configs' heads (phases 4 and 4b serve them)
         dict(_case("reduced heads D=16 G=2 mixed T=512", mixed,
                    t_total=512), h=4, kvl=2, d=16, layout="token"),
+        # h2o-danube-3-4b's heads (D 120 on the D 128 instance), full and
+        # sliding-window layers
+        dict(_case("danube heads D=120 G=4 mixed T=512", mixed,
+                   t_total=512), h=32, kvl=8, d=120, layout="token"),
+        dict(_case("danube heads D=120 G=4 window=64 T=512", mixed,
+                   window=64, t_total=512), h=32, kvl=8, d=120,
+             layout="token"),
     ]
 
 
@@ -281,6 +323,23 @@ def _varlen_inputs(case, rng, dev):
         token = [a.transpose(0, 1).contiguous().transpose(0, 1)
                  for a in (q, k, v)]
     return q, k, v, meta, token
+
+
+def _sentinel_tail(out_fn, shape, dev):
+    """Run ``out_fn(out)`` on an ``out`` of ``shape`` (contiguous bf16) laid
+    at the start of a larger buffer filled with a sentinel, and check that
+    the 64 elements past its end still hold it: a store of D 128 columns
+    where the head dim is 120 runs 8 past the last row. Returns ``out``."""
+    import torch
+    n = int(np.prod(shape))
+    buf = torch.full((n + 64,), SENTINEL_BF16, dtype=torch.bfloat16,
+                     device=dev)
+    out = buf[:n].view(shape)
+    out_fn(out)
+    torch.cuda.synchronize()
+    if not bool((buf[n:] == SENTINEL_BF16).all()):
+        raise AssertionError(f"a store ran past the end of {tuple(shape)}")
+    return out
 
 
 def _varlen_check(case, q, k, v, meta, token, kv_tiles):
@@ -311,6 +370,20 @@ def _varlen_check(case, q, k, v, meta, token, kv_tiles):
                 not torch.equal(out_t, out_k):
             raise AssertionError(f"{name}: the token-major layout's output "
                                  "differs from the head-major one")
+    H, t, D = q.shape
+    if D == 120:
+        # serve layout with the columns 120-127 of every (token, head) row
+        # holding a sentinel: the kernel's D 128 instance must leave them
+        buf = torch.full((t, H, 128), SENTINEL_BF16, dtype=torch.bfloat16,
+                         device=dev)
+        out_s = buf[:, :, :D].transpose(0, 1)
+        flash_attention_varlen(*(token or (q, k, v)), *meta, window=w,
+                               kv_tiles=kv_tiles, out=out_s)
+        torch.cuda.synchronize()
+        if not bool((buf[:, :, D:] == SENTINEL_BF16).all()) or \
+                not torch.equal(out_s, out_k):
+            raise AssertionError(f"{name}: the D 120 store wrote past column "
+                                 "120 or differs from the plain call")
     qs, ks, qp, kp = (case[n] for n in ("q_seg", "kv_seg", "q_pos",
                                         "kv_pos"))
     mask = (ks[None, :] == qs[:, None]) & (kp[None, :] <= qp[:, None])
@@ -432,6 +505,13 @@ def paged_cases():
              lens=np.concatenate([[16384], lens[:7]]), p=2048),
         dict(name="64 rows of 512-2048 P=256", d=64, g=4, layers=8,
              lens=many, p=256),
+        # h2o-danube-3-4b's heads: D 120 on the D 128 instance; its
+        # sliding-window layers (window 4096) over a 6000-token row
+        dict(name="danube heads D=120 G=4", d=120, g=4, layers=24,
+             lens=lens),
+        dict(name="danube D=120 window=4096 row 6000 + 7 decodes P=512",
+             d=120, g=4, layers=24, lens=np.concatenate([[6000], lens[:7]]),
+             p=512, window=4096),
     ]
 
 
@@ -518,6 +598,11 @@ def phase_paged_kernel():
         torch.cuda.synchronize()
         if not torch.equal(out_k, out_2):
             raise AssertionError(f"paged {case['name']}: two calls differ")
+        if D == 120:
+            out_s = _sentinel_tail(lambda o: paged_decode_attention(
+                q, kv, *meta, window=w, plan=plan, out=o), q.shape, dev)
+            if not torch.equal(out_s, out_k):
+                raise AssertionError(f"paged {case['name']}: out= differs")
         err = (out_k.float() - out_p.float()).abs().max().item()
         if not np.isfinite(err) or err > TOL:
             raise AssertionError(f"paged {case['name']}: max abs err {err}"
@@ -761,6 +846,10 @@ def dense_cases():
          True, 0),
         ("ragged T=333 S=200 window=50 D=32", 1, 4, 2, 32, 333, 200, True,
          50),
+        # h2o-danube-3-4b's heads (D 120 on the D 128 instances), its
+        # sliding-window layers' mask at a window T/4
+        ("danube heads D=120 G=4 T=2048 window=512", 1, 32, 8, 120, 2048,
+         2048, True, 512),
     ]
 
 
@@ -852,6 +941,18 @@ def phase_dense_kernel():
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
         if not bitwise:
             raise AssertionError(f"dense {name}: two backward calls differ")
+        if D == 120:
+            o_s = _sentinel_tail(lambda o: dense_flash_fwd(q, k, v, out=o,
+                                                           **kw),
+                                 q.shape, dev)
+            g_s = [_sentinel_tail(lambda o, i=i: dense_flash_bwd(
+                q, k, v, out, lse, dout, grads=[
+                    o if j == i else torch.empty_like(a)
+                    for j, a in enumerate((q, k, v))], **kw), a.shape, dev)
+                for i, a in enumerate((q, k, v))]
+            if not (torch.equal(o_s, out) and
+                    all(torch.equal(a, b) for a, b in zip(g_s, grads))):
+                raise AssertionError(f"dense {name}: out=/grads= differ")
         leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
         ref = flash_attention_plain(*leaves, **kw)
         ref_grads = torch.autograd.grad(ref, leaves, dout)
@@ -960,13 +1061,14 @@ def _prompts(n, vocab, seed=0):
 
 
 def _drain(model, params, cfg_kw, prompts, new_tokens, device,
-           count_copies=False, no_sync=False):
+           count_copies=False, no_sync=False, sampling=None, on_step=None):
     """Drain ``prompts`` through a new ``Engine``. Returns the engine, the
     wall seconds, and the number of its T == 1 padded dispatches (the
     ones that go through the paged decode kernel); with ``count_copies``
     also the kinds of its state-page copies. With ``no_sync`` every
     dispatch runs under torch's sync debug mode "error", so a host sync
-    inside it raises."""
+    inside it raises. ``sampling``: extra ``SamplingParams`` fields (the
+    seeded draw); ``on_step(eng)`` runs after every engine step."""
     import torch
     from repro_torch.serving import Engine, EngineConfig, Request, \
         SamplingParams
@@ -986,9 +1088,18 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
             torch.cuda.set_sync_debug_mode("default")
 
     eng.runner.dispatch = counting
+    if on_step is not None:
+        step = eng.step
+
+        def stepping():
+            out = step()
+            on_step(eng)
+            return out
+
+        eng.step = stepping
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=f"r{i}", prompt=p,
-                           sampling=SamplingParams(max_new_tokens=new_tokens)))
+        eng.submit(Request(rid=f"r{i}", prompt=p, sampling=SamplingParams(
+            max_new_tokens=new_tokens, **(sampling or {}))))
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1034,51 +1145,36 @@ def _fork_aware_equal(ref, other, label, tol=TIE_FORK_TOL):
     return forked
 
 
-def phase_engine():
+def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
+                on_step=None, sampling=None):
+    """Drain ``prompts`` through one ``Engine`` per leg (name, batching
+    mode, pipeline depth, config) of full-width ``cfg``: every request
+    finishes, no page is left referenced, and each kernel is launched once
+    per layer of every dispatch that takes it (packed: varlen x dispatches,
+    paged never; padded/serial: paged x T == 1 dispatches, varlen never),
+    both counts set to 0 before the leg and read after it. Depth-1 legs
+    record their logits rows (finite, vocab wide); their finished requests
+    and rows are returned by name. Each leg's engine, pool and all, is
+    released before the next is built (qwen2.5-32b leaves room for one).
+    Returns (outputs by (name, depth), depth-1 records, launch totals)."""
+    import gc
+    import types
+
     import torch
-    from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention import flash_attention_varlen
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.models import build_model
 
-    cfg = ARCHS["granite-3-2b"]
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params["layers"].values()) + \
-        params["embed"].numel()
-    log(f"[engine] granite-3-2b full width: {cfg.num_layers} layers, "
-        f"{n_params / 1e9:.3f} B params bf16, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    base = dict(kv_pool_bytes=2 << 30, max_num_batched_tokens=512,
-                chunk_size=256, max_running=8)
-    prompts = _prompts(8, cfg.vocab_size)
-    # warm-up (cuBLAS handles, allocator) before anything is counted
-    for mode in ("packed", "padded"):
-        _drain(model, params, dict(base, batching_mode=mode),
-               [prompts[0][:64], prompts[1][:64]], 2, "cuda")
-
-    rec = dict(async_scheduling=False, record_sample_logits=True)
-    d2 = dict(async_scheduling=True, pipeline_depth=2)
-    d4 = dict(async_scheduling=True, pipeline_depth=4)
-    # "packed-b256": the packed path itself at another token budget, the
-    # noise floor that the padded and serial legs are held to
-    legs = [("packed", "packed", 1, rec), ("packed", "packed", 2, d2),
-            ("packed", "packed", 4, d4),
-            ("packed-b256", "packed", 1,
-             dict(rec, max_num_batched_tokens=256)),
-            ("padded", "padded", 1, rec), ("padded", "padded", 2, d2),
-            ("padded", "padded", 4, d4), ("serial", "serial", 1, rec)]
-    outs, rows, ref = {}, [], {}
+    outs, ref = {}, {}
     launches = {"varlen": 0, "paged": 0}
     for name, mode, depth, kw in legs:
-        label = f"{name} depth={depth}"
+        label = f"{tag} {name} depth={depth}"
         flash_attention_varlen.launches = 0
         paged_decode_attention.launches = 0
         eng, wall, decode = _drain(
-            model, params, dict(base, batching_mode=mode, **kw), prompts, 32,
-            "cuda")
+            model, params, dict(base, batching_mode=mode, **kw), prompts,
+            new_tokens, "cuda", sampling=sampling,
+            on_step=None if on_step is None else
+            (lambda e, n=name, d=depth: on_step(e, n, d)))
         varlen = flash_attention_varlen.launches
         paged = paged_decode_attention.launches
         launches["varlen"] += varlen
@@ -1105,41 +1201,154 @@ def phase_engine():
                     if r.shape != (cfg.vocab_size,) or \
                             not np.isfinite(r).all():
                         raise AssertionError(f"{label} {rid}: bad logits")
-            ref[name] = eng
+            ref[name] = types.SimpleNamespace(finished=eng.finished,
+                                              sample_log=eng.sample_log)
         outs[name, depth] = {r.rid: list(r.output) for r in eng.finished}
         n_out = sum(len(o) for o in outs[name, depth].values())
         steps = eng.step_count
-        log(f"[engine] mode={name} depth={depth} steps={steps} dispatches="
+        log(f"[{tag}] mode={name} depth={depth} steps={steps} dispatches="
             f"{eng.runner.dispatch_count} decode_dispatches={decode} "
             f"wall_s={wall:.3f} output_tok_per_s={n_out / wall:.1f} "
             f"mean_step_ms={wall / steps * 1e3:.2f} varlen_launches={varlen}"
-            f" paged_launches={paged} prompt_tokens="
-            f"{sum(len(p) for p in prompts)} output_tokens={n_out}")
-        rows.append(dict(mode=name, depth=depth, steps=steps, wall_s=wall,
-                         launches=varlen + paged))
-    for mode in ("packed", "padded"):
-        if not outs[mode, 1] == outs[mode, 2] == outs[mode, 4]:
-            raise AssertionError(f"{mode}: outputs differ across depths")
-    # At full width the bf16 sums of 40 layers differ between any two step
-    # compositions by far more than TIE_FORK_TOL, which was set on reduced
-    # configs: the packed path against itself at another token budget is
-    # the measured noise floor. A masking or page fault moves logits by
-    # O(1) (the rows' std is ~0.9), far above it.
+            f" (expected {want[0]}) paged_launches={paged} (expected "
+            f"{want[1]}) prompt_tokens={sum(len(p) for p in prompts)} "
+            f"output_tokens={n_out} leaked_pages=0 card=[{card()}]")
+        # engines sit in reference cycles through their wrapped methods
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs, ref, launches
+
+
+def _forks_within_noise(tag, ref, names):
+    """The depth-1 legs ``names`` fork-aware equal to packed depth 1,
+    within twice the noise floor (packed against packed-b256, the same
+    path at another token budget). At full width the bf16 sums of many
+    layers differ between any two step compositions by far more than
+    TIE_FORK_TOL, which was set on reduced configs; a masking or page
+    fault moves logits by O(1) (the rows' std is ~0.9), far above it."""
     noise = _first_row_diff(ref["packed"], ref["packed-b256"])
     tol = max(TIE_FORK_TOL, 2 * noise)
     forks = {}
-    for name in ("packed-b256", "padded", "serial"):
+    for name in names:
         diff = _first_row_diff(ref["packed"], ref[name])
         if diff > tol:
-            raise AssertionError(f"{name}: first-token logits differ from "
-                                 f"packed by {diff} > {tol}")
-        forks[name] = (_fork_aware_equal(ref["packed"], ref[name], name,
-                                         tol), round(diff, 4))
+            raise AssertionError(f"{tag} {name}: first-token logits differ "
+                                 f"from packed by {diff} > {tol}")
+        forks[name] = (_fork_aware_equal(ref["packed"], ref[name],
+                                         f"{tag} {name}", tol),
+                       round(diff, 4))
+    return noise, tol, forks
+
+
+def phase_engine():
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    cfg = ARCHS["granite-3-2b"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params["layers"].values()) + \
+        params["embed"].numel()
+    log(f"[engine] granite-3-2b full width: {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = dict(kv_pool_bytes=2 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    _warm(model, params, base, prompts)
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    d2 = dict(async_scheduling=True, pipeline_depth=2)
+    d4 = dict(async_scheduling=True, pipeline_depth=4)
+    # "packed-b256": the packed path itself at another token budget, the
+    # noise floor that the padded and serial legs are held to
+    legs = [("packed", "packed", 1, rec), ("packed", "packed", 2, d2),
+            ("packed", "packed", 4, d4),
+            ("packed-b256", "packed", 1,
+             dict(rec, max_num_batched_tokens=256)),
+            ("padded", "padded", 1, rec), ("padded", "padded", 2, d2),
+            ("padded", "padded", 4, d4), ("serial", "serial", 1, rec)]
+    outs, ref, launches = _serve_legs("engine", cfg, model, params, base,
+                                      legs, prompts, 32)
+    for mode in ("packed", "padded"):
+        if not outs[mode, 1] == outs[mode, 2] == outs[mode, 4]:
+            raise AssertionError(f"{mode}: outputs differ across depths")
+    noise, tol, forks = _forks_within_noise(
+        "engine", ref, ("packed-b256", "padded", "serial"))
     log("[engine] outputs bitwise equal across depths 1, 2, 4 (packed; "
         f"padded); noise floor (packed vs packed-b256 first-token logits) "
         f"{noise:.4f}, fork tolerance {tol:.4f}; (forks, first-token diff) "
         f"vs packed: {forks}; 0 leaked pages")
-    return launches, rows
+    del ref
+    sampled = phase_sampled(cfg, model, params, base, prompts)
+    for k in launches:
+        launches[k] += sampled[k]
+    return launches
+
+
+def phase_sampled(cfg, model, params, base, prompts):
+    """Seeded temperature/top-k serving (temperature 0.8, top-k 50, seed
+    42) of full-width granite-3-2b, packed: depth 1 (sync, host-sampled
+    through ``host_sample`` on the card), depth 2 (host-sampled), depth 2
+    with the fused device tail and depth 4 (device tail). Every leg's
+    outputs byte-equal; seed 43 must change them. Also the CUDA kernels
+    one ``sample_batch`` call of 8 sampled rows launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.sampler import sample_batch
+
+    seeded = dict(temperature=0.8, top_k=50, seed=42)
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    d2 = dict(async_scheduling=True, pipeline_depth=2)
+    legs = [("sampled", "packed", 1, rec),
+            ("sampled", "packed", 2, d2),
+            ("sampled-device", "packed", 2, dict(d2, device_sampling=True)),
+            ("sampled", "packed", 4,
+             dict(async_scheduling=True, pipeline_depth=4))]
+    outs, _, launches = _serve_legs("sampled", cfg, model, params, base,
+                                    legs, prompts, 32, sampling=seeded)
+    first = outs["sampled", 1]
+    if any(o != first for o in outs.values()):
+        raise AssertionError(f"sampled legs differ: {outs}")
+    other, _, more = _serve_legs("sampled seed 43", cfg, model, params, base,
+                                 legs[3:], prompts, 32,
+                                 sampling=dict(seeded, seed=43))
+    if other["sampled", 4] == first:
+        raise AssertionError("seed 43 drew the same outputs as seed 42")
+    for k in launches:
+        launches[k] += more[k]
+    distinct = sum(len(set(o)) for o in first.values())
+    # the CUDA kernels of one fused tail over 8 sampled rows
+    dev = torch.device("cuda")
+    rows = torch.randn((8, cfg.vocab_size), device=dev)
+    board = torch.zeros(9, dtype=torch.int32, device=dev)
+    dst = torch.arange(8, dtype=torch.int32, device=dev)
+    samp = (torch.full((8,), 0.8, device=dev),
+            torch.full((8,), 50, dtype=torch.int32, device=dev),
+            torch.arange(8, dtype=torch.int32, device=dev),
+            torch.arange(8, dtype=torch.int32, device=dev) + 100,
+            torch.full((8,), 42, dtype=torch.int32, device=dev))
+    sample_batch(rows, board, dst, samp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sample_batch(rows, board, dst, samp)
+        torch.cuda.synchronize()
+    n_k = sum(e.count for e in prof.key_averages()
+              if _dev_us(e) > 0)
+    tail_ms = cuda_time_ms(lambda: sample_batch(rows, board, dst, samp))
+    greedy_ms = cuda_time_ms(lambda: sample_batch(rows, board, dst))
+    log(f"[sampled] temperature 0.8 top-k 50 seed 42: outputs byte-equal "
+        f"across packed depth 1 (sync, host_sample on the card), depth 2 "
+        f"(host), depth 2 (device tail) and depth 4 (device tail); seed 43 "
+        f"differs; {distinct} distinct tokens over {len(first)} "
+        f"requests; one fused tail over 8 sampled rows of "
+        f"{cfg.vocab_size}: {n_k} CUDA kernel launches, {tail_ms:.4f} ms "
+        f"per call (greedy tail {greedy_ms:.4f} ms)")
+    return launches
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1370,6 +1579,175 @@ def phase_hybrid_small_reference():
             f"diff {diff:.3e}")
 
 
+# ----------------------------------------------------------------- phase 6
+def _full_width(arch):
+    """Full-width ``arch`` with random bf16 weights drawn on the card from
+    seed 0, after the earlier phases' engines, weights and pools are gone;
+    the card's free memory is printed before and after."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    cfg = ARCHS[arch]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves = [w for v in params.values()
+              for w in (v.values() if isinstance(v, dict) else [v])]
+    n_params = sum(w.numel() for w in leaves)
+    n_bytes = sum(w.numel() * w.element_size() for w in leaves)
+    free1, _ = torch.cuda.mem_get_info()
+    log(f"[{arch}] full width: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"params, {n_bytes / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f} s; card memory free "
+        f"{free0 / 2 ** 30:.2f} GiB before, {free1 / 2 ** 30:.2f} GiB after "
+        f"(of {total / 2 ** 30:.2f})")
+    return cfg, model, params
+
+
+def _warm(model, params, base, prompts):
+    """Warm-up (cuBLAS handles, allocator) before anything is counted."""
+    import gc
+
+    import torch
+    for mode in ("packed", "padded"):
+        _drain(model, params, dict(base, batching_mode=mode),
+               [prompts[0][:64], prompts[1][:64]], 2, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _leg_set(depths=(1,), padded=True, serial=False):
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    legs = [("packed", "packed", 1, rec)]
+    legs += [("packed", "packed", d,
+              dict(async_scheduling=True, pipeline_depth=d))
+             for d in depths if d != 1]
+    legs.append(("packed-b256", "packed", 1,
+                 dict(rec, max_num_batched_tokens=256)))
+    if padded:
+        legs.append(("padded", "padded", 1, rec))
+    if serial:
+        legs.append(("serial", "serial", 1, rec))
+    return legs
+
+
+def phase_danube():
+    """h2o-danube-3-4b at full width (head dim 120 through the D 128
+    kernel instances; window 4096 on every second layer): the 6 first
+    prompts of phase 3 and 2 prompts of 5,000-6,000 tokens, 32 new tokens
+    each, packed at depths 1 and 4, packed-b256, padded and serial. At the
+    end of the longest prompt's prefill its SWA type holds at most its
+    window's pages, ceil(4096 / TPP) + 1, while the full type holds the
+    whole prompt."""
+    import math
+
+    from repro_torch.core.request import SequenceState
+
+    cfg, model, params = _full_width("h2o-danube-3-4b")
+    base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    rng = np.random.default_rng(0)
+    long = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(5000, 6001, 2)]
+    prompts = _prompts(8, cfg.vocab_size)[:6] + long
+    _warm(model, params, base, prompts)
+    tpp, window = cfg.tokens_per_page, cfg.sliding_window
+    rid = f"r{int(np.argmax([len(p) for p in prompts]))}"
+    held = {}
+
+    def on_step(eng, name, depth):
+        if (name, depth) in held:
+            return
+        for r in eng.scheduler.running:
+            if r.rid == rid and r.seq.num_computed >= len(r.prompt):
+                held[name, depth] = len(r.prompt), {
+                    t: sum(e != SequenceState.FREED for e in tab)
+                    for t, tab in r.seq.page_tables.items()}
+
+    legs = _leg_set(depths=(1, 4), serial=True)
+    outs, ref, launches = _serve_legs("danube", cfg, model, params, base,
+                                      legs, prompts, 32, on_step=on_step)
+    if outs["packed", 1] != outs["packed", 4]:
+        raise AssertionError("danube packed: outputs differ across depths")
+    noise, tol, forks = _forks_within_noise("danube", ref,
+                                            ("padded", "serial"))
+    swa_max = math.ceil(window / tpp) + 1
+    for (name, depth), (n_long, h) in sorted(held.items()):
+        full_min = math.ceil(n_long / tpp)
+        log(f"[danube] {name} depth={depth}: at the end of {rid}'s "
+            f"{n_long}-token prefill its pages per KV type: {h} (swa at "
+            f"most {swa_max}, full at least {full_min}; TPP {tpp})")
+        if depth == 1 and not (h["swa"] <= swa_max and
+                               h["full_attn"] >= full_min):
+            raise AssertionError(f"danube {name}: pages held {h}")
+    if ("packed", 1) not in held:
+        raise AssertionError("danube: the longest prefill was not seen")
+    log(f"[danube] outputs bitwise equal across packed depths 1, 4; noise "
+        f"floor {noise:.4f}, fork tolerance {tol:.4f}; (forks, first-token "
+        f"diff) vs packed: {forks}; 0 leaked pages")
+    return launches
+
+
+def phase_internlm2():
+    """internlm2-1.8b at full width (head dim 128): phase 3's 8 prompts,
+    packed at depth 1, packed-b256 and padded."""
+    cfg, model, params = _full_width("internlm2-1.8b")
+    base = dict(kv_pool_bytes=2 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    _warm(model, params, base, prompts)
+    _, ref, launches = _serve_legs("internlm2", cfg, model, params, base,
+                                   _leg_set(), prompts, 32)
+    noise, tol, forks = _forks_within_noise("internlm2", ref, ("padded",))
+    log(f"[internlm2] noise floor {noise:.4f}, fork tolerance {tol:.4f}; "
+        f"(forks, first-token diff) vs packed: {forks}; 0 leaked pages")
+    return launches
+
+
+def phase_qwen():
+    """qwen2.5-32b at full width (64 layers, QKV bias, vocab 152064;
+    65.5 GB of bf16 weights) on the one card: its pool is what the card
+    has free after the weights, less 4 GiB for the step's activations.
+    Phase 3's 8 prompts, 16 new tokens, packed at depth 1, packed-b256
+    and padded at depth 1."""
+    import torch
+
+    cfg, model, params = _full_width("qwen2.5-32b")
+    free, _ = torch.cuda.mem_get_info()
+    pool = free - (4 << 30)
+    prompts = _prompts(8, cfg.vocab_size)
+    per_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    need = sum(len(p) + 16 + cfg.tokens_per_page for p in prompts) * \
+        per_token
+    log(f"[qwen2.5-32b] pool {pool / 2 ** 30:.2f} GiB of the "
+        f"{free / 2 ** 30:.2f} GiB free after the weights; the 8 prompts "
+        f"need {need / 2 ** 30:.2f} GiB of K/V")
+    if pool < need:
+        raise AssertionError(f"qwen2.5-32b does not fit at full depth: "
+                             f"pool {pool} < {need} bytes")
+    base = dict(kv_pool_bytes=pool, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    _warm(model, params, base, prompts)
+    _, ref, launches = _serve_legs("qwen2.5-32b", cfg, model, params, base,
+                                   _leg_set(), prompts, 16)
+    noise, tol, forks = _forks_within_noise("qwen2.5-32b", ref,
+                                            ("padded",))
+    log(f"[qwen2.5-32b] noise floor {noise:.4f}, fork tolerance {tol:.4f}; "
+        f"(forks, first-token diff) vs packed: {forks}; 0 leaked pages; "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB")
+    return launches
+
+
 # ----------------------------------------------------------------- phase 5
 TRAIN_LOSS_TOL = 1e-2   # card vs CPU losses, reduced granite (bf16 sums in another order)
 
@@ -1557,11 +1935,14 @@ def main() -> int:
     pres = phase_paged_kernel()
     mres = phase_mamba_kernel()
     dres = phase_dense_kernel()
-    launches, _ = phase_engine()
+    launches = phase_engine()
     phase_small_reference()
     hybrid, _ = phase_hybrid_engine()
     phase_hybrid_small_reference()
     train = phase_train()
+    for phase in (phase_danube, phase_internlm2, phase_qwen):
+        for k, n in phase().items():
+            launches[k] += n
     mixed, decode, dense = kres[0], pres[0], dres[0]
     dense_src = "src/repro_torch/kernels/flash_attention/csrc/dense_flash.cu"
     dense_tpu = "src/repro/kernels/flash_attention/kernel.py:21"

@@ -11,7 +11,8 @@ The cases, their inputs and the timers come from this checkout's
 script once per checkout in turns. A wrapper that takes the step's plan
 (``paged_decode_plan``) gets it built once per case, as the serve path
 builds it once per step; an older wrapper, which takes none, is called
-without. Prints the card's name and power limit beside the numbers.
+without; a case whose head dim the tree's wrapper does not take is
+skipped. Prints the card's name and power limit beside the numbers.
 """
 from __future__ import annotations
 
@@ -52,6 +53,10 @@ def main() -> int:
     gen.manual_seed(0)
     rng = np.random.default_rng(3)
     for case in cs.paged_cases():
+        if case["d"] not in K._HEAD_DIMS:
+            print(f"[paged] {case['name']}: head dim {case['d']} not taken",
+                  flush=True)
+            continue
         w = case.get("window", 0)
         q, pool, meta, _ = cs.paged_inputs(case, gen, rng, dev)
         n_layers, tpp = pool.shape[1], pool.shape[3]

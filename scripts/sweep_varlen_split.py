@@ -3,8 +3,9 @@
 
     python3 scripts/sweep_varlen_split.py
 
-``varlen_plan`` splits a q tile's hit list over more blocks only beyond
-``SPLIT_TILES`` kv tiles a block, with at most enough splits for about
+``varlen_plan`` cuts the kv stream into equal ranges of at least
+``SPLIT_TILES`` kv tiles, one block of a q tile each, with at most enough
+splits for about
 ``2 * SMS / 132`` blocks on each of the H100's 132 SMs. This times the
 kernel (device time under ``torch.profiler``, ``chip_smoke.device_ms``) on
 the packed streams of ``chip_smoke.py`` phase 2 for each pair of those two

@@ -512,14 +512,15 @@ bool make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The tensor map of a contiguous (heads, rows, D) bf16 array read in boxes
-// of `box` rows x CW columns.
+// The tensor map of a contiguous (heads, rows, dh) bf16 array, dh <= D,
+// read in boxes of `box` rows x CW columns; columns dh..D-1 read as zeros.
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
-              int box) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+              int box, int dh) {
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)rows,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)rows * dh * 2};
   return make_map<D>(map, ptr, dims, strides, box, 1);
 }
 

@@ -88,6 +88,12 @@
 // dK/dV instance (its two 64 x 128 accumulators), which also keeps the
 // ping-pong turns out of dK/dV.
 //
+// Head dim 120 (h2o-danube-3-4b) runs the D 128 instances with the true
+// head dim `dh` at run time: the tensor maps' rows are 120 wide, so TMA
+// fills columns 120-127 of every tile with zeros and the products are
+// exact; the scale is 1/sqrt(120); out, dQ, dK and dV rows are stored
+// 120 wide; delta and the dV tail sum over 120 columns.
+//
 // The Hopper building blocks (mbarriers, TMA, wgmma descriptors and
 // products, setmaxnreg, register tiles, the tensor-map encoder) are in
 // kernels/csrc/hopper.cuh, shared with varlen_flash.cu and the Mamba2 scan.
@@ -106,16 +112,16 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int causal,
   return (j < S) & (!causal | (j <= i)) & ((window <= 0) | (j > i - window));
 }
 
-// The first `rows` staged rows to dst (rows of D values), 16 bytes a
+// The first `rows` staged rows to dst (rows of dh values), 16 bytes a
 // thread per step, by the warpgroup's 128 threads.
 template <int D>
 __device__ __forceinline__ void copy_out(const uint8_t* st, bf16* dst,
-                                         int rows, int t) {
+                                         int rows, int dh, int t) {
   constexpr int kVec = D / 8;
   for (int e = t; e < 64 * kVec; e += 128) {
     const int r = e / kVec, v = e % kVec;
-    if (r < rows) {
-      *reinterpret_cast<uint4*>(dst + (int64_t)r * D + 8 * v) =
+    if (r < rows && 8 * v < dh) {
+      *reinterpret_cast<uint4*>(dst + (int64_t)r * dh + 8 * v) =
           *reinterpret_cast<const uint4*>(st + r * Geo<D>::kPitch + 16 * v);
     }
   }
@@ -196,7 +202,7 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  bf16* __restrict__ out, float* __restrict__ lse, int T,
-                 int S, int G, int causal, int window) {
+                 int S, int G, int dh, int causal, int window) {
   using Gm = Geo<D>;
   using L = FwdSmem<D>;
   constexpr int BM = L::kRows, BN = L::kCols, NS = L::kStages;
@@ -260,7 +266,7 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int rb = q0 + 64 * wg;                 // the warpgroup's first row
   const int i0 = rb + 16 * warp + lane / 4;    // this thread's rows i0, i1
   const int i1 = i0 + 8;
-  const float sl2 = attn_scale(D) * kLog2e;
+  const float sl2 = attn_scale(dh) * kLog2e;
   const uint32_t qa = base + 64 * wg * Gm::kW;
 
   float o[Gm::kChunks][Gm::kCw / 2];
@@ -355,7 +361,7 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   stage_rows<D>(st, o, 1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f),
                 warp, lane);
   named_sync(1 + wg, 128);
-  copy_out<D>(st, out + ((int64_t)h * T + rb) * D, min(64, T - rb), t);
+  copy_out<D>(st, out + ((int64_t)h * T + rb) * dh, min(64, T - rb), dh, t);
   if ((lane & 3) == 0) {
     if (i0 < T) lse[(int64_t)h * T + i0] = (m[0] + log2f(l0)) * kLn2;
     if (i1 < T) lse[(int64_t)h * T + i1] = (m[1] + log2f(l1)) * kLn2;
@@ -364,18 +370,21 @@ dense_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ------------------------------------------------------ backward pre-pass
 // delta = rowsum(dO * O): D / 8 neighbouring threads per row, 16 bytes each
-// (coalesced), summed over those lanes in a fixed order.
+// (coalesced; the lanes past dh / 8 add nothing), summed over those lanes
+// in a fixed order.
 template <int D>
 __global__ void __launch_bounds__(128)
 dense_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                   float* __restrict__ delta, int64_t rows) {
+                   float* __restrict__ delta, int64_t rows, int dh) {
   constexpr int kLanes = D / 8;
   const int64_t e = (int64_t)blockIdx.x * 128 + threadIdx.x;
   const int64_t r = e / kLanes;
+  const int lv = (int)(e % kLanes);
   float acc = 0.f;
-  if (r < rows) {
-    const uint4 ro = reinterpret_cast<const uint4*>(o)[e];
-    const uint4 rg = reinterpret_cast<const uint4*>(dout)[e];
+  if (r < rows && lv < dh / 8) {
+    const int64_t x = r * (dh / 8) + lv;
+    const uint4 ro = reinterpret_cast<const uint4*>(o)[x];
+    const uint4 rg = reinterpret_cast<const uint4*>(dout)[x];
     const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&ro);
     const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&rg);
 #pragma unroll
@@ -420,7 +429,7 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_v,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                int T, int S, int G, int causal, int window) {
+                int T, int S, int G, int dh, int causal, int window) {
   using Gm = Geo<D>;
   using L = DqSmem<D>;
   constexpr int BM = L::kRows, BN = L::kCols, NS = L::kStages;
@@ -477,7 +486,7 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int warp = t / 32, lane = t % 32;
   const int rb = q0 + 64 * wg;
   const int i0 = rb + 16 * warp + lane / 4, i1 = i0 + 8;
-  const float scale = attn_scale(D), sl2 = scale * kLog2e;
+  const float scale = attn_scale(dh), sl2 = scale * kLog2e;
   const float lse2[2] = {i0 < T ? lse[(int64_t)h * T + i0] * kLog2e : 0.f,
                          i1 < T ? lse[(int64_t)h * T + i1] * kLog2e : 0.f};
   const float dl[2] = {i0 < T ? delta[(int64_t)h * T + i0] : 0.f,
@@ -601,7 +610,7 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   uint8_t* st = sm + L::kStage + 64 * wg * Gm::kPitch;
   stage_rows<D>(st, acc, scale, scale, warp, lane);
   named_sync(1 + wg, 128);
-  copy_out<D>(st, dq + ((int64_t)h * T + rb) * D, min(64, T - rb), t);
+  copy_out<D>(st, dq + ((int64_t)h * T + rb) * dh, min(64, T - rb), dh, t);
 }
 
 // --------------------------------------------------------- backward dK/dV
@@ -636,8 +645,8 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int T, int S, int G, int causal,
-                 int window) {
+                 bf16* __restrict__ dv, int T, int S, int G, int dh,
+                 int causal, int window) {
   using Gm = Geo<D>;
   using L = DkvSmem<D>;
   constexpr int BK = L::kRows, BQ = L::kCols, NS = L::kStages;
@@ -707,7 +716,7 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
   const int warp = t / 32, lane = t % 32;
   const int kb = j0 + 64 * wg;
   const int jr0 = kb + 16 * warp + lane / 4;   // this thread's rows jr0, +8
-  const float scale = attn_scale(D), sl2 = scale * kLog2e;
+  const float scale = attn_scale(dh), sl2 = scale * kLog2e;
   const uint32_t ka = base + 64 * wg * Gm::kW;
   const uint32_t va = base + L::kV + 64 * wg * Gm::kW;
 
@@ -838,10 +847,10 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
     float* tail = reinterpret_cast<float*>(sm + L::kTail);
     for (int d = threadIdx.x; d < D; d += kConsumers) {
       float e = 0.f;
-      for (int g = 0; g < G; ++g) {
-        const bf16* og = dout + ((int64_t)kvh * G + g) * T * D;
+      for (int g = 0; g < G && d < dh; ++g) {
+        const bf16* og = dout + ((int64_t)kvh * G + g) * T * dh;
         for (int i = S + window - 1; i < T; ++i) {
-          e += __bfloat162float(og[(int64_t)i * D + d]);
+          e += __bfloat162float(og[(int64_t)i * dh + d]);
         }
       }
       tail[d] = e;
@@ -860,24 +869,24 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap map_k,
   const int rows = min(64, S - kb);
   stage_rows<D>(stg, gk, scale, scale, warp, lane);
   named_sync(1 + wg, 128);
-  copy_out<D>(stg, dk + ((int64_t)kvh * S + kb) * D, rows, t);
+  copy_out<D>(stg, dk + ((int64_t)kvh * S + kb) * dh, rows, dh, t);
   named_sync(1 + wg, 128);
   stage_rows<D>(stg, gv, 1.f, 1.f, warp, lane);
   named_sync(1 + wg, 128);
-  copy_out<D>(stg, dv + ((int64_t)kvh * S + kb) * D, rows, t);
+  copy_out<D>(stg, dv + ((int64_t)kvh * S + kb) * dh, rows, dh, t);
 }
 
 // ---------------------------------------------------------------- launches
 
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               void* lse, int BH, int T, int S, int G, int causal,
+               void* lse, int BH, int T, int S, int G, int dh, int causal,
                int window, cudaStream_t stream) {
   using L = FwdSmem<D>;
   CUtensorMap mq, mk, mv;
-  if (!make_map<D>(&mq, q, T, BH, L::kRows) ||
-      !make_map<D>(&mk, k, S, BH / G, L::kCols) ||
-      !make_map<D>(&mv, v, S, BH / G, L::kCols)) {
+  if (!make_map<D>(&mq, q, T, BH, L::kRows, dh) ||
+      !make_map<D>(&mk, k, S, BH / G, L::kCols, dh) ||
+      !make_map<D>(&mv, v, S, BH / G, L::kCols, dh)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare(dense_fwd_kernel<D>, L::kBytes);
@@ -885,34 +894,34 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(BH, cdiv(T, L::kRows));
   dense_fwd_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), T, S,
-      G, causal, window);
+      G, dh, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int BH, int T, int S, int G, int causal,
-               int window, cudaStream_t stream) {
+               void* dk, void* dv, int BH, int T, int S, int G, int dh,
+               int causal, int window, cudaStream_t stream) {
   using Lq = DqSmem<D>;
   using Lk = DkvSmem<D>;
   const int KVH = BH / G;
   CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_k, kv_v, kv_q, kv_do;
-  if (!make_map<D>(&dq_q, q, T, BH, Lq::kRows) ||
-      !make_map<D>(&dq_do, dout, T, BH, Lq::kRows) ||
-      !make_map<D>(&dq_k, k, S, KVH, Lq::kCols) ||
-      !make_map<D>(&dq_v, v, S, KVH, Lq::kCols) ||
-      !make_map<D>(&kv_k, k, S, KVH, Lk::kRows) ||
-      !make_map<D>(&kv_v, v, S, KVH, Lk::kRows) ||
-      !make_map<D>(&kv_q, q, T, BH, Lk::kCols) ||
-      !make_map<D>(&kv_do, dout, T, BH, Lk::kCols)) {
+  if (!make_map<D>(&dq_q, q, T, BH, Lq::kRows, dh) ||
+      !make_map<D>(&dq_do, dout, T, BH, Lq::kRows, dh) ||
+      !make_map<D>(&dq_k, k, S, KVH, Lq::kCols, dh) ||
+      !make_map<D>(&dq_v, v, S, KVH, Lq::kCols, dh) ||
+      !make_map<D>(&kv_k, k, S, KVH, Lk::kRows, dh) ||
+      !make_map<D>(&kv_v, v, S, KVH, Lk::kRows, dh) ||
+      !make_map<D>(&kv_q, q, T, BH, Lk::kCols, dh) ||
+      !make_map<D>(&kv_do, dout, T, BH, Lk::kCols, dh)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t rows = (int64_t)BH * T;
   dense_delta_kernel<D><<<(unsigned)((rows * (D / 8) + 127) / 128), 128, 0,
                           stream>>>(
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<float*>(delta), rows);
+      static_cast<float*>(delta), rows, dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -922,7 +931,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                         stream>>>(
       kv_k, kv_v, kv_q, kv_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, G, causal,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, S, G, dh, causal,
       window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -932,7 +941,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   dense_dq_kernel<D><<<dim3(BH, cdiv(T, Lq::kRows)), kThreads, Lq::kBytes,
                        stream>>>(
       dq_q, dq_do, dq_k, dq_v, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, S, G,
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, S, G, dh,
       causal, window);
   return (int)cudaGetLastError();
 }
@@ -945,7 +954,8 @@ bool bad_args(int BH, int T, int S, int G, int window) {
 }  // namespace
 
 // q: (BH, T, D) bf16; k/v: (BH/G, S, D) bf16; out: (BH, T, D) bf16; lse:
-// (BH, T) fp32. All contiguous, 16-byte aligned, on the device of `stream`.
+// (BH, T) fp32; D is 16, 32, 64, 120 or 128. All contiguous, 16-byte
+// aligned, on the device of `stream`.
 // Returns a cudaError_t code (0 on a successful launch); does not
 // synchronise.
 extern "C" int dense_flash_fwd_bf16(const void* q, const void* k,
@@ -956,14 +966,18 @@ extern "C" int dense_flash_fwd_bf16(const void* q, const void* k,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_fwd<16>(q, k, v, out, lse, BH, T, S, G, causal, window, cs);
+      return launch_fwd<16>(q, k, v, out, lse, BH, T, S, G, D, causal, window,
+                            cs);
     case 32:
-      return launch_fwd<32>(q, k, v, out, lse, BH, T, S, G, causal, window, cs);
+      return launch_fwd<32>(q, k, v, out, lse, BH, T, S, G, D, causal, window,
+                            cs);
     case 64:
-      return launch_fwd<64>(q, k, v, out, lse, BH, T, S, G, causal, window, cs);
+      return launch_fwd<64>(q, k, v, out, lse, BH, T, S, G, D, causal, window,
+                            cs);
+    case 120:
     case 128:
-      return launch_fwd<128>(q, k, v, out, lse, BH, T, S, G, causal, window,
-                             cs);
+      return launch_fwd<128>(q, k, v, out, lse, BH, T, S, G, D, causal,
+                             window, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -984,16 +998,17 @@ extern "C" int dense_flash_bwd_bf16(const void* q, const void* k,
   switch (D) {
     case 16:
       return launch_bwd<16>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, T,
-                            S, G, causal, window, cs);
+                            S, G, D, causal, window, cs);
     case 32:
       return launch_bwd<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, T,
-                            S, G, causal, window, cs);
+                            S, G, D, causal, window, cs);
     case 64:
       return launch_bwd<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, T,
-                            S, G, causal, window, cs);
+                            S, G, D, causal, window, cs);
+    case 120:
     case 128:
       return launch_bwd<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH,
-                             T, S, G, causal, window, cs);
+                             T, S, G, D, causal, window, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -45,14 +45,27 @@
 //    per serve step, beside the step's other varlen metadata, and shared
 //    by every layer; each block builds its q tile's hit list from them.
 //  * Long kv ranges are split across blocks (flash-decoding): the host
-//    sets n_splits from T, S and the heads; a q tile whose hit list is
-//    longer than split_tiles uses up to n_splits blocks, each over a
-//    contiguous run of the list, writing fp32 partials (m, l, acc) to
-//    scratch. The last block of the q tile to finish (a self-resetting
-//    counter) combines them in split order: one launch, no atomics on the
-//    data, bitwise-repeatable outputs.
+//    sets n_splits from T, S and the heads, and split sp of a q tile takes
+//    the hit tiles whose index lies in the sp-th of n_splits equal ranges
+//    of the stream's kv tiles; the splits with no hit tile exit at once.
+//    With more than one split in use, each writes fp32 partials (m, l, acc)
+//    to scratch and the last block of the q tile to finish (a
+//    self-resetting counter) combines them in split order: one launch, no
+//    atomics on the data, bitwise-repeatable outputs. Splitting by tile
+//    index, not by position in the hit list, makes a row's output
+//    independent of tiles that no row of it can see: such a tile adds
+//    exact zeros inside a split, and a split of nothing but such tiles
+//    gives a partial of weight 0. So sliding-window pages that one
+//    pipeline depth has already dropped and another still gathers give
+//    the same bytes.
 //  * Outputs leave through shared memory as 16-byte stores into the
 //    strided out.
+//  * Head dim 120 (h2o-danube-3-4b) runs the D 128 instance with the true
+//    head dim `dh` at run time: the tensor maps' first dimension is 120,
+//    so TMA fills columns 120-127 of every Q, K and V tile with zeros and
+//    the products are exact; the scale is 1/sqrt(120), and every store of
+//    out (and of the split partials' combine) stops at column 120, which
+//    in the token-major (T, H, D) layout is where the next head begins.
 //
 // What bounds it on the H100. For the main path (granite-3-2b: H=32, KVL=8,
 // G=4, D=64) a mixed serve step (T=512 over ~4.6k slots) needs ~1 GFLOP of
@@ -73,6 +86,7 @@ namespace {
 constexpr int kQRows = 128;           // q rows per block: two warpgroups
 constexpr int kTile = 128;            // kv slots per tile
 constexpr int kMaxTiles = 2048;       // kv tiles of a stream (S <= 262144)
+constexpr int kMaxSplits = 256;       // kv tile ranges of a q tile
 constexpr int kBig = 1 << 30;
 constexpr int kNoSeg = -0x7fffffff;   // a q row past the tile: matches nothing
 constexpr int kNoKv = -0x7ffffffe;    // a slot past S: matches nothing
@@ -156,14 +170,16 @@ __device__ __forceinline__ void softmax_step(float (&sc)[NR], const int* meta,
 }
 
 // The first `rows` staged rows of a warpgroup to out: row r is token tok0 +
-// r / G, head h0 + r % G; 16 bytes a thread per step.
+// r / G, head h0 + r % G, its first dh columns; 16 bytes a thread per step.
 template <int D>
 __device__ __forceinline__ void store_rows(const uint8_t* st, bf16* out,
                                            int64_t oh, int64_t ot, int rows,
-                                           int tok0, int h0, int G, int t) {
+                                           int tok0, int h0, int G, int dh,
+                                           int t) {
   constexpr int kVec = D / 8;
   for (int e = t; e < rows * kVec; e += 128) {
     const int r = e / kVec, v = e % kVec;
+    if (8 * v >= dh) continue;
     bf16* dst = out + (int64_t)(h0 + r % G) * oh +
                 (int64_t)(tok0 + r / G) * ot + 8 * v;
     *reinterpret_cast<uint4*>(dst) =
@@ -184,14 +200,16 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
                     bf16* __restrict__ out, int64_t out_h, int64_t out_t,
                     float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ counters,
-                    int T, int S, int G, int window, int n_splits,
-                    int split_tiles) {
+                    int T, int S, int G, int dh, int window, int n_splits) {
   using Gm = Geo<D>;
   using L = VarlenSmem<D>;
   constexpr int NS = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int red[kThreads / 32][4];
-  __shared__ int info[2];   // hit count; last block of the q tile
+  // hit count; splits in use; this split's rank among them; last block
+  __shared__ int info[4];
+  // split s takes hits[split_first[s] .. split_first[s + 1])
+  __shared__ int split_first[kMaxSplits + 1];
   uint8_t* sm = smem_base(smem_raw);
   const uint32_t base = smem_u32(sm);
   int* hits = reinterpret_cast<int*>(sm + L::kHits);
@@ -234,30 +252,53 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
       plo = min(plo, red[w][2]);
       phi = max(phi, red[w][3]);
     }
+    // a q tile with no live row has qlo > qhi, which no tile meets
     int n = 0;
-    if (qlo <= qhi) {
-      for (int k0 = 0; k0 < n_kt; k0 += 32) {
-        const int k = k0 + lane;
-        bool hit = false;
-        if (k < n_kt) {
-          const int4 b = kv_tiles[k];
-          hit = (b.x <= qhi) & (b.y >= qlo) & (b.z <= phi) &
-                ((window == 0) | (b.w > plo - window));
-        }
-        const unsigned mask = __ballot_sync(0xffffffffu, hit);
-        if (hit) hits[n + __popc(mask & ((1u << lane) - 1u))] = k;
-        n += __popc(mask);
+    for (int k0 = 0; k0 < n_kt; k0 += 32) {
+      const int k = k0 + lane;
+      bool hit = false;
+      if (k < n_kt) {
+        const int4 b = kv_tiles[k];
+        hit = (b.x <= qhi) & (b.y >= qlo) & (b.z <= phi) &
+              ((window == 0) | (b.w > plo - window));
       }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      const int before = n + __popc(mask & ((1u << lane) - 1u));
+      if (hit) hits[before] = k;
+      // split r's tile range starts at r * n_kt / n_splits (one r at most
+      // a tile, as n_splits <= n_kt): its first hit is the count before k
+      if (k < n_kt) {
+        const int r = (k * n_splits + n_kt - 1) / n_kt;
+        if (r * n_kt / n_splits == k) split_first[r] = before;
+      }
+      n += __popc(mask);
     }
-    if (lane == 0) info[0] = n;
+    if (lane == 0) split_first[n_splits] = n;
+    __syncwarp();
+    // the splits in use, and this one's rank among them: its partial's
+    // slot, so the combine reads slots 0 .. used - 1 in split order
+    int busy = 0, rank = 0;
+    for (int r = lane; r < n_splits; r += 32) {
+      const int nonempty = split_first[r + 1] > split_first[r];
+      busy += nonempty;
+      rank += r < sp ? nonempty : 0;
+    }
+    busy = __reduce_add_sync(0xffffffffu, busy);
+    rank = __reduce_add_sync(0xffffffffu, rank);
+    if (lane == 0) {
+      info[0] = n;
+      info[1] = max(1, busy);
+      info[2] = rank;
+    }
   }
   __syncthreads();
   const int nhit = info[0];
-  const int used =
-      max(1, min(n_splits, (nhit + split_tiles - 1) / split_tiles));
-  if (sp >= used) return;   // block-uniform: this split has no tiles
-  const int first = (int)((int64_t)sp * nhit / used);
-  const int n_tiles = (int)((int64_t)(sp + 1) * nhit / used) - first;
+  const int used = info[1];
+  const int first = split_first[sp];
+  const int n_tiles = split_first[sp + 1] - first;
+  // block-uniform: a split with no tiles exits, but for the one block that
+  // writes the zero rows of a q tile with no hit at all
+  if (n_tiles == 0 && (nhit > 0 || sp > 0)) return;
 
   // valid rows of each warpgroup (tokens before T)
   const int rows0 = max(0, min(tq_w, T - t0)) * G;
@@ -336,7 +377,7 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
     qs[h] = r < rows ? q_seg[tw0 + r / G] : kNoSeg;
     qp[h] = r < rows ? q_pos[tw0 + r / G] : 0;
   }
-  const float sl2 = attn_scale(D) * kLog2e;
+  const float sl2 = (dh == D ? attn_scale(D) : attn_scale(dh)) * kLog2e;
   const uint32_t qa = base + 64 * wg * Gm::kW;
 
   float o[Gm::kChunks][Gm::kCw / 2];
@@ -432,7 +473,7 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
       stage_rows<D>(st, o, 1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f),
                     warp, lane);
       named_sync(1 + wg, 128);
-      store_rows<D>(st, out, out_h, out_t, rows, tw0, kvh * G, G, t);
+      store_rows<D>(st, out, out_h, out_t, rows, tw0, kvh * G, G, dh, t);
     }
     return;
   }
@@ -442,8 +483,8 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
   const int n_qt = gridDim.x / n_splits;
   const int64_t tile_slot = ((int64_t)kvh * n_qt + qt) * n_splits;
   if (rows > 0) {
-    float* pa_ = part_acc + (tile_slot + sp) * kQRows * D;
-    float* pm_ = part_ml + (tile_slot + sp) * kQRows * 2;
+    float* pa_ = part_acc + (tile_slot + info[2]) * kQRows * D;
+    float* pm_ = part_ml + (tile_slot + info[2]) * kQRows * 2;
     const int rb = 64 * wg + r0;
 #pragma unroll
     for (int c = 0; c < Gm::kChunks; ++c) {
@@ -469,10 +510,10 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
     int* ctr = counters + (int64_t)kvh * n_qt + qt;
     const int last = atomicAdd(ctr, 1) == used - 1;
     if (last) *ctr = 0;    // every split has counted: ready for the next call
-    info[1] = last;
+    info[3] = last;
   }
   named_sync(3, kConsumers);
-  if (!info[1]) return;
+  if (!info[3]) return;
   __threadfence();
   const float* acc_in = part_acc + tile_slot * kQRows * D;
   const float* ml_in = part_ml + tile_slot * kQRows * 2;
@@ -480,7 +521,7 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int e = threadIdx.x; e < kQRows * kVec; e += kConsumers) {
     const int rb = e / kVec, v = e % kVec;
     const int w = rb / 64, r = rb % 64;
-    if (r >= (w ? rows1 : rows0)) continue;
+    if (r >= (w ? rows1 : rows0) || 8 * v >= dh) continue;
     float mm = -INFINITY;
     for (int s = 0; s < used; ++s) {
       mm = fmaxf(mm, __ldcg(ml_in + ((int64_t)s * kQRows + rb) * 2));
@@ -522,16 +563,16 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
            const void* kv_seg, const void* q_pos, const void* kv_pos,
            const void* kv_tiles, void* out, void* part_acc, void* part_ml,
            void* counters, const Strides& st, int BH, int T, int S, int G,
-           int window, int n_splits, int split_tiles, cudaStream_t stream) {
+           int dh, int window, int n_splits, cudaStream_t stream) {
   using L = VarlenSmem<D>;
   const int KVH = BH / G, tq_w = 64 / G;
   const int n_qt = cdiv(T, 2 * tq_w);
   if ((int64_t)n_qt * n_splits > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // q/out: (D, heads, tokens), a box of tq_w tokens x G heads; k/v: (D,
-  // slots, kv heads), a box of kTile slots
-  const cuuint64_t qd[3] = {(cuuint64_t)D, (cuuint64_t)BH, (cuuint64_t)T};
+  // q/out: (dh, heads, tokens), a box of tq_w tokens x G heads; k/v: (dh,
+  // slots, kv heads), a box of kTile slots; columns dh..D-1 read as zeros
+  const cuuint64_t qd[3] = {(cuuint64_t)dh, (cuuint64_t)BH, (cuuint64_t)T};
   const cuuint64_t qs[2] = {(cuuint64_t)st.qh * 2, (cuuint64_t)st.qt * 2};
-  const cuuint64_t kd[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)KVH};
+  const cuuint64_t kd[3] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)KVH};
   const cuuint64_t ks[2] = {(cuuint64_t)st.kt * 2, (cuuint64_t)st.kh * 2};
   const cuuint64_t vs[2] = {(cuuint64_t)st.vt * 2, (cuuint64_t)st.vh * 2};
   CUtensorMap mq, mk, mv;
@@ -548,8 +589,8 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
       static_cast<const int*>(kv_seg), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<const int4*>(kv_tiles),
       static_cast<bf16*>(out), st.oh, st.ot, static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), static_cast<int*>(counters), T, S, G,
-      window, n_splits, split_tiles);
+      static_cast<float*>(part_ml), static_cast<int*>(counters), T, S, G, dh,
+      window, n_splits);
   return (int)cudaGetLastError();
 }
 
@@ -561,8 +602,10 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
 // slots with segment id >= 0 ((2^30, -2^30, 2^30, -2^30) when it has none);
 // out: (BH, T, D) bf16. strides[8]: element strides of the (head, token)
 // axes of q, k, v, out (head dim contiguous, every other stride a multiple
-// of 8 elements, pointers 16-byte aligned). With n_splits > 1, part_acc
-// (KVH x n_q_tiles x n_splits x 128 x D fp32) and part_ml (the same x 2)
+// of 8 elements, pointers 16-byte aligned). D is 16, 32, 64, 120 or 128.
+// n_splits: the kv tile ranges a q tile is split over (1 to min(256,
+// ceil(S / 128))). With n_splits > 1, part_acc (KVH x n_q_tiles x n_splits
+// x 128 x D fp32; 128 columns a row at D 120) and part_ml (the same x 2)
 // are scratch, and counters (KVH x n_q_tiles int32) must be zero; the
 // kernel leaves them zero. Device pointers on the device of `stream`.
 // Returns a cudaError_t code (0 on a successful launch); the launch does not
@@ -574,11 +617,10 @@ extern "C" int varlen_flash_bf16(const void* q, const void* k, const void* v,
                                  void* part_acc, void* part_ml,
                                  void* counters, const int64_t* strides,
                                  int BH, int T, int S, int D, int G,
-                                 int window, int n_splits, int split_tiles,
-                                 void* stream) {
+                                 int window, int n_splits, void* stream) {
   if (BH < 1 || T < 1 || S < 1 || G < 1 || G > 64 || BH % G != 0 ||
-      BH / G > 65535 || n_splits < 1 || split_tiles < 1 ||
-      cdiv(S, kTile) > kMaxTiles ||
+      BH / G > 65535 || n_splits < 1 || n_splits > kMaxSplits ||
+      cdiv(S, kTile) > kMaxTiles || n_splits > cdiv(S, kTile) ||
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr ||
                         counters == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -589,20 +631,21 @@ extern "C" int varlen_flash_bf16(const void* q, const void* k, const void* v,
   switch (D) {
     case 16:
       return launch<16>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, window,
-                        n_splits, split_tiles, cs);
+                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
+                        n_splits, cs);
     case 32:
       return launch<32>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, window,
-                        n_splits, split_tiles, cs);
+                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
+                        n_splits, cs);
     case 64:
       return launch<64>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, window,
-                        n_splits, split_tiles, cs);
+                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
+                        n_splits, cs);
+    case 120:
     case 128:
       return launch<128>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles,
                          out, part_acc, part_ml, counters, st, BH, T, S, G,
-                         window, n_splits, split_tiles, cs);
+                         D, window, n_splits, cs);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,7 +7,8 @@ TMA copies) replace the TPU kernel
 change of contract, as the varlen kernel made: k/v carry ``BH / G`` heads
 and q head ``h`` reads kv head ``h // G``. Row i sits at position i and
 column j at j; ``causal`` and ``window`` mask as in the TPU kernel, and any
-T and S are accepted. The kernels multiply bf16 x bf16 into fp32 and round
+T and S are accepted; D is 16, 32, 64, 120 (the D 128 instances with
+the true head dim at run time) or 128. The kernels multiply bf16 x bf16 into fp32 and round
 P and dS to bf16 before their products; the plain version keeps fp32
 throughout and is the contract they are held to.
 """
@@ -21,7 +22,7 @@ import torch
 from .. import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 120, 128)
 MAX_HEADS = 65535          # the kernels' contract since their first version
 
 
@@ -125,10 +126,11 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"dense_flash {what} launch failed: {msg} ({rc})")
 
 
-def dense_flash_fwd(q, k, v, *, causal=True, window=0):
+def dense_flash_fwd(q, k, v, *, causal=True, window=0, out=None):
     """Forward: (out (BH, T, D) bf16, lse (BH, T) fp32). CPU tensors take
     the plain version; CUDA tensors launch the kernel on the current stream
-    or raise. ``dense_flash_fwd.launches`` counts kernel launches."""
+    (writing ``out`` when given) or raise. ``dense_flash_fwd.launches``
+    counts kernel launches."""
     bh, t, s, d, g = check_inputs(q, k, v, window=window)
     if q.device.type == "cpu":
         return (flash_attention_plain(q, k, v, causal=causal, window=window),
@@ -136,7 +138,9 @@ def dense_flash_fwd(q, k, v, *, causal=True, window=0):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     lib = _bind()
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    _check("out", out, (bh, t, d), q.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.dense_flash_fwd_bf16(
@@ -148,12 +152,14 @@ def dense_flash_fwd(q, k, v, *, causal=True, window=0):
     return out, lse
 
 
-def dense_flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
+def dense_flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                    grads=None):
     """Backward: (dq, dk, dv) in bf16, shaped like q, k, v, from the
     forward's ``out`` and ``lse``. CPU tensors take autograd through the
     plain version; CUDA tensors launch the kernels (delta pre-pass, dK/dV,
-    dQ) on the current stream or raise. ``dense_flash_bwd.launches`` counts
-    backward calls (one per call, three kernels each)."""
+    dQ) on the current stream (writing ``grads``, a (dq, dk, dv) triple,
+    when given) or raise. ``dense_flash_bwd.launches`` counts backward
+    calls (one per call, three kernels each)."""
     bh, t, s, d, g = check_inputs(q, k, v, window=window)
     _check("out", out, (bh, t, d), q.device)
     _check("dout", dout, (bh, t, d), q.device)
@@ -170,9 +176,9 @@ def dense_flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=0):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     lib = _bind()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dq, dk, dv = grads or (torch.empty_like(a) for a in (q, k, v))
+    for name, a, ref in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+        _check(name, a, tuple(ref.shape), q.device)
     delta = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.dense_flash_bwd_bf16(

@@ -10,8 +10,12 @@ latency; the kernel runs its products on the tensor cores (wgmma, fed by
 a TMA ring), packs the G q heads of a kv head into one q tile's rows so
 each K/V tile is staged once for all of them, loads only the kv tiles a q
 tile can hit (``varlen_kv_tiles``, computed once per serve step), and
-splits a long hit list over several blocks whose partials the last one
-combines in a fixed order.
+splits a long kv stream into equal ranges of tiles, one block a range,
+whose partials the last one combines in a fixed order: a row's output
+does not depend on tiles it cannot see. Head dim 120 (h2o-danube-3-4b) runs the
+D 128 instance with the true head dim at run time (its tensor maps read
+columns 120-127 as zeros, its stores stop at column 120), so nothing is
+padded or copied.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from .. import build
 from ..scratch import stream_scratch
 
 NEG_INF = -1e30
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 120, 128)
 
 # The kernel's tiling (csrc/varlen_flash.cu): 128 GQA-packed q rows per
 # block (two warpgroups of 64 rows, floor(64 / G) tokens each), kv tiles
@@ -33,9 +37,10 @@ _HEAD_DIMS = (16, 32, 64, 128)
 Q_ROWS = 128
 KV_TILE = 128
 MAX_KV_TILES = 2048
-# A q tile is split over more blocks only beyond SPLIT_TILES hit tiles a
-# block; n_splits aims at about two blocks for each of the H100's SMS
-# (scripts/sweep_varlen_split.py times the alternatives; PERF.md).
+# The kv stream is cut into n_splits equal ranges of at least SPLIT_TILES
+# tiles, one block of a q tile each; n_splits aims at about two blocks for
+# each of the H100's SMS (scripts/sweep_varlen_split.py times the
+# alternatives; PERF.md).
 SPLIT_TILES = 8
 SMS = 132
 _BIG = 1 << 30
@@ -87,8 +92,9 @@ def varlen_kv_tiles(kv_seg, kv_pos):
 def varlen_plan(t, s, g, kvh):
     """The kernel's launch plan for a stream of t tokens over s slots with
     G = g q heads on each of kvh kv heads: (tokens per q tile, q tiles,
-    kv splits a q tile may use). A q tile uses min(n_splits, ceil(hits /
-    SPLIT_TILES)) blocks, each over a contiguous run of its hit list."""
+    kv splits). Split sp of a q tile takes its hit tiles whose index lies
+    in [sp * n_kt // n_splits, (sp + 1) * n_kt // n_splits); the splits
+    with hits combine."""
     tq = 2 * (64 // g)
     n_qt = -(-t // tq)
     n_kt = -(-s // KV_TILE)
@@ -163,7 +169,7 @@ def check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos, blk_q, blk_k,
 def _bind():
     lib = build.load("varlen_flash")
     fn = lib.varlen_flash_bf16
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.varlen_flash_error_string.argtypes = [ctypes.c_int]
@@ -172,7 +178,8 @@ def _bind():
 
 
 def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
-                           window=0, blk_q=128, blk_k=128, kv_tiles=None):
+                           window=0, blk_q=128, blk_k=128, kv_tiles=None,
+                           out=None):
     """Varlen flash attention over one packed stream.
 
     q: (BH, T, D) bf16; k/v: (BH/G, S, D) bf16 (views with a contiguous
@@ -185,7 +192,8 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     tiles of KV_TILE slots), every tile pair no row can see, which never
     changes the function. ``kv_tiles`` (``varlen_kv_tiles(kv_seg,
     kv_pos)``) is the per-step skip metadata; without it the wrapper
-    computes it.
+    computes it. ``out`` (CUDA only): a (BH, T, D) bf16 tensor with the
+    row layout q may have, written in place of a new one.
 
     Tensors on the CPU take the plain version (the kernel has no CPU
     form); CUDA tensors launch the kernel on the current stream or raise.
@@ -205,11 +213,16 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     _, n_qt, ns = varlen_plan(t, s, g, kvh)
     lib = _bind()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)        # same strides as q (a dense view)
+    if out is None:
+        out = torch.empty_like(q)    # same strides as q (a dense view)
+    elif out.dtype is not torch.bfloat16 or out.shape != q.shape or \
+            out.device != q.device:
+        _check("out", out, torch.bfloat16, tuple(q.shape), q.device)
     _check_rows("out", out)
     part_acc = part_ml = counters = None
     if ns > 1:
-        part_acc = torch.empty((kvh * n_qt * ns, Q_ROWS, d),
+        part_acc = torch.empty((kvh * n_qt * ns, Q_ROWS, 128 if d == 120
+                                else d),
                                dtype=torch.float32, device=q.device)
         part_ml = torch.empty((kvh * n_qt * ns, Q_ROWS, 2),
                               dtype=torch.float32, device=q.device)
@@ -224,7 +237,7 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
             kv_seg.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
             kv_tiles.data_ptr(), out.data_ptr(), *ptr,
             ctypes.addressof(strides), bh, t, s, d, g, int(window), ns,
-            SPLIT_TILES, stream)
+            stream)
     if rc != 0:
         msg = lib.varlen_flash_error_string(rc).decode()
         raise RuntimeError(f"varlen_flash launch failed: {msg} ({rc})")

@@ -71,6 +71,12 @@
 //    that block) combines them in split order, up to 8 threads an output
 //    reading the splits in turn: one launch, no atomics on the data,
 //    byte-identical repeats.
+//  * Head dim 120 (h2o-danube-3-4b) runs the D 128 instance with the true
+//    head dim `dh` at run time: the page map's first dimension is 120, so
+//    TMA lands columns 120-127 of K and V as zeros, q's are zeroed in its
+//    fragments, the scale is 1/sqrt(120), and out and the split partials
+//    hold dh columns. Pages stay 120 wide in the unified buffer: nothing is
+//    padded or copied.
 
 #include <atomic>
 
@@ -101,7 +107,7 @@ struct Params {
   bf16* out;
   float* part;            // split partials: acc, then (m, l)
   int* counters;          // (B x units), zero between launches
-  int B, P, KVL, G, TPP, window, HG, q_groups, n_units, stages;
+  int B, P, KVL, G, dh, TPP, window, HG, q_groups, n_units, stages;
   int n_split;            // the most splits of a row
   uint32_t box_bytes;     // a page's K and V rows of the unit's heads
   uint32_t chunk_bytes;   // a column chunk's rows in a stage (1024-aligned)
@@ -259,15 +265,16 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
   {
     const int g = lane >> 2;
     const bf16* qr = p.q + (((int64_t)b * p.KVL + grp * HG + hh) * p.G +
-                            g0 + g) * D + 2 * (lane & 3);
+                            g0 + g) * p.dh + 2 * (lane & 3);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      qb[kk][0] = g < gn ? ld_u32(qr + 16 * kk) : 0u;
-      qb[kk][1] = g < gn ? ld_u32(qr + 16 * kk + 8) : 0u;
+      qb[kk][0] = g < gn && 16 * kk < p.dh ? ld_u32(qr + 16 * kk) : 0u;
+      qb[kk][1] = g < gn && 16 * kk + 8 < p.dh ? ld_u32(qr + 16 * kk + 8)
+                                                : 0u;
     }
   }
   // scores in log2 units: the softmax runs in base 2 (ex2)
-  const float scale = attn_scale(D) * kLog2e;
+  const float scale = attn_scale(p.dh) * kLog2e;
   // this lane's columns: q heads 2 (lane % 4) and 2 (lane % 4) + 1
   float o[KS][4], m[2], l[2];
 #pragma unroll
@@ -387,15 +394,16 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
   }
   __syncthreads();
 
-  // per (kv head, q head, 8 columns): the head's warps in order; then out,
-  // or this split's partial
+  // per (kv head, q head, 8 columns; those past dh are skipped): the
+  // head's warps in order; then out, or this split's partial
   constexpr int NC = D / 8;
   const int items = HG * gn * NC;
   const int64_t slot0 = ((int64_t)b * p.n_units + unit) * p.n_split;
-  const int64_t part_el = (int64_t)HG * gq * D;   // acc floats a partial
+  const int64_t part_el = (int64_t)HG * gq * p.dh;   // acc floats a partial
   float* part_ml = p.part + (int64_t)p.B * p.n_units * p.n_split * part_el;
   for (int it = tid; it < items; it += kBlock) {
     const int h = it / (gn * NC), g = it / NC % gn, cc = it % NC;
+    if (8 * cc >= p.dh) continue;
     float mm = kNegInf;
     for (int w = h; w < kWarps; w += HG) {
       mm = fmaxf(mm, red_ml[(w * kQHeads + g) * 2]);
@@ -416,12 +424,12 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
       pk.z = pack_bf16(a[4] * inv, a[5] * inv);
       pk.w = pack_bf16(a[6] * inv, a[7] * inv);
       *reinterpret_cast<uint4*>(
-          p.out + (((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g) * D +
+          p.out + (((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g) * p.dh +
           cc * 8) = pk;
     } else {
       const int64_t ps = slot0 + split;
       float4* dst = reinterpret_cast<float4*>(
-          p.part + ps * part_el + (h * gq + g) * D + cc * 8);
+          p.part + ps * part_el + (h * gq + g) * p.dh + cc * 8);
       dst[0] = make_float4(a[0], a[1], a[2], a[3]);
       dst[1] = make_float4(a[4], a[5], a[6], a[7]);
       if (cc == 0) {
@@ -452,9 +460,11 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
   const unsigned gmask = (0xffffffffu >> (32 - tpi)) << (lane & ~(tpi - 1));
   for (int it = tid / tpi; it < items; it += kBlock / tpi) {
     const int h = it / (gn * NC), g = it / NC % gn, cc = it % NC;
+    if (8 * cc >= p.dh) continue;    // uniform over the item's tpi lanes
     const float* ml = part_ml + (slot0 * HG * gq + h * gq + g) * 2;
     const int64_t ml_step = (int64_t)HG * gq * 2;
-    const float* pa = p.part + slot0 * part_el + (h * gq + g) * D + cc * 8;
+    const float* pa =
+        p.part + slot0 * part_el + (h * gq + g) * p.dh + cc * 8;
     float mm = kNegInf, a[8] = {}, lt = 0.f;
     for (int s0 = j; s0 < splits; s0 += kMerge * tpi) {
       float2 w[kMerge];
@@ -514,7 +524,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
     pk.z = pack_bf16(a[4] * inv, a[5] * inv);
     pk.w = pack_bf16(a[6] * inv, a[7] * inv);
     *reinterpret_cast<uint4*>(
-        p.out + (((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g) * D +
+        p.out + (((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g) * p.dh +
         cc * 8) = pk;
   }
 }
@@ -540,17 +550,17 @@ int launch(const CUtensorMap& map, const Params& p, dim3 grid, size_t smem,
 }
 
 
-// The tensor map of one layer's (VP, 2, TPP, KVL, D) view as the 5-d
-// (D, slot, head, K/V, page), read in boxes of CW x TPP x HG x 2 x 1 (a
+// The tensor map of one layer's (VP, 2, TPP, KVL, dh) view as the 5-d
+// (dh, slot, head, K/V, page), read in boxes of CW x TPP x HG x 2 x 1 (a
 // page's K and V rows of HG heads, slots fastest) and swizzled for
-// conflict-free ldmatrix rows.
+// conflict-free ldmatrix rows; columns dh..D-1 of a box read as zeros.
 template <int D>
 bool make_page_map(CUtensorMap* map, const void* kv, const KvStrides& st,
-                   int VP, int KVL, int TPP, int HG) {
+                   int VP, int KVL, int dh, int TPP, int HG) {
   using Gm = Geo<D>;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)TPP,
+  const cuuint64_t dims[5] = {(cuuint64_t)dh, (cuuint64_t)TPP,
                               (cuuint64_t)KVL, 2, (cuuint64_t)VP};
   const cuuint64_t strides[4] = {(cuuint64_t)st.slot * 2,
                                  (cuuint64_t)st.head * 2,
@@ -573,7 +583,7 @@ int launch_d(const void* kv, const KvStrides& st, int VP, Params& p,
              dim3 grid, cudaStream_t stream) {
   using Gm = Geo<D>;
   CUtensorMap map;
-  if (!make_page_map<D>(&map, kv, st, VP, p.KVL, p.TPP, p.HG)) {
+  if (!make_page_map<D>(&map, kv, st, VP, p.KVL, p.dh, p.TPP, p.HG)) {
     return (int)cudaErrorInvalidValue;
   }
   // a stage: per column chunk the page's 2 x HG x TPP rows of CW values,
@@ -596,7 +606,7 @@ int launch_d(const void* kv, const KvStrides& st, int VP, Params& p,
 // (a slot's (KVL, D) contiguous, the others multiples of 8, 16-byte
 // aligned); pages (B, P, 2) and work (B x n_split, 8): the step's plan
 // (kernel.py paged_decode_plan), int32, 16-byte aligned; positions: (B,)
-// int32; out: (B, KVL, G, D) bf16 contiguous. HG: kv heads a block (a power
+// int32; out: (B, KVL, G, D) bf16 contiguous. D is 16, 32, 64, 120 or 128. HG: kv heads a block (a power
 // of two <= 8 dividing KVL); n_split: the most splits of a row in the plan;
 // stages: ring stages, 2 to 8 and at least 8 / HG. With n_split > 1, part
 // holds B x units x n_split x HG x min(G, 8) x (D + 2) floats of scratch
@@ -631,6 +641,7 @@ extern "C" int paged_decode_bf16(const void* q, const void* kv,
   p.P = P;
   p.KVL = KVL;
   p.G = G;
+  p.dh = D;
   p.TPP = TPP;
   p.window = window;
   p.HG = HG;
@@ -650,6 +661,7 @@ extern "C" int paged_decode_bf16(const void* q, const void* kv,
       return launch_d<32>(kv, st, VP, p, grid, cs);
     case 64:
       return launch_d<64>(kv, st, VP, p, grid, cs);
+    case 120:
     case 128:
       return launch_d<128>(kv, st, VP, p, grid, cs);
     default:

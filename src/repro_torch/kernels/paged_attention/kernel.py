@@ -10,7 +10,9 @@ lies (no gather, no contiguous copy of the pool).
 Which table entries a row must read, and how they are split over blocks,
 depends only on the tables, page starts and positions, which every layer
 of a serve step shares: ``paged_decode_plan`` works it out once per step
-and every layer's call takes it.
+and every layer's call takes it. Head dim 120 (h2o-danube-3-4b) runs the
+D 128 instance with the true head dim at run time: pages stay 120 wide in
+the pool and are read in place.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .. import build
 from ..scratch import stream_scratch
 
 NEG_INF = -1e30
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 120, 128)
 MAX_G = 16
 
 # The split rule (``paged_decode_plan``): a row's visible pages go to at
@@ -180,7 +182,9 @@ def _check(name, t, dtype, shape, device):
 def _stage_bytes(hg, tpp, d):
     """A ring stage: a page's TPP K and TPP V rows of ``hg`` heads, as the
     kernel's page map lands them (per column chunk of 64, 1024-byte
-    aligned)."""
+    aligned). Head dim 120 runs the D 128 instance: its boxes are 128
+    columns wide, 120-127 read as zeros."""
+    d = 128 if d == 120 else d
     cw = min(d, 64)
     return d // cw * -(-(2 * hg * tpp * cw * 2) // 1024) * 1024
 
@@ -286,14 +290,15 @@ def _bind():
 
 
 def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
-                           window=0, plan=None):
+                           window=0, plan=None, out=None):
     """Paged decode attention over one layer of the unified buffer.
 
     q: (B, KVL, G, D) bf16; kv_view: (VP, 2, TPP, KVL, D) bf16, typically
     ``buffer.view(VP, L, 2, TPP, KVL, D)[:, layer]`` (read in place, never
     copied); tables/page_pos: (B, P) int32; positions: (B,) int32;
     ``plan``: ``paged_decode_plan(tables, page_pos, positions, TPP,
-    window)``, built here when not given. Returns (B, KVL, G, D) bf16.
+    window)``, built here when not given. Returns (B, KVL, G, D) bf16, in
+    ``out`` (CUDA only; contiguous, 16-byte aligned) when given.
 
     Tensors on the CPU take the plain version (the kernel has no CPU
     form); CUDA tensors launch the kernel on the current stream or raise.
@@ -312,7 +317,13 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
     dev = q.device
     lib = _bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif out.dtype is not torch.bfloat16 or out.shape != q.shape or \
+            out.device != dev or not out.is_contiguous() or \
+            out.data_ptr() % 16:
+        _check("out", out, torch.bfloat16, tuple(q.shape), dev)
+        raise ValueError("out: must be contiguous and 16-byte aligned")
     part = counters = None
     if n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=dev)

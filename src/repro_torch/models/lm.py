@@ -3,6 +3,7 @@ padded serve steps (``repro/models/lm.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -19,6 +20,10 @@ from .params import MATRICES
 from .rotary import rope_tables
 from .tp import embed_lookup, logits_local, mask_pad_vocab, \
     sharded_softmax_xent
+
+# values a weight leaf is drawn in at a time (``DecoderLM.init``): 1 GiB
+# of fp32
+DRAW_CHUNK = 1 << 28
 
 
 @dataclasses.dataclass
@@ -144,7 +149,11 @@ class DecoderLM:
         other leaf (training's masters, the reference's ``PARAM_DTYPE``);
         norms and biases are fp32. The draws differ from the reference's
         ``jax.random`` ones: tests that compare the two packages convert
-        the reference's params (``params_from_numpy``)."""
+        the reference's params (``params_from_numpy``). A leaf is drawn in
+        slices of its first axis (a layer, or a block of vocab rows) of at
+        most DRAW_CHUNK values, so the fp32 draw of a bf16 leaf never
+        needs the whole leaf in fp32: qwen2.5-32b's 65.5 GB of bf16
+        weights are drawn on one 80 GB card."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -156,11 +165,16 @@ class DecoderLM:
             if name.endswith("bias"):
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
             scale = out_scale if name in ("o", "down") else 0.02
-            w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=dev) * scale
-            if master or name not in MATRICES:
-                return w
-            return w.to(torch.bfloat16)
+            bf16 = not master and name in MATRICES
+            w = torch.empty(shape, dtype=torch.bfloat16 if bf16 else
+                            torch.float32, device=dev)
+            rows = max(1, DRAW_CHUNK // math.prod(shape[1:]))
+            for i in range(0, shape[0], rows):
+                part = torch.randn((min(rows, shape[0] - i), *shape[1:]),
+                                   generator=gen, dtype=torch.float32,
+                                   device=dev)
+                w[i:i + rows] = part.mul_(scale)
+            return w
 
         shapes = self.param_shapes()
         params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}

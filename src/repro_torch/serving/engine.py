@@ -3,8 +3,8 @@ manager (a copy of ``repro/serving/engine.py`` driving the torch
 ``ModelRunner`` on a torch device).
 
 The port's engine serves the three batching modes ("packed", "padded",
-"serial") with greedy sampling; a request with ``temperature > 0`` and
-``autotune_budgets`` raise ``NotImplementedError``. Packed self-attention
+"serial") with greedy and seeded temperature/top-k sampling;
+``autotune_budgets`` raises ``NotImplementedError``. Packed self-attention
 always runs through the varlen flash kernel (the reference's
 ``attention_impl="kernel"`` route), so the port has no ``attention_impl``
 option; padded T == 1 dispatches (every decode group of "serial") read
@@ -79,8 +79,7 @@ import numpy as np
 from ..core.manager import JengaKVCacheManager, StateCopyOp
 from .request import Request, SamplingParams, Status
 from .runner import ModelRunner
-from .sampler import (SEEDED_SAMPLING_LATER, TIE_EPS, greedy_token,
-                      host_sample, rid_hash)
+from .sampler import TIE_EPS, greedy_token, host_sample, rid_hash
 from .scheduler import ScheduledSeq, Scheduler, SchedulerConfig, StepPlan
 
 
@@ -355,8 +354,6 @@ class Engine:
 
     # -------------------------------------------------------------- submit
     def submit(self, req: Request) -> None:
-        if req.sampling.temperature > 0:
-            raise NotImplementedError(SEEDED_SAMPLING_LATER)
         req.arrival = self.step_count
         # a failed-over request may have logged sample rows on another
         # shard's engine — or on THIS engine before a drain; recorded rows
@@ -736,7 +733,7 @@ class Engine:
             # depends on the row width.
             tok = host_sample(logits, sp.temperature, sp.top_k,
                               rid_hash(req.rid), len(req.seq.tokens),
-                              sp.seed)
+                              sp.seed, self.runner.device)
         self._sample_ms += (time.perf_counter() - t0) * 1e3
         return tok
 

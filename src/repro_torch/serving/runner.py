@@ -41,8 +41,7 @@ from ..core.request import SequenceState
 from ..core.spec import lcm as _lcm
 from ..models.lm import DecodeBatch
 from .request import Request
-from .sampler import (SEEDED_SAMPLING_LATER, inject_tokens, rid_hash,
-                      sample_greedy)
+from .sampler import inject_tokens, rid_hash, sample_batch
 
 SENTINEL_POS = np.int32(1 << 29)
 
@@ -478,7 +477,7 @@ class ModelRunner:
             samp["dst"][si] = (board_dst[si] if board_dst is not None
                                else self.board_slot(r.rid))
             if sp.temperature > 0 and start + nt >= len(r.prompt):
-                raise NotImplementedError(SEEDED_SAMPLING_LATER)
+                samp["need_random"] = True
         prep.samp = samp
 
     def _attach_board_feed(self, prep: PreparedStep,
@@ -796,8 +795,17 @@ class ModelRunner:
         if prep.samp is not None:
             sm = prep.samp
             self._ensure_board(int(sm["dst"].max(initial=-1)) + 1)
-            tokens_h = sample_greedy(logits, self._board,
-                                     self._upload(sm["dst"]))
+            samp = None
+            if sm["need_random"]:
+                # one upload: dst, then the draw's per-row fields
+                up = self._upload(np.stack([
+                    sm["dst"], sm["temps"].view(np.int32), sm["top_ks"],
+                    sm["rhs"].view(np.int32), sm["poss"], sm["seeds"]]))
+                dst = up[0]
+                samp = (up[1].view(torch.float32), *up[2:])
+            else:
+                dst = self._upload(sm["dst"])
+            tokens_h = sample_batch(logits, self._board, dst, samp)
         return StepHandle(logits=logits, tokens=tokens_h, n=info["n"])
 
     def fetch(self, handle, n: int) -> np.ndarray:

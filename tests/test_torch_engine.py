@@ -162,9 +162,11 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError):
         port_engine(autotune_budgets=True)
     eng = port_engine()
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid="t", prompt=[1, 2, 3],
-                           sampling=SamplingParams(temperature=0.7)))
+    # seeded temperature/top-k sampling is ported: it serves
+    eng.submit(Request(rid="t", prompt=[1, 2, 3],
+                       sampling=SamplingParams(temperature=0.7,
+                                               max_new_tokens=2)))
+    assert [len(r.output) for r in eng.run_until_done()] == [2]
     with pytest.raises(NotImplementedError):
         DecoderLM(reduced(ARCHS["dbrx-132b"]))
     if not torch.cuda.is_available():

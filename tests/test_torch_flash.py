@@ -225,7 +225,8 @@ def _emulate_kernel(q, k, v, q_seg, kv_seg, q_pos, kv_pos, window=0):
     """The CUDA kernel's arithmetic, tile by tile, on the CPU: q tiles of
     ``varlen_plan`` tokens whose rows are GQA packed (row r: token r // G,
     head r % G), each q tile's hit list from ``varlen_kv_tiles``, split
-    into runs of it as the kernel splits it, bf16 inputs multiplied
+    by tile index into n_splits equal ranges as the kernel splits it (the
+    ranges with hits in use), bf16 inputs multiplied
     exactly and summed in fp32, the scale after the product, base-2
     softmax with -inf masking, P rounded to bf16 before P V (l sums the
     fp32 P), split partials combined in split order, out = acc / max(l,
@@ -251,19 +252,23 @@ def _emulate_kernel(q, k, v, q_seg, kv_seg, q_pos, kv_pos, window=0):
             if window:
                 hit &= tiles[:, 3] > pos[ok].min() - window
             hits = hit.nonzero().flatten().tolist()
-        used = max(1, min(ns, -(-len(hits) // SPLIT_TILES)))
+        n_kt = tiles.shape[0]
+        runs = [[kt for kt in hits
+                 if sp * n_kt // ns <= kt < (sp + 1) * n_kt // ns]
+                for sp in range(ns)]
+        runs = [r for r in runs if r] or [[]]
+        used = len(runs)
         most = max(most, used)
         rt = toks.repeat_interleave(g)                 # row -> token
         for kv in range(kvh):
             rh = kv * g + torch.arange(g).repeat(len(toks))   # row -> head
             qr, qsr, qpr = qf[rh, rt], q_seg[rt], q_pos[rt]
             parts = []
-            for sp in range(used):
+            for run in runs:
                 m = torch.full((len(rt),), -torch.inf)
                 l = torch.zeros(len(rt))
                 acc = torch.zeros(len(rt), d)
-                lo, hi = sp * len(hits) // used, (sp + 1) * len(hits) // used
-                for kt in hits[lo:hi]:
+                for kt in run:
                     j = torch.arange(kt * KV_TILE, min(s, (kt + 1) * KV_TILE))
                     vis = (kv_seg[j][None] == qsr[:, None]) & \
                         (kv_pos[j][None] <= qpr[:, None])
@@ -340,6 +345,36 @@ def test_tensor_core_tiling_fits_card_tolerance(case):
     empty = ~mask.any(1)
     assert empty.any() == ("no visible" in case or bool((~valid).any()))
     assert (ours[:, torch.from_numpy(empty)] == 0).all()
+
+
+def test_split_rule_ignores_tiles_no_row_sees():
+    """Sliding-window pages that one pipeline depth has already dropped
+    (table entry -1: position SENTINEL) and another still gathers (real
+    positions below every row's window) give the emulated kernel the same
+    bytes, though the q tiles' hit lists differ: a tile no row sees adds
+    exact zeros inside a split, and a split of only such tiles combines
+    with weight 0."""
+    window = 64
+    segs = [(1200, 1, 1200), (900, 1, 900), (0, 30, 0), (700, 20, 700),
+            (1000, 1, 1000)]
+    q_seg, q_pos, kv_seg, kv_pos = _stream(segs, t_total=64)
+    starts = np.array([st for _, _, st in segs])
+    old = kv_pos < (1 << 29)
+    below = old & (kv_seg >= 0) & \
+        (kv_pos < starts[np.maximum(kv_seg, 0)] - window)
+    dropped = np.where(below, 1 << 29, kv_pos).astype(np.int32)
+    rng = np.random.default_rng(29)
+    h, kvl, d = 8, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+        for shape in ((h, len(q_seg), d), (kvl, len(kv_seg), d),
+                      (kvl, len(kv_seg), d)))
+    live, gone = (_emulate_kernel(q, k, v, t(q_seg), t(kv_seg), t(q_pos),
+                                  t(p), window=window)
+                  for p in (kv_pos, dropped))
+    assert not torch.equal(varlen_kv_tiles(t(kv_seg), t(kv_pos)),
+                           varlen_kv_tiles(t(kv_seg), t(dropped)))
+    assert live[1] > 1 and torch.equal(live[0], gone[0])
 
 
 def test_varlen_kv_tiles_match_numpy():

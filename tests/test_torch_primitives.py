@@ -254,7 +254,7 @@ def test_band_pick_and_board_match_jax():
     dst = np.arange(32, dtype=np.int32)
     dst[5] = dst[17] = -1
     board = torch.full((40 + 1,), 7, dtype=torch.int32)
-    toks = S.sample_greedy(t(rows), board, t(dst))
+    toks = S.sample_batch(t(rows), board, t(dst))
     jtoks, jboard = JS.get_sample_fn(False)(
         jnp.asarray(rows), jnp.full((40,), 7, jnp.int32), jnp.asarray(dst),
         jnp.zeros((32,), jnp.float32), jnp.zeros((32,), jnp.int32),
@@ -275,8 +275,9 @@ def test_host_helpers_copied():
     assert S.rid_hash("abc") == JS.rid_hash("abc")
     row = np.array([0.1, 0.3, 0.3 - 1e-3, -1.0], np.float32)
     assert S.greedy_token(row) == JS.greedy_token(row) == 1
-    with pytest.raises(NotImplementedError):
-        S.host_sample(row, 0.8, 0, 0, 0, 0)
+    # seeded draws are ported (tests/test_torch_sampling.py holds them)
+    assert S.host_sample(row, 0.8, 0, 0, 0, 0, "cpu") == \
+        JS.host_sample(row, 0.8, 0, 0, 0, 0)
 
 
 def test_bridge_bf16_leaves_bit_exact():
