@@ -110,6 +110,26 @@ prompt; internlm2-1.8b (packed, budget 256, padded) and qwen2.5-32b
 leaked page, packed depths bitwise equal, padded and serial fork-aware
 equal to packed within twice the noise floor.
 
+Phase 7, the MoE family and the VLM backbone (each after the earlier
+phases' memory is released): the expert products' fp32 route and a
+reduced ``moe_block`` on the card against the CPU; qwen3-moe-235b-a22b at
+10 of its 94 layers and dbrx-132b at 8 of its 40 (full per-layer width:
+128 experts top-8 and 16 experts top-4; random bf16 weights from seed 0,
+~52 and ~55 GB), one after the other, with phase 3's 8 prompts, a 4 GiB
+pool and 32 new tokens: packed at depths 1 and 4 (fork-aware equal,
+forks printed), packed at budget 256, padded, serial and a seeded packed
+leg (temperature 0.8, top-k 50), with phase 3's launch and leak checks,
+every dispatch's dropped (token, k) copies printed (qwen3-moe must drop
+some: its decode capacity is 1) and the peak memory; then qwen2-vl-2b at
+full width (28 layers, 12 / 2 heads of 128, QKV bias, M-RoPE) with 4 of
+the prompts carrying a stub image of 64-256 positions (two sharing one):
+packed at depths 1 and 4 (bitwise equal), budget 256 and padded, the
+frontend run once per distinct image in every leg, and the image rows'
+first-token logits moved by their images more than any text row's.
+Phase 2 and the paged phase add the heads of these models: qwen3-moe's
+G 16 (D 128, 64 / 4; varlen mixed and decode, paged), dbrx's and
+qwen2-vl-2b's G 6 (48 / 8 and 12 / 2; varlen mixed, paged).
+
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
 CUDA device.
@@ -303,6 +323,17 @@ def kernel_cases():
         dict(_case("danube heads D=120 G=4 window=64 T=512", mixed,
                    window=64, t_total=512), h=32, kvl=8, d=120,
              layout="token"),
+        # the MoE and VLM heads (phase 7): qwen3-moe's G 16 (4 tokens x 16
+        # heads a warpgroup), dbrx's and qwen2-vl-2b's G 6 (10 tokens x 6
+        # heads, 4 dead rows a warpgroup)
+        dict(_case("qwen3-moe heads D=128 G=16 mixed T=512", mixed,
+                   t_total=512), h=64, kvl=4, d=128, layout="token"),
+        dict(_case("qwen3-moe heads D=128 G=16 decode T=16 S=8192", decode,
+                   t_total=16), h=64, kvl=4, d=128, layout="token"),
+        dict(_case("dbrx heads D=128 G=6 mixed T=512", mixed, t_total=512),
+             h=48, kvl=8, d=128, layout="token"),
+        dict(_case("qwen2-vl heads D=128 G=6 mixed T=512", mixed,
+                   t_total=512), h=12, kvl=2, d=128, layout="token"),
     ]
 
 
@@ -512,6 +543,13 @@ def paged_cases():
         dict(name="danube D=120 window=4096 row 6000 + 7 decodes P=512",
              d=120, g=4, layers=24, lens=np.concatenate([[6000], lens[:7]]),
              p=512, window=4096),
+        # the MoE and VLM heads (phase 7): G 16 takes two groups of 8 q
+        # heads a block, G 6 one group of 6
+        dict(name="qwen3-moe heads D=128 G=16", d=128, g=16, layers=10,
+             lens=lens, kvl=4),
+        dict(name="dbrx heads D=128 G=6", d=128, g=6, layers=8, lens=lens),
+        dict(name="qwen2-vl heads D=128 G=6", d=128, g=6, layers=28,
+             lens=lens, kvl=2),
     ]
 
 
@@ -1061,14 +1099,16 @@ def _prompts(n, vocab, seed=0):
 
 
 def _drain(model, params, cfg_kw, prompts, new_tokens, device,
-           count_copies=False, no_sync=False, sampling=None, on_step=None):
+           count_copies=False, no_sync=False, sampling=None, on_step=None,
+           mm_items=None):
     """Drain ``prompts`` through a new ``Engine``. Returns the engine, the
     wall seconds, and the number of its T == 1 padded dispatches (the
     ones that go through the paged decode kernel); with ``count_copies``
     also the kinds of its state-page copies. With ``no_sync`` every
     dispatch runs under torch's sync debug mode "error", so a host sync
     inside it raises. ``sampling``: extra ``SamplingParams`` fields (the
-    seeded draw); ``on_step(eng)`` runs after every engine step."""
+    seeded draw); ``on_step(eng)`` runs after every engine step;
+    ``mm_items``: each prompt's ``MMItem``s (stub image embeddings)."""
     import torch
     from repro_torch.serving import Engine, EngineConfig, Request, \
         SamplingParams
@@ -1099,7 +1139,8 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
         eng.step = stepping
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=f"r{i}", prompt=p, sampling=SamplingParams(
-            max_new_tokens=new_tokens, **(sampling or {}))))
+            max_new_tokens=new_tokens, **(sampling or {})),
+            mm_items=mm_items[i] if mm_items else ()))
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1146,7 +1187,7 @@ def _fork_aware_equal(ref, other, label, tol=TIE_FORK_TOL):
 
 
 def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
-                on_step=None, sampling=None):
+                on_step=None, sampling=None, mm_items=None, on_leg=None):
     """Drain ``prompts`` through one ``Engine`` per leg (name, batching
     mode, pipeline depth, config) of full-width ``cfg``: every request
     finishes, no page is left referenced, and each kernel is launched once
@@ -1154,8 +1195,11 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
     paged never; padded/serial: paged x T == 1 dispatches, varlen never),
     both counts set to 0 before the leg and read after it. Depth-1 legs
     record their logits rows (finite, vocab wide); their finished requests
-    and rows are returned by name. Each leg's engine, pool and all, is
+    and rows are returned by name (legs at other depths that record them,
+    as "name depth d"). Each leg's engine, pool and all, is
     released before the next is built (qwen2.5-32b leaves room for one).
+    ``on_leg(eng, name, depth)`` runs after each leg's checks, before its
+    engine is released; ``mm_items`` go to ``_drain``.
     Returns (outputs by (name, depth), depth-1 records, launch totals)."""
     import gc
     import types
@@ -1172,7 +1216,7 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
         paged_decode_attention.launches = 0
         eng, wall, decode = _drain(
             model, params, dict(base, batching_mode=mode, **kw), prompts,
-            new_tokens, "cuda", sampling=sampling,
+            new_tokens, "cuda", sampling=sampling, mm_items=mm_items,
             on_step=None if on_step is None else
             (lambda e, n=name, d=depth: on_step(e, n, d)))
         varlen = flash_attention_varlen.launches
@@ -1195,14 +1239,15 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
         if (varlen, paged) != want:
             raise AssertionError(f"{label}: (varlen, paged) launches "
                                  f"{(varlen, paged)}, expected {want}")
-        if depth == 1:
+        if kw.get("record_sample_logits"):
             for rid, rws in eng.sample_log.items():
                 for r in rws:
                     if r.shape != (cfg.vocab_size,) or \
                             not np.isfinite(r).all():
                         raise AssertionError(f"{label} {rid}: bad logits")
-            ref[name] = types.SimpleNamespace(finished=eng.finished,
-                                              sample_log=eng.sample_log)
+            ref[name if depth == 1 else f"{name} depth {depth}"] = \
+                types.SimpleNamespace(finished=eng.finished,
+                                      sample_log=eng.sample_log)
         outs[name, depth] = {r.rid: list(r.output) for r in eng.finished}
         n_out = sum(len(o) for o in outs[name, depth].values())
         steps = eng.step_count
@@ -1213,6 +1258,8 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
             f" (expected {want[0]}) paged_launches={paged} (expected "
             f"{want[1]}) prompt_tokens={sum(len(p) for p in prompts)} "
             f"output_tokens={n_out} leaked_pages=0 card=[{card()}]")
+        if on_leg is not None:
+            on_leg(eng, name, depth)
         # engines sit in reference cycles through their wrapped methods
         del eng
         gc.collect()
@@ -1580,10 +1627,12 @@ def phase_hybrid_small_reference():
 
 
 # ----------------------------------------------------------------- phase 6
-def _full_width(arch):
-    """Full-width ``arch`` with random bf16 weights drawn on the card from
-    seed 0, after the earlier phases' engines, weights and pools are gone;
-    the card's free memory is printed before and after."""
+def _full_width(arch, **overrides):
+    """Full-width ``arch`` (its config with ``overrides``: a depth cut)
+    with random bf16 weights drawn on the card from seed 0, after the
+    earlier phases' engines, weights and pools are gone; the card's free
+    memory is printed before and after, and its peak-memory count reset."""
+    import dataclasses
     import gc
 
     import torch
@@ -1592,8 +1641,9 @@ def _full_width(arch):
 
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     free0, total = torch.cuda.mem_get_info()
-    cfg = ARCHS[arch]
+    cfg = dataclasses.replace(ARCHS[arch], **overrides)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
@@ -1603,9 +1653,14 @@ def _full_width(arch):
     n_params = sum(w.numel() for w in leaves)
     n_bytes = sum(w.numel() * w.element_size() for w in leaves)
     free1, _ = torch.cuda.mem_get_info()
-    log(f"[{arch}] full width: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, "
-        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+    moe = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} of ff "
+           f"{cfg.moe_d_ff}" if cfg.num_experts else "")
+    cut = (f" (of {ARCHS[arch].num_layers})" if "num_layers" in overrides
+           else "")
+    log(f"[{arch}] full width: {cfg.num_layers} layers{cut}, d "
+        f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B "
         f"params, {n_bytes / 1e9:.2f} GB, init "
         f"{time.perf_counter() - t0:.1f} s; card memory free "
         f"{free0 / 2 ** 30:.2f} GiB before, {free1 / 2 ** 30:.2f} GiB after "
@@ -1745,6 +1800,234 @@ def phase_qwen():
         f"(forks, first-token diff) vs packed: {forks}; 0 leaked pages; "
         f"peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
         f"GiB")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 7
+# (arch, layers kept): neither MoE fits one 80 GB card whole; each keeps
+# its full per-layer width (qwen3-moe: 4.83 GB of experts a layer, dbrx:
+# 6.34 GB) and its embeddings, at ~52 and ~55 GB of bf16 weights
+MOE_CUTS = (("qwen3-moe-235b-a22b", 10), ("dbrx-132b", 8))
+
+
+def _moe_numerics():
+    """The MoE block's card-side numerics before any model is served: the
+    expert products' fp32 route (``torch.bmm(..., out_dtype=float32)`` of
+    bf16 operands, at qwen3-moe's prefill shape) against the fp32 product
+    of the same values (exact products, fp32 sums: equal up to the order of
+    summation), and ``moe_block`` of reduced qwen3-moe widths (16 experts,
+    top-8, 96 tokens, capacity binding at factor 0.5) on the card against
+    the CPU: the same dropped copies and outputs within TOL relative to
+    the largest (outputs reach ~8 here; the expert products' sums in
+    cuBLAS's order round h and y, each to bf16, other ways now and
+    then)."""
+    import torch
+    from repro_torch.models import blocks_attn as BA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    a = torch.randn((128, 40, 4096), generator=gen, device=dev).to(
+        torch.bfloat16)
+    b = (0.02 * torch.randn((128, 4096, 1536), generator=gen,
+                            device=dev)).to(torch.bfloat16)
+    got = BA._bmm_f32(a, b)
+    want = torch.bmm(a.float(), b.float())
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32:
+        raise AssertionError(f"expert product dtype {got.dtype}")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel < 1e-5:
+        raise AssertionError(f"bf16 bmm with fp32 output off by {rel} "
+                             "(relative) from the fp32 product")
+    f32_ms = cuda_time_ms(lambda: BA._bmm_f32(a, b))
+    up_ms = cuda_time_ms(lambda: torch.bmm(a.float(), b.float()), iters=5)
+    del a, b, got, want
+    rng = np.random.default_rng(8)
+    d, e, k, ff = 256, 16, 8, 128
+    layer = {"mlp_norm": torch.ones(d),
+             "router": torch.tensor(0.1 * rng.standard_normal((d, e)),
+                                    dtype=torch.float32)}
+    for name, shape in (("moe_gate", (e, d, ff)), ("moe_up", (e, d, ff)),
+                        ("moe_down", (e, ff, d))):
+        layer[name] = torch.tensor(0.1 * rng.standard_normal(shape),
+                                   dtype=torch.bfloat16)
+    x = torch.tensor(rng.standard_normal((1, 96, d)), dtype=torch.bfloat16)
+    outs, slots = [], []
+    for where in ("cpu", "cuda"):
+        p = {n: w.to(where) for n, w in layer.items()}
+        tok = x.to(where)[0]
+        _, _, slot, cap = BA.moe_route(tok, p["router"], num_experts=e,
+                                       top_k=k, capacity_factor=0.5)
+        slots.append(slot.cpu())
+        outs.append(BA.moe_block(p, x.to(where), num_experts=e, top_k=k,
+                                 capacity_factor=0.5).float().cpu())
+    dropped = int((slots[0] == e * cap).sum())
+    if not torch.equal(slots[0], slots[1]):
+        raise AssertionError("moe_route: the card drops other copies than "
+                             "the CPU")
+    ulp = torch.exp2(torch.floor(torch.log2(
+        outs[0].abs().clamp_min(1e-30))) - 7)
+    diff = (outs[1] - outs[0]).abs()
+    err, ulps = diff.max().item(), (diff / ulp).max().item()
+    tol = TOL * max(1.0, outs[0].abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"moe_block: card and CPU differ by {err} > "
+                             f"{tol}")
+    log(f"[moe] expert product (128, 40, 4096) x (128, 4096, 1536) bf16 "
+        f"with fp32 output: {f32_ms:.4f} ms, rel err {rel:.2e} against "
+        f"the fp32 product of the same values ({up_ms:.4f} ms); reduced "
+        f"moe_block (E 16, top-8, 96 tokens, cap {cap}): {dropped} of "
+        f"{96 * k} copies dropped, the same on the card and the CPU, "
+        f"outputs within {err:.3e} ({ulps:.1f} bf16 ulps; tol {tol:.3e}); "
+        f"card=[{card()}]")
+
+
+def _moe_model(arch, layers):
+    """One MoE at full per-layer width and ``layers`` layers: phase 3's 8
+    prompts, budget 512, chunk 256, a 4 GiB pool, 32 new tokens; packed at
+    depths 1 and 4 (fork-aware equal, forks printed: the reference's own
+    depths may differ where requests end early, which here they do not),
+    packed-b256, padded and serial (fork-aware within twice the noise
+    floor), and a seeded packed leg (temperature 0.8, top-k 50); the
+    dropped (token, k) copies of every dispatch (qwen3-moe must drop:
+    its decode capacity is round(8 * 8 / 128 * 1.25) = 1)."""
+    import torch
+
+    cfg, model, params = _full_width(arch, num_layers=layers)
+    tag = arch.split("-")[0]
+    base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    _warm(model, params, base, prompts)
+    drops = {}
+
+    def on_leg(eng, name, depth):
+        drops[name, depth] = [int(n) for n in
+                              torch.stack(model.moe_drops).cpu()]
+        model.moe_drops = []
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    legs = [("packed", "packed", 1, rec),
+            ("packed", "packed", 4, dict(rec, async_scheduling=True,
+                                         pipeline_depth=4)),
+            ("packed-b256", "packed", 1,
+             dict(rec, max_num_batched_tokens=256)),
+            ("padded", "padded", 1, rec), ("serial", "serial", 1, rec)]
+    model.moe_drops = []
+    try:
+        outs, ref, launches = _serve_legs(tag, cfg, model, params, base,
+                                          legs, prompts, 32, on_leg=on_leg)
+        seeded, _, more = _serve_legs(
+            f"{tag} seeded", cfg, model, params, base,
+            [("seeded", "packed", 1, dict(async_scheduling=False))],
+            prompts, 32, sampling=dict(temperature=0.8, top_k=50, seed=42),
+            on_leg=on_leg)
+    finally:
+        model.moe_drops = None
+    for k in launches:
+        launches[k] += more[k]
+    if seeded["seeded", 1] == outs["packed", 1]:
+        raise AssertionError(f"{tag}: the seeded draw equals greedy")
+    bitwise = outs["packed", 1] == outs["packed", 4]
+    noise, tol, forks = _forks_within_noise(tag, ref, ("padded", "serial"))
+    depth_forks = _fork_aware_equal(ref["packed"], ref["packed depth 4"],
+                                    f"{tag} packed depth 4", tol)
+    for (name, depth), per in drops.items():
+        log(f"[{tag}] dropped (token, k) copies per dispatch, {name} depth "
+            f"{depth}: total {sum(per)} over {len(per)} dispatches, "
+            f"{sum(n > 0 for n in per)} dispatches with drops; {per}")
+    if cfg.num_experts == 128 and sum(drops["packed", 1]) == 0:
+        raise AssertionError(f"{tag}: no copy dropped at decode capacity 1")
+    log(f"[{tag}] packed depth 4 vs depth 1: bitwise equal {bitwise}, "
+        f"forks {depth_forks} (fork-aware within {tol:.4f}); noise floor "
+        f"{noise:.4f}; (forks, first-token diff) vs packed: {forks}; 0 "
+        f"leaked pages; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"card=[{card()}]")
+    return launches
+
+
+def _vlm():
+    """qwen2-vl-2b at full width (28 layers, d 1536, 12 / 2 heads of 128,
+    QKV bias, M-RoPE): phase 3's 8 prompts, 4 of them carrying one image
+    each of 64-256 stub-embedded positions (r0 and r2 the same image),
+    packed at depths 1 and 4 (bitwise equal), packed-b256 and padded
+    (fork-aware); every leg runs the frontend once per distinct image
+    (``encoder_runs`` == 3); a packed leg of the same prompts without
+    images moves the image rows' first-token logits by more than it moves
+    any text row's."""
+    import torch
+    from repro_torch.serving import MMItem
+
+    cfg, model, params = _full_width("qwen2-vl-2b")
+    base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    sizes = np.random.default_rng(5).integers(64, 257, 4)
+    sizes[2] = sizes[0]
+    mm = [(MMItem(4, int(min(n, len(prompts[i]) - 8)),
+                  mm_hash=(101, 202, 101, 303)[i]),)
+          for i, n in enumerate(sizes)] + [()] * 4
+    _warm(model, params, base, prompts)
+    runs = {}
+
+    def on_leg(eng, name, depth):
+        runs[name, depth] = eng.encoder_runs
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    legs = [("packed", "packed", 1, rec),
+            ("packed", "packed", 4, dict(async_scheduling=True,
+                                         pipeline_depth=4)),
+            ("packed-b256", "packed", 1,
+             dict(rec, max_num_batched_tokens=256)),
+            ("padded", "padded", 1, rec)]
+    outs, ref, launches = _serve_legs("vlm", cfg, model, params, base, legs,
+                                      prompts, 32, mm_items=mm,
+                                      on_leg=on_leg)
+    _, bare, more = _serve_legs("vlm text-only", cfg, model, params, base,
+                                [("text-only", "packed", 1, rec)], prompts,
+                                32, on_leg=on_leg)
+    for k in launches:
+        launches[k] += more[k]
+    if outs["packed", 1] != outs["packed", 4]:
+        raise AssertionError("vlm packed: outputs differ across depths")
+    want = {leg: (0 if leg[0] == "text-only" else 3) for leg in runs}
+    if runs != want:
+        raise AssertionError(f"vlm: encoder runs {runs}, expected {want}")
+    noise, tol, forks = _forks_within_noise("vlm", ref, ("padded",))
+    moved = {r.rid: float(np.abs(ref["packed"].sample_log[r.rid][0] -
+                                 bare["text-only"].sample_log[r.rid][0]).max())
+             for r in ref["packed"].finished}
+    img = [moved[f"r{i}"] for i in range(4)]
+    txt = [moved[f"r{i}"] for i in range(4, 8)]
+    if not min(img) > max(txt):
+        raise AssertionError(f"vlm: the image rows' first-token logits "
+                             f"moved {img} without their images, text rows "
+                             f"{txt}")
+    log(f"[vlm] images of {sizes.tolist()} positions (r0 and r2 share "
+        f"one): encoder runs per leg {runs}; outputs bitwise equal across "
+        f"packed depths 1, 4; without the images the image rows' "
+        f"first-token logits move by {[round(x, 4) for x in img]}, the "
+        f"text rows' by {[round(x, 4) for x in txt]}; noise floor "
+        f"{noise:.4f}, fork tolerance {tol:.4f}; (forks, first-token diff) "
+        f"vs packed: {forks}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"card=[{card()}]")
+    return launches
+
+
+def phase_moe_vlm():
+    """Phase 7: the MoE family at full per-layer width, reduced depth
+    (``MOE_CUTS``), one model after the other, then the VLM backbone at
+    full width. Returns the kernel launch totals."""
+    _moe_numerics()
+    launches = {"varlen": 0, "paged": 0}
+    for arch, layers in MOE_CUTS:
+        for k, n in _moe_model(arch, layers).items():
+            launches[k] += n
+    for k, n in _vlm().items():
+        launches[k] += n
     return launches
 
 
@@ -1940,7 +2223,7 @@ def main() -> int:
     hybrid, _ = phase_hybrid_engine()
     phase_hybrid_small_reference()
     train = phase_train()
-    for phase in (phase_danube, phase_internlm2, phase_qwen):
+    for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm):
         for k, n in phase().items():
             launches[k] += n
     mixed, decode, dense = kres[0], pres[0], dres[0]

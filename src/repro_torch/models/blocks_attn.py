@@ -1,6 +1,7 @@
 """Transformer blocks (``repro/models/blocks_attn.py``): the QKV
 projection, the serve path's attention phases (gather, compute, write),
-training's self-attention and the SwiGLU MLP, on one device.
+training's self-attention, the SwiGLU MLP and the capacity MoE, on one
+device.
 
 Training attention (``attn_train``) runs through the dense flash kernel,
 forward and backward, in one call per layer.
@@ -253,3 +254,85 @@ def mlp_block(p, x, norm_eps=1e-5):
     u = dense(xn, p["up"])
     h = (F.silu(g.float()) * u.float()).to(x.dtype)
     return x + dense(h, p["down"])
+
+
+def _bmm_f32(a, b):
+    """(E, C, m) @ (E, m, n) of bf16 batches with an fp32 result: exact
+    products summed in fp32 and never rounded to bf16 (the reference's
+    ``preferred_element_type=float32``). cuBLAS writes fp32 from bf16
+    operands (``out_dtype``, CUDA only); on the CPU the same function is
+    the fp32 product of the bf16 values."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def moe_top_k(probs, k: int):
+    """The k largest entries of each row of ``probs`` and their indices,
+    largest first, exact ties broken toward the lower index: the rule of
+    ``jax.lax.top_k``, which ``torch.topk`` does not promise. A stable
+    descending sort keeps equal entries in index order."""
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], order[:, :k]
+
+
+def moe_route(tok, router, *, num_experts, top_k, capacity_factor=1.25):
+    """The reference's routing rule for N tokens (``tok``: (N, d), the
+    normed stream): fp32 x fp32 router logits, softmax, top-k, gates
+    normalised by max(sum, 1e-9); ``cap = round(N * top_k / E *
+    capacity_factor)`` (Python's round, half to even; at least 1); each
+    (token, k) copy's place in its expert's queue counted over the
+    flattened (N * K, E) one-hot in token-major order. Returns (gates
+    (N, K) fp32, idx (N, K), slot (N * K,), cap): a kept copy's row
+    ``expert * cap + place`` of the (E * cap) dispatch, a dropped copy's
+    (place >= cap) the row ``E * cap`` past it."""
+    n, e = tok.shape[0], num_experts
+    logits = torch.matmul(tok.float(), router.float())           # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = moe_top_k(probs, top_k)                         # (N, K)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = int(max(1, round(n * top_k / e * capacity_factor)))
+    e_flat = idx.reshape(-1)                                     # (N*K,)
+    # the one-hot by comparison: F.one_hot range-checks on the host
+    flat = (e_flat[:, None] == torch.arange(e, device=tok.device)).long()
+    pos = (torch.cumsum(flat, 0) * flat - 1).amax(-1)
+    slot = torch.where(pos < cap, e_flat * cap + pos, e * cap)
+    return gates, idx, slot, cap
+
+
+def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
+              norm_eps=1e-5, drops=None):
+    """GShard capacity MoE (the reference's ``moe_block``) on one device:
+    expert parallelism and expert-TP are 1, so its all_to_all and psum are
+    identities, and the aux loss, which serving drops, is not formed.
+
+    Every token of the (B, T) stream is routed (``moe_route``), pads and
+    killed segments included: N = B * T sets the capacity, and a pad ahead
+    of a real token in the flattened stream can push that token's copy
+    past it; a dropped copy adds nothing. g and u come out of the expert
+    products in fp32, ``silu(g) * u`` is rounded to bf16 once, the down
+    product once, and the gated sum of a token's K rows is fp32, then
+    bf16. The (E, cap, d) dispatch is zero where no copy landed, and the
+    products run over it all, as the reference's do. ``drops`` (a list)
+    gets this call's count of dropped copies as a device tensor (no host
+    sync)."""
+    b, t, d = x.shape
+    e = num_experts
+    xn = rms_norm(x, p["mlp_norm"], norm_eps)
+    tok = xn.reshape(b * t, d)
+    gates, _, slot, cap = moe_route(tok, p["router"], num_experts=e,
+                                    top_k=top_k,
+                                    capacity_factor=capacity_factor)
+    if drops is not None:
+        drops.append((slot == e * cap).sum())
+    dispatch = tok.new_zeros((e * cap + 1, d))
+    dispatch.index_copy_(0, slot, tok.repeat_interleave(top_k, dim=0))
+    disp = dispatch[:-1].view(e, cap, d)
+    g = _bmm_f32(disp, p["moe_gate"].to(x.dtype))
+    u = _bmm_f32(disp, p["moe_up"].to(x.dtype))
+    h = (F.silu(g) * u).to(x.dtype)
+    y = torch.bmm(h, p["moe_down"].to(x.dtype))                  # (E, C, d)
+    back = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+    gathered = back.index_select(0, slot).view(b * t, top_k, d)
+    out = (gathered.float() * gates[..., None]).sum(1).to(x.dtype)
+    return x + out.view(b, t, d)

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense family: the training loss and the packed and
-padded serve steps (``repro/models/lm.py``)."""
+"""Decoder-only LM: the dense family's training loss, and the packed and
+padded serve steps of the dense, MoE and VLM-backbone families
+(``repro/models/lm.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ from . import attention as A
 from . import blocks_attn as BA
 from .common import rms_norm, set_matmul_precision
 from .params import MATRICES
-from .rotary import rope_tables
+from .rotary import mrope_tables, rope_tables
 from .tp import embed_lookup, logits_local, mask_pad_vocab, \
     sharded_softmax_xent
 
@@ -64,15 +65,25 @@ def unstack(tree: Dict[str, torch.Tensor]):
 
 
 class DecoderLM:
-    """Dense decoder on one device. Parameters are a plain dict mirroring
-    the reference tree with the tp dim dropped (see ``models.params``)."""
+    """Decoder on one device: dense, MoE (``moe_block`` in place of the
+    MLP) and the VLM backbone (precomputed image embeddings spliced in,
+    M-RoPE). Parameters are a plain dict mirroring the reference tree with
+    the tp dim dropped (see ``models.params``).
+
+    ``moe_drops``: set it to a list to have every MoE serve step append
+    its count of dropped (token, k) copies, summed over the layers, as a
+    device tensor."""
+
+    moe_drops = None
 
     def __init__(self, cfg: ModelConfig):
         cfg.validate()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: this port serves the dense family")
+                f"family {cfg.family!r}: DecoderLM serves the dense, moe and "
+                "vlm families")
         set_matmul_precision()
+        self.is_moe = cfg.num_experts > 0
         self.cfg = cfg
         self.kv_local = cfg.num_kv_heads
         self.v_pad = cfg.vocab_size
@@ -129,9 +140,14 @@ class DecoderLM:
         d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
         qd, kvd = cfg.num_heads * hd, self.kv_local * hd
         layers = {"attn_norm": (L, d), "q": (L, d, qd), "k": (L, d, kvd),
-                  "v": (L, d, kvd), "o": (L, qd, d), "mlp_norm": (L, d),
-                  "gate": (L, d, cfg.d_ff), "up": (L, d, cfg.d_ff),
-                  "down": (L, cfg.d_ff, d)}
+                  "v": (L, d, kvd), "o": (L, qd, d), "mlp_norm": (L, d)}
+        if self.is_moe:
+            e, ffe = cfg.num_experts, cfg.moe_d_ff
+            layers.update(router=(L, d, e), moe_gate=(L, e, d, ffe),
+                          moe_up=(L, e, d, ffe), moe_down=(L, e, ffe, d))
+        else:
+            layers.update(gate=(L, d, cfg.d_ff), up=(L, d, cfg.d_ff),
+                          down=(L, cfg.d_ff, d))
         if cfg.qkv_bias:
             layers.update(q_bias=(L, qd), k_bias=(L, kvd), v_bias=(L, kvd))
         tree = {"embed": (self.v_pad, d), "final_norm": (d,),
@@ -143,17 +159,20 @@ class DecoderLM:
     def init(self, seed: int = 0, device="cuda",
              master: bool = False) -> Dict[str, Any]:
         """Random weights from ``seed`` with the reference template's
-        shapes and scales (normal 0.02; o/down 0.02/sqrt(2L); norms ones;
-        biases zeros), drawn by a ``torch.Generator`` on ``device``.
-        Matrices are bf16 (serving) or, with ``master``, fp32 like every
-        other leaf (training's masters, the reference's ``PARAM_DTYPE``);
-        norms and biases are fp32. The draws differ from the reference's
-        ``jax.random`` ones: tests that compare the two packages convert
-        the reference's params (``params_from_numpy``). A leaf is drawn in
+        shapes and scales (normal 0.02; o/down/moe_down 0.02/sqrt(2L);
+        norms ones; biases zeros), drawn by a ``torch.Generator`` on
+        ``device``. Matrices are bf16 (serving) or, with ``master``, fp32
+        like every other leaf (training's masters, the reference's
+        ``PARAM_DTYPE``); norms, biases and the MoE router are fp32. The
+        draws differ from the reference's ``jax.random`` ones: tests that
+        compare the two packages convert the reference's params
+        (``params_from_numpy``). A leaf is drawn in
         slices of its first axis (a layer, or a block of vocab rows) of at
         most DRAW_CHUNK values, so the fp32 draw of a bf16 leaf never
         needs the whole leaf in fp32: qwen2.5-32b's 65.5 GB of bf16
-        weights are drawn on one 80 GB card."""
+        weights are drawn on one 80 GB card. An expert leaf, whose layer
+        is larger than that (qwen3-moe: 0.8 G values), is drawn in
+        slices of experts."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -164,16 +183,18 @@ class DecoderLM:
                 return torch.ones(shape, dtype=torch.float32, device=dev)
             if name.endswith("bias"):
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
-            scale = out_scale if name in ("o", "down") else 0.02
+            scale = out_scale if name in ("o", "down", "moe_down") else 0.02
             bf16 = not master and name in MATRICES
             w = torch.empty(shape, dtype=torch.bfloat16 if bf16 else
                             torch.float32, device=dev)
-            rows = max(1, DRAW_CHUNK // math.prod(shape[1:]))
-            for i in range(0, shape[0], rows):
-                part = torch.randn((min(rows, shape[0] - i), *shape[1:]),
-                                   generator=gen, dtype=torch.float32,
-                                   device=dev)
-                w[i:i + rows] = part.mul_(scale)
+            flat = w if math.prod(shape[1:]) <= DRAW_CHUNK else \
+                w.view(-1, *shape[2:])
+            rows = max(1, DRAW_CHUNK // math.prod(flat.shape[1:]))
+            for i in range(0, flat.shape[0], rows):
+                part = torch.randn((min(rows, flat.shape[0] - i),
+                                    *flat.shape[1:]), generator=gen,
+                                   dtype=torch.float32, device=dev)
+                flat[i:i + rows] = part.mul_(scale)
             return w
 
         shapes = self.param_shapes()
@@ -198,6 +219,9 @@ class DecoderLM:
                 mrope_pos is not None:
             raise NotImplementedError(
                 "multimodal training: the vlm family is a later slice")
+        if self.is_moe:
+            raise NotImplementedError(
+                "MoE training: the port serves the moe family only")
         return self._train_body(params, tokens, targets)
 
     def _train_body(self, params, tokens, targets):
@@ -267,10 +291,11 @@ class DecoderLM:
         if batch.seg_ids is None:
             return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg
-        x = embed_lookup(batch.tokens, params["embed"])
+        x = self._embed(params, batch)
         views = self._layer_views(buffer)
         rope, step = self._packed_invariants(batch, views)
         layers = self._layer_params(params)
+        drops = self._drops()
         for cycle in range(self.cycles):
             gathered = []
             for j, kind in enumerate(self.period_kinds):
@@ -290,11 +315,49 @@ class DecoderLM:
                     window=cfg.sliding_window if kind == "swa" else 0,
                     norm_eps=cfg.norm_eps)
                 writes.append((tname, lit, k, v))
-                x = BA.mlp_block(pj, x, cfg.norm_eps)
+                x = self._mlp(pj, x, drops)
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,
                                 step[tname]["rows"], k, v)
+        self._record_drops(drops)
         return self._head(params, x, batch)
+
+    def _embed(self, params, batch: DecodeBatch) -> torch.Tensor:
+        """Token embeddings, with the step's precomputed image embeddings
+        (fp32, rounded to bf16) spliced in where ``mm_mask`` is set."""
+        x = embed_lookup(batch.tokens, params["embed"])
+        if batch.mm_embeds is not None:
+            x = torch.where(batch.mm_mask[..., None],
+                            batch.mm_embeds.to(x.dtype), x)
+        return x
+
+    def _rope(self, batch: DecodeBatch):
+        """The step's rotary tables: M-RoPE over ``mrope_pos`` when the
+        batch carries it, else RoPE over ``positions``."""
+        cfg = self.cfg
+        if batch.mrope_pos is not None:
+            return mrope_tables(batch.mrope_pos, cfg.head_dim, cfg.rope_theta)
+        return rope_tables(batch.positions, cfg.head_dim, cfg.rope_theta)
+
+    def _drops(self):
+        """A list for this step's ``moe_block`` calls to count their
+        dropped copies in, when ``moe_drops`` asks for them."""
+        return [] if self.is_moe and self.moe_drops is not None else None
+
+    def _record_drops(self, drops):
+        if drops:
+            self.moe_drops.append(torch.stack(drops).sum())
+
+    def _mlp(self, pj, x, drops=None):
+        """A layer's MLP: SwiGLU, or the capacity MoE."""
+        cfg = self.cfg
+        if self.is_moe:
+            return BA.moe_block(
+                pj, x, num_experts=cfg.num_experts,
+                top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor, norm_eps=cfg.norm_eps,
+                drops=drops)
+        return BA.mlp_block(pj, x, cfg.norm_eps)
 
     def _attn_views(self, views):
         """The attention types' entries of ``_layer_views``."""
@@ -307,7 +370,7 @@ class DecoderLM:
         per attention type, the page index, the varlen call's metadata and
         the K/V write rows. Returns (rope, {type: dict})."""
         positions = batch.positions
-        rope = rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        rope = self._rope(batch)
         step = {}
         for tname, view in self._attn_views(views).items():
             sq = {f: getattr(batch, f)[tname].reshape(1, -1)
@@ -330,7 +393,7 @@ class DecoderLM:
         cfg = self.cfg
         positions = batch.positions
         b, t = positions.shape
-        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        rope = self._rope(batch)
         step = {}
         for tname, view in self._attn_views(views).items():
             tables = batch.tables[tname].reshape(b, -1)
@@ -388,10 +451,11 @@ class DecoderLM:
         positions = batch.positions
         if prefill is None:
             prefill = positions.shape[1] > 1
-        x = embed_lookup(batch.tokens, params["embed"])
+        x = self._embed(params, batch)
         views = self._layer_views(buffer)
         rope, step = self._padded_invariants(batch, views, prefill)
         layers = self._layer_params(params)
+        drops = self._drops()
         qpos = positions[:, 0].contiguous()
         for cycle in range(self.cycles):
             gathered = []
@@ -420,8 +484,9 @@ class DecoderLM:
                         pj, x, buffer, views[tname], lit, rows=st["rows"],
                         tables=st["tables"], page_pos=st["page_pos"],
                         qpos=qpos, plan=st["plan"], **kw)
-                x = BA.mlp_block(pj, x, cfg.norm_eps)
+                x = self._mlp(pj, x, drops)
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,
                                 step[tname]["rows"], k, v)
+        self._record_drops(drops)
         return self._head(params, x, batch)

@@ -16,12 +16,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-# leaf name -> its size-1 tp axis in the reference's expanded layout
+# leaf name -> its size-1 tp axis in the reference's expanded layout (the
+# MoE leaves, router and moe_*, have none: the reference shards experts
+# over "data" and the expert FFN over "model" without a size-1 dim)
 _TP_AXIS = {"embed": 0, "unembed": 0, "q": 1, "k": 1, "v": 1, "o": 1,
             "gate": 1, "up": 1, "down": 1, "q_bias": 1, "k_bias": 1,
             "v_bias": 1}
 MATRICES = frozenset({"embed", "unembed", "q", "k", "v", "o", "gate", "up",
-                      "down", "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out"})
+                      "down", "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out",
+                      "moe_gate", "moe_up", "moe_down"})
 # hybrid subtrees: stacked Mamba2 leaves carry tp at axis 1 (their "norm"
 # has none); the shared attention block's matrices at axis 0
 _HYBRID_TP_AXIS = {
@@ -72,10 +75,11 @@ def _leaf(name: str, a, device, master: bool, axes=None) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
     """Convert the reference's param tree (leaves as numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) of a dense or hybrid ``cfg``.
-    With ``master`` every leaf stays fp32 (training's masters); otherwise
-    matrices become bf16 (serving). The hybrid's ``conv_w`` stays fp32:
-    the reference multiplies bf16 activations by it in fp32."""
+    ``jax.tree.map(np.asarray, params)``) of a dense, moe, vlm or hybrid
+    ``cfg``. With ``master`` every leaf stays fp32 (training's masters);
+    otherwise matrices become bf16 (serving). The hybrid's ``conv_w`` and
+    the MoE ``router`` stay fp32: the reference multiplies by them in
+    fp32 (a bf16 router of a bf16-param model is widened exactly)."""
     if cfg.family == "hybrid":
         out = {}
         for name, a in tree.items():
@@ -87,9 +91,9 @@ def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
             else:
                 out[name] = _leaf(name, a, device, master)
         return out
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: dense and hybrid only")
+            f"family {cfg.family!r}: dense, moe, vlm and hybrid only")
     out = {name: _leaf(name, a, device, master)
            for name, a in tree.items() if name != "layers"}
     out["layers"] = {name: _leaf(name, a, device, master)

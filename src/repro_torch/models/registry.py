@@ -8,11 +8,12 @@ from .lm import DecoderLM
 
 
 def build_model(cfg: ModelConfig):
-    """The port's model for ``cfg``: ``DecoderLM`` (dense) or ``HybridLM``
-    (hybrid). Other families are later slices and raise."""
-    if cfg.family == "dense":
+    """The port's model for ``cfg``: ``DecoderLM`` (dense, moe, vlm) or
+    ``HybridLM`` (hybrid). Other families (ssm, encdec) are later slices
+    and raise."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
     raise NotImplementedError(
-        f"family {cfg.family!r}: the port serves dense and hybrid")
+        f"family {cfg.family!r}: the port serves dense, moe, vlm and hybrid")

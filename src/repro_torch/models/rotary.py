@@ -1,5 +1,5 @@
-"""Rotary position embeddings (standard RoPE), computed in fp32 as the
-reference does (``repro/models/rotary.py``)."""
+"""Rotary position embeddings (standard RoPE and Qwen2-VL's M-RoPE),
+computed in fp32 as the reference does (``repro/models/rotary.py``)."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +18,36 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     the same for every layer of a step."""
     inv = rope_freqs(head_dim, theta, device=positions.device)  # (half,)
     ang = positions[..., None].float() * inv                   # (..., seq, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (torch.cat([cos, cos], -1)[..., None, :],
+            torch.cat([-sin, sin], -1)[..., None, :])
+
+
+def default_mrope_sections(head_dim: int):
+    """Qwen2-VL proportions (16, 24, 24 at head dim 128): a quarter of the
+    frequency slots temporal, the rest split between height and width."""
+    half = head_dim // 2
+    t = max(1, half // 4)
+    h1 = (half - t) // 2
+    return (t, h1, half - t - h1)
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int,
+                 theta: float = 1e6, sections=None):
+    """``rope_tables`` for M-RoPE (the reference's ``apply_mrope``): the
+    head_dim / 2 frequency slots are split into ``sections`` groups, slot
+    i rotated by position stream ``sel[i]`` of ``positions3`` (3, ...,
+    seq). Returns the same (cos|cos, -sin|sin) pair of shape (..., seq,
+    1, head_dim), for ``rotate``."""
+    half = head_dim // 2
+    if sections is None:
+        sections = default_mrope_sections(head_dim)
+    assert sum(sections) == half, (sections, half)
+    dev = positions3.device
+    inv = rope_freqs(head_dim, theta, device=dev)               # (half,)
+    sel = torch.cat([torch.full((s,), i, dtype=torch.long, device=dev)
+                     for i, s in enumerate(sections)])         # (half,)
+    ang = positions3.float().movedim(0, -1)[..., sel] * inv    # (..., seq, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     return (torch.cat([cos, cos], -1)[..., None, :],
             torch.cat([-sin, sin], -1)[..., None, :])

@@ -513,31 +513,30 @@ class ModelRunner:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _to_batch(self, arrs: Dict[str, object]) -> DecodeBatch:
-        """Upload a batch: every int32 field goes up in ONE copy of one flat
-        array, then is viewed back into its fields on device."""
+        """Upload a batch: the fields of each dtype go up in ONE copy of
+        one flat array, then are viewed back into their fields on device —
+        one copy for the int32 fields (``mrope_pos`` among them), and for a
+        multimodal step one for the fp32 ``mm_embeds`` and one for the
+        bool ``mm_mask``."""
         out = {f: ({} if isinstance(v, dict) else None)
                for f, v in arrs.items()}
-        fields = []
+        groups: Dict[np.dtype, list] = {}
         for f, v in arrs.items():
             items = v.items() if isinstance(v, dict) else [(None, v)]
             for k, x in items:
-                if x is None:
-                    continue
-                if x.dtype != np.int32:
-                    raise NotImplementedError(
-                        f"batch field {f} ({x.dtype}): int32 fields only "
-                    "(multimodal inputs are a later slice)")
-                fields.append((f, k, x))
-        dev = self._upload(np.concatenate([x.reshape(-1)
-                                           for _, _, x in fields]))
-        off = 0
-        for f, k, x in fields:
-            t = dev[off:off + x.size].view(x.shape)
-            off += x.size
-            if k is None:
-                out[f] = t
-            else:
-                out[f][k] = t
+                if x is not None:
+                    groups.setdefault(x.dtype, []).append((f, k, x))
+        for fields in groups.values():
+            dev = self._upload(np.concatenate([x.reshape(-1)
+                                               for _, _, x in fields]))
+            off = 0
+            for f, k, x in fields:
+                t = dev[off:off + x.size].view(x.shape)
+                off += x.size
+                if k is None:
+                    out[f] = t
+                else:
+                    out[f][k] = t
         return DecodeBatch(**out)
 
     def _build_host_padded(self, items: Sequence[Tuple[Request, int, int]]

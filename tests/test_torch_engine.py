@@ -168,7 +168,7 @@ def test_later_slices_raise():
                                                max_new_tokens=2)))
     assert [len(r.output) for r in eng.run_until_done()] == [2]
     with pytest.raises(NotImplementedError):
-        DecoderLM(reduced(ARCHS["dbrx-132b"]))
+        DecoderLM(reduced(ARCHS["rwkv6-3b"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Engine(eng.model, EngineConfig(), params=eng.params)

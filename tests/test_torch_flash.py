@@ -62,6 +62,8 @@ def _jax_rep(q, k, v):
     (2, 2, 128, 128, 64, 64),
     (1, 1, 128, 256, 32, 64),
     (4, 1, 64, 96, 16, 32),          # GQA: 4 q heads on one kv head
+    (12, 2, 64, 96, 16, 32),         # G 6 (dbrx, qwen2-vl-2b)
+    (16, 1, 64, 96, 16, 32),         # G 16 (qwen3-moe)
 ])
 def test_plain_matches_jax_kernel_and_ref(bh, kvh, t_, s, d, blk, window):
     q, k, v, q_seg, q_pos, kv_seg, kv_pos = _inputs(7, bh, t_, s, d,
@@ -312,6 +314,11 @@ EMULATED_VARLEN = {
     "internlm2 heads G=2 D=128, window": (4, 2, 128, 24, dict(t_total=96)),
     "G=4 D=64 window 400, no visible slot": (
         8, 2, 64, 400, dict(t_total=96, novis=(1, 3))),
+    # floor(64 / 6) = 10 tokens x 6 heads a warpgroup: 4 dead rows
+    "dbrx / qwen2-vl heads G=6 D=128, pads": (12, 2, 128, 0,
+                                               dict(t_total=80)),
+    # 4 tokens x 16 heads a warpgroup
+    "qwen3-moe heads G=16 D=128": (32, 2, 128, 0, dict(t_total=64)),
 }
 
 

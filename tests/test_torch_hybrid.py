@@ -482,7 +482,7 @@ def test_build_model_and_later_slices():
     model = build_model(cfg)
     assert isinstance(model, HybridLM)
     assert isinstance(build_model(reduced(ARCHS["granite-3-2b"])), DecoderLM)
-    for arch in ("dbrx-132b", "rwkv6-3b", "whisper-tiny"):
+    for arch in ("rwkv6-3b", "whisper-tiny"):
         with pytest.raises(NotImplementedError):
             build_model(reduced(ARCHS[arch]))
     with pytest.raises(NotImplementedError):

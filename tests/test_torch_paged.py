@@ -65,6 +65,8 @@ def close(a, b, tol):
     (2, 1, 4, 32, 8, 4),
     (3, 2, 2, 64, 16, 3),
     (1, 4, 1, 128, 8, 6),
+    (2, 2, 6, 16, 8, 4),             # G 6 (dbrx, qwen2-vl-2b)
+    (2, 1, 16, 16, 8, 4),            # G 16 (qwen3-moe): two groups of 8
 ])
 def test_plain_matches_jax_kernel_and_ref(b, kvl, g, d, tpp, n_pages, dtype):
     case = make_case(b, kvl, g, d, tpp, n_pages, vp=n_pages * b + 3,
@@ -373,7 +375,8 @@ def _emulation_cases():
     cases = [(f"sweep {shape}", make_case(*shape, vp=shape[5] * shape[0] + 3,
                                           dtype=jnp.bfloat16), 0, 2e-2)
              for shape in ((2, 1, 4, 32, 8, 4), (3, 2, 2, 64, 16, 3),
-                           (1, 4, 1, 128, 8, 6))]
+                           (1, 4, 1, 128, 8, 6), (2, 2, 6, 16, 8, 4),
+                           (2, 1, 16, 16, 8, 4))]
     cases += [("serve", _serve_like(), w, 2e-5) for w in (0, 8)]
     cases += [("many splits", _rows_case([239, 60], 4, 64, seed=5, kvl=2,
                                          g=3, d=32), 0, 2e-5),
