@@ -130,6 +130,27 @@ Phase 2 and the paged phase add the heads of these models: qwen3-moe's
 G 16 (D 128, 64 / 4; varlen mixed and decode, paged), dbrx's and
 qwen2-vl-2b's G 6 (48 / 8 and 12 / 2; varlen mixed, paged).
 
+Phase 8, the enc-dec family and RWKV6 (each after the earlier phases'
+memory is released): whisper-tiny at full width and depth (4 encoder +
+4 decoder layers, d 384, 6 / 6 heads of 64, 1500 frames) with phase 3's
+8 prompts, 6 of them carrying a stub clip of 1500 frames (two sharing
+one) and 2 text-only: packed at depths 1 and 4 (bitwise equal), budget
+256, padded and serial (fork-aware within twice the noise floor) and a
+seeded packed leg; every leg runs the encoder once per distinct clip
+(``encoder_runs`` 5) and launches the dense forward 4 times in each
+dispatch that carries frames, the varlen kernel 8 times (self and cross
+attention) in each packed dispatch and the paged kernel 4 times in each
+padded T == 1 dispatch. Then rwkv6-3b at full width and depth (32
+layers, d 2560, 40 heads of 64; plain torch, no attention kernel),
+packed at depths 1 and 4 (bitwise equal), budget 256, padded and serial,
+with state checkpoint copies and no leaked page, and the CUDA launches
+of one layer and of one packed mixed step (torch.profiler). Then both
+reduced, card against CPU. Phase 2 adds whisper's self attention (G 1,
+6 / 6 heads) and its cross attention over 8 segments x 1500 encoder
+slots (two text-only, whose rows must be exact zeros) as a mixed and a
+decode stream, the paged phase its G 1 heads and phase 2b its encoder
+(BH 48, T = S = 1500 non-causal, and the serve call's S 1536).
+
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
 CUDA device.
@@ -280,6 +301,27 @@ def _case(name, segs, window=0, pad_rows=0, dead_slots=0, t_total=None,
                 kv_pos=np.array(kv_pos, np.int32))
 
 
+def _cross_case(name, fresh, text_only, t_total, enc_len=1500):
+    """A packed cross-attention call as the enc-dec serve path builds it:
+    segment si's tokens (``fresh[si]`` of them) see its own ``enc_len``
+    encoder slots (kv_pos 0..enc_len-1) through ``q_pos := enc_lens - 1``;
+    segments in ``text_only`` carry enc_lens 0, so q_pos -1 and no visible
+    slot; pads (q_seg -1) likewise."""
+    q_seg, q_pos, kv_seg, kv_pos = [], [], [], []
+    for si, n in enumerate(fresh):
+        q_seg += [si] * n
+        q_pos += [-1 if si in text_only else enc_len - 1] * n
+        kv_seg += [si] * enc_len
+        kv_pos += list(range(enc_len))
+    n_pad = t_total - len(q_seg)
+    q_seg += [-1] * n_pad
+    q_pos += [-1] * n_pad
+    return dict(name=name, window=0,
+                q_seg=np.array(q_seg, np.int32), q_pos=np.array(q_pos, np.int32),
+                kv_seg=np.array(kv_seg, np.int32),
+                kv_pos=np.array(kv_pos, np.int32))
+
+
 def kernel_cases():
     # mixed step: a 256-token first chunk, a 200-token chunk over 512 old
     # slots and four decodes over 1024/896/768/896 slots -> 4096 old slots
@@ -334,6 +376,16 @@ def kernel_cases():
              h=48, kvl=8, d=128, layout="token"),
         dict(_case("qwen2-vl heads D=128 G=6 mixed T=512", mixed,
                    t_total=512), h=12, kvl=2, d=128, layout="token"),
+        # whisper-tiny (phase 8): decoder self attention, 6 / 6 heads of 64;
+        # cross attention over 8 segments x 1500 encoder slots, two of them
+        # text-only (q_pos -1: exact zeros), as a mixed and a decode stream
+        dict(_case("whisper self heads D=64 G=1 mixed T=512", mixed,
+                   t_total=512), h=6, kvl=6, layout="token"),
+        dict(_cross_case("whisper cross G=1 mixed T=512 S=12000",
+                         (200, 150, 100, 40, 1, 1, 1, 1), (3, 6), 512),
+             h=6, kvl=6, layout="token"),
+        dict(_cross_case("whisper cross G=1 decode T=8 S=12000", (1,) * 8,
+                         (3, 6), 8), h=6, kvl=6, layout="token"),
     ]
 
 
@@ -550,6 +602,10 @@ def paged_cases():
         dict(name="dbrx heads D=128 G=6", d=128, g=6, layers=8, lens=lens),
         dict(name="qwen2-vl heads D=128 G=6", d=128, g=6, layers=28,
              lens=lens, kvl=2),
+        # whisper-tiny's decoder self attention (phase 8): G 1, 6 kv heads,
+        # one layer of its 4-layer pool
+        dict(name="whisper heads G=1 KVL=6 D=64", d=64, g=1, layers=4,
+             lens=lens, kvl=6),
     ]
 
 
@@ -888,6 +944,13 @@ def dense_cases():
         # sliding-window layers' mask at a window T/4
         ("danube heads D=120 G=4 T=2048 window=512", 1, 32, 8, 120, 2048,
          2048, True, 512),
+        # whisper-tiny's encoder (phase 8): 8 rows x 6 heads of 64, 1500
+        # frames, non-causal; the serve path's call also attends the
+        # reference's 36 zero pad keys (S 1536, ``encdec.ENC_KV_BLOCK``)
+        ("whisper encoder BH=48 T=S=1500 non-causal", 8, 6, 6, 64, 1500,
+         1500, False, 0),
+        ("whisper encoder serve call BH=48 T=1500 S=1536 non-causal", 8, 6,
+         6, 64, 1500, 1536, False, 0),
     ]
 
 
@@ -1100,7 +1163,7 @@ def _prompts(n, vocab, seed=0):
 
 def _drain(model, params, cfg_kw, prompts, new_tokens, device,
            count_copies=False, no_sync=False, sampling=None, on_step=None,
-           mm_items=None):
+           mm_items=None, enc_items=None, counts=None):
     """Drain ``prompts`` through a new ``Engine``. Returns the engine, the
     wall seconds, and the number of its T == 1 padded dispatches (the
     ones that go through the paged decode kernel); with ``count_copies``
@@ -1108,7 +1171,9 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
     dispatch runs under torch's sync debug mode "error", so a host sync
     inside it raises. ``sampling``: extra ``SamplingParams`` fields (the
     seeded draw); ``on_step(eng)`` runs after every engine step;
-    ``mm_items``: each prompt's ``MMItem``s (stub image embeddings)."""
+    ``mm_items`` / ``enc_items``: each prompt's ``MMItem``s (stub image
+    or audio frame embeddings); ``counts`` (a dict) gets the number of
+    dispatches that run the encoder under "enc"."""
     import torch
     from repro_torch.serving import Engine, EngineConfig, Request, \
         SamplingParams
@@ -1119,6 +1184,9 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
 
     def counting(params_, prep):
         decode[0] += not prep.info["prefill"]
+        if counts is not None:
+            counts["enc"] = counts.get("enc", 0) + \
+                (prep.arrs["enc_embeds"] is not None)
         if not no_sync:
             return dispatch(params_, prep)
         torch.cuda.set_sync_debug_mode("error")
@@ -1140,7 +1208,8 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=f"r{i}", prompt=p, sampling=SamplingParams(
             max_new_tokens=new_tokens, **(sampling or {})),
-            mm_items=mm_items[i] if mm_items else ()))
+            mm_items=mm_items[i] if mm_items else (),
+            encoder_items=enc_items[i] if enc_items else ()))
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1187,42 +1256,62 @@ def _fork_aware_equal(ref, other, label, tol=TIE_FORK_TOL):
 
 
 def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
-                on_step=None, sampling=None, mm_items=None, on_leg=None):
+                on_step=None, sampling=None, mm_items=None, on_leg=None,
+                enc_items=None, attn_layers=None, copies=None):
     """Drain ``prompts`` through one ``Engine`` per leg (name, batching
     mode, pipeline depth, config) of full-width ``cfg``: every request
     finishes, no page is left referenced, and each kernel is launched once
-    per layer of every dispatch that takes it (packed: varlen x dispatches,
-    paged never; padded/serial: paged x T == 1 dispatches, varlen never),
-    both counts set to 0 before the leg and read after it. Depth-1 legs
+    per attention layer of every dispatch that takes it (packed: varlen x
+    dispatches, paged never; padded/serial: paged x T == 1 dispatches,
+    varlen never; ``attn_layers``: (varlen, paged) calls per such
+    dispatch, ``cfg.num_layers`` each by default) and the dense forward
+    once per encoder layer of every dispatch that runs the encoder, the
+    counts set to 0 before the leg and read after it. Depth-1 legs
     record their logits rows (finite, vocab wide); their finished requests
     and rows are returned by name (legs at other depths that record them,
     as "name depth d"). Each leg's engine, pool and all, is
     released before the next is built (qwen2.5-32b leaves room for one).
     ``on_leg(eng, name, depth)`` runs after each leg's checks, before its
-    engine is released; ``mm_items`` go to ``_drain``.
-    Returns (outputs by (name, depth), depth-1 records, launch totals)."""
+    engine is released; ``mm_items`` and ``enc_items`` go to ``_drain``;
+    ``copies`` (a dict) gets each leg's state-page copy kinds by (name,
+    depth). Returns (outputs by (name, depth), depth-1 records, launch totals)."""
     import gc
     import types
 
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_varlen
+    from repro_torch.kernels.flash_attention import (dense_flash_fwd,
+                                                     flash_attention_varlen)
     from repro_torch.kernels.paged_attention import paged_decode_attention
 
     outs, ref = {}, {}
-    launches = {"varlen": 0, "paged": 0}
+    launches = {"varlen": 0, "paged": 0, "dense": 0}
+    n_varlen, n_paged = attn_layers or (cfg.num_layers, cfg.num_layers)
     for name, mode, depth, kw in legs:
         label = f"{tag} {name} depth={depth}"
         flash_attention_varlen.launches = 0
         paged_decode_attention.launches = 0
-        eng, wall, decode = _drain(
+        dense_flash_fwd.launches = 0
+        counts = {"enc": 0}
+        eng, wall, decode, *kinds = _drain(
             model, params, dict(base, batching_mode=mode, **kw), prompts,
             new_tokens, "cuda", sampling=sampling, mm_items=mm_items,
+            enc_items=enc_items, counts=counts,
+            count_copies=copies is not None,
             on_step=None if on_step is None else
             (lambda e, n=name, d=depth: on_step(e, n, d)))
+        if copies is not None:
+            copies[name, depth] = kinds[0]
         varlen = flash_attention_varlen.launches
         paged = paged_decode_attention.launches
+        dense = dense_flash_fwd.launches
         launches["varlen"] += varlen
         launches["paged"] += paged
+        launches["dense"] += dense
+        want_dense = counts["enc"] * cfg.encoder_layers
+        if dense != want_dense:
+            raise AssertionError(f"{label}: {dense} dense forward launches, "
+                                 f"expected {want_dense} ({counts['enc']} "
+                                 "encoder dispatches)")
         if len(eng.finished) != len(prompts):
             raise AssertionError(f"{label}: {len(eng.finished)} of "
                                  f"{len(prompts)} requests finished")
@@ -1231,9 +1320,9 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
         if stats.used_units != 0:
             raise AssertionError(f"{label}: leaked pages: {stats}")
         if mode == "packed":
-            want = (eng.runner.dispatch_count * cfg.num_layers, 0)
+            want = (eng.runner.dispatch_count * n_varlen, 0)
         else:
-            want = (0, decode * cfg.num_layers)
+            want = (0, decode * n_paged)
             if decode == 0:
                 raise AssertionError(f"{label}: no T == 1 dispatch")
         if (varlen, paged) != want:
@@ -1256,7 +1345,8 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
             f"wall_s={wall:.3f} output_tok_per_s={n_out / wall:.1f} "
             f"mean_step_ms={wall / steps * 1e3:.2f} varlen_launches={varlen}"
             f" (expected {want[0]}) paged_launches={paged} (expected "
-            f"{want[1]}) prompt_tokens={sum(len(p) for p in prompts)} "
+            f"{want[1]}) dense_fwd_launches={dense} (expected {want_dense}) "
+            f"prompt_tokens={sum(len(p) for p in prompts)} "
             f"output_tokens={n_out} leaked_pages=0 card=[{card()}]")
         if on_leg is not None:
             on_leg(eng, name, depth)
@@ -1399,39 +1489,44 @@ def phase_sampled(cfg, model, params, base, prompts):
 
 
 # ----------------------------------------------------------------- phase 4
-def phase_small_reference():
+def phase_small_reference(arch):
+    """Reduced ``arch`` served on the card (kernels) and on the CPU (plain
+    versions) with the same weights: the card's packed, padded and serial
+    engines against the CPU's packed engine, up to genuine near-ties
+    (TIE_FORK_TOL); whisper with 3 of its 4 prompts carrying a clip.
+    Phase 4 (granite-3-2b), 4b (zamba2-1.2b) and the end of phase 8."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import build_model
+    from repro_torch.serving import MMItem
 
-    cfg = reduced(ARCHS["granite-3-2b"])
+    cfg = reduced(ARCHS[arch])
     model = build_model(cfg)
     cpu_params = model.init(seed=0, device="cpu")
-    gpu_params = {k: (v.cuda() if k != "layers" else
-                      {n: w.cuda() for n, w in v.items()})
-                  for k, v in cpu_params.items()}
+
+    def cuda(tree):
+        return {k: (cuda(v) if isinstance(v, dict) else v.cuda())
+                for k, v in tree.items()}
+
+    gpu_params = cuda(cpu_params)
     kw = dict(kv_pool_bytes=8 << 20, max_running=4, chunk_size=8,
               max_num_batched_tokens=64, record_sample_logits=True)
     prompts = _prompts(4, cfg.vocab_size, seed=1)
     prompts = [p[:8 + 5 * i] for i, p in enumerate(prompts)]
-    ref, _, _ = _drain(model, cpu_params, kw, prompts, 8, "cpu")
-    gpu, _, _ = _drain(model, gpu_params, kw, prompts, 8, "cuda")
-    forked = _fork_aware_equal(ref, gpu, "card vs CPU")
-    # the padded and serial paths on the card (paged kernel on T == 1)
-    # against the packed path on the CPU, at the reduced configs' bar
-    for mode in ("padded", "serial"):
+    enc = None
+    if cfg.family == "encdec":
+        enc = [(MMItem(0, cfg.encoder_seq, mm_hash=i),) if i != 1 else ()
+               for i in range(4)]
+    ref, _, _ = _drain(model, cpu_params, kw, prompts, 8, "cpu",
+                       enc_items=enc)
+    for mode in ("packed", "padded", "serial"):
         eng, _, decode = _drain(model, gpu_params,
                                 dict(kw, batching_mode=mode), prompts, 8,
-                                "cuda")
-        n = _fork_aware_equal(ref, eng, f"{mode} card vs packed CPU")
-        log(f"[reference] reduced granite {mode} on the card vs packed on "
-            f"the CPU: {decode} T == 1 dispatches, {n} forked at near-ties"
-            f" (TIE_FORK_TOL {TIE_FORK_TOL})")
-    diff = max(float(np.abs(np.stack(ref.sample_log[r.rid][:1])
-                            - np.stack(gpu.sample_log[r.rid][:1])).max())
-               for r in ref.finished)
-    log(f"[reference] reduced granite card vs CPU: {len(ref.finished)} "
-        f"requests, {forked} forked at near-ties, first-token logits max "
-        f"abs diff {diff:.3e}")
+                                "cuda", enc_items=enc)
+        n = _fork_aware_equal(ref, eng, f"{arch} {mode} card vs packed CPU")
+        log(f"[reference] reduced {arch} {mode} on the card vs packed on "
+            f"the CPU: {decode} T == 1 dispatches, {n} forked at near-ties "
+            f"(TIE_FORK_TOL {TIE_FORK_TOL}), first-token logits max abs "
+            f"diff {_first_row_diff(ref, eng):.3e}")
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1462,7 +1557,8 @@ def _count_state_copies(eng):
     apply = eng.runner.apply_copies
 
     def counting(ops):
-        kinds.extend(op.kind for op in ops if op.type_name == "mamba")
+        kinds.extend(op.kind for op in ops
+                     if op.type_name in ("mamba", "rwkv"))
         return apply(ops)
 
     eng.runner.apply_copies = counting
@@ -1595,38 +1691,13 @@ def phase_hybrid_engine():
     return launches, rows
 
 
-def phase_hybrid_small_reference():
-    """Reduced zamba2-1.2b served on the card (kernels) and on the CPU
-    (plain versions) with the same weights: the card's packed, padded and
-    serial engines against the CPU's packed engine, up to genuine near-ties
-    (TIE_FORK_TOL)."""
-    from repro_torch.configs import ARCHS, reduced
-    from repro_torch.models import build_model
-
-    cfg = reduced(ARCHS["zamba2-1.2b"])
-    model = build_model(cfg)
-    cpu_params = model.init(seed=0, device="cpu")
-    gpu_params = {k: ({n: w.cuda() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in cpu_params.items()}
-    kw = dict(kv_pool_bytes=8 << 20, max_running=4, chunk_size=8,
-              max_num_batched_tokens=64, record_sample_logits=True)
-    prompts = _prompts(4, cfg.vocab_size, seed=1)
-    prompts = [p[:8 + 5 * i] for i, p in enumerate(prompts)]
-    ref, _, _ = _drain(model, cpu_params, kw, prompts, 8, "cpu")
-    for mode in ("packed", "padded", "serial"):
-        eng, _, decode = _drain(model, gpu_params,
-                                dict(kw, batching_mode=mode), prompts, 8,
-                                "cuda")
-        n = _fork_aware_equal(ref, eng, f"hybrid {mode} card vs packed CPU")
-        diff = _first_row_diff(ref, eng)
-        log(f"[reference] reduced zamba2 {mode} on the card vs packed on the"
-            f" CPU: {decode} T == 1 dispatches, {n} forked at near-ties "
-            f"(TIE_FORK_TOL {TIE_FORK_TOL}), first-token logits max abs "
-            f"diff {diff:.3e}")
-
-
 # ----------------------------------------------------------------- phase 6
+def _leaves(tree):
+    """The tensors of a (nested) parameter dict."""
+    return [w for v in tree.values()
+            for w in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def _full_width(arch, **overrides):
     """Full-width ``arch`` (its config with ``overrides``: a depth cut)
     with random bf16 weights drawn on the card from seed 0, after the
@@ -1648,8 +1719,7 @@ def _full_width(arch, **overrides):
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
-    leaves = [w for v in params.values()
-              for w in (v.values() if isinstance(v, dict) else [v])]
+    leaves = _leaves(params)
     n_params = sum(w.numel() for w in leaves)
     n_bytes = sum(w.numel() * w.element_size() for w in leaves)
     free1, _ = torch.cuda.mem_get_info()
@@ -2022,12 +2092,205 @@ def phase_moe_vlm():
     (``MOE_CUTS``), one model after the other, then the VLM backbone at
     full width. Returns the kernel launch totals."""
     _moe_numerics()
-    launches = {"varlen": 0, "paged": 0}
+    launches = {"varlen": 0, "paged": 0, "dense": 0}
     for arch, layers in MOE_CUTS:
         for k, n in _moe_model(arch, layers).items():
             launches[k] += n
     for k, n in _vlm().items():
         launches[k] += n
+    return launches
+
+
+# ----------------------------------------------------------------- phase 8
+def _whisper():
+    """whisper-tiny at full width (4 encoder + 4 decoder layers, d 384,
+    6 / 6 heads of 64, vocab 51865, 1500 frames): phase 3's 8 prompts, 6
+    of them carrying a 1500-frame stub clip (r0 and r2 the same clip) and
+    2 text-only; packed at depths 1 and 4 (bitwise equal), packed-b256,
+    padded and serial (fork-aware within twice the noise floor) and a
+    seeded packed leg (temperature 0.8, top-k 50). Every leg counts 5
+    encoder runs (the distinct clips, as the reference engine counts
+    these requests; ``tests/test_torch_encdec.py`` holds the port's count
+    to JAX's), launches the dense forward once an encoder layer in every
+    dispatch that carries frames, the varlen kernel twice a decoder layer
+    (self and cross) in every packed dispatch and the paged kernel once a
+    decoder layer in every padded T == 1 dispatch."""
+    import torch
+    from repro_torch.serving import MMItem
+
+    cfg, model, params = _full_width("whisper-tiny")
+    base = dict(kv_pool_bytes=2 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    clips = (11, 12, 11, 13, 14, 15)
+    enc = [(MMItem(0, cfg.encoder_seq, mm_hash=h),) for h in clips] + \
+        [()] * 2
+    _warm(model, params, base, prompts)
+    runs = {}
+
+    def on_leg(eng, name, depth):
+        runs[name, depth] = eng.encoder_runs
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    legs = [("packed", "packed", 1, rec),
+            ("packed", "packed", 4, dict(async_scheduling=True,
+                                         pipeline_depth=4)),
+            ("packed-b256", "packed", 1,
+             dict(rec, max_num_batched_tokens=256)),
+            ("padded", "padded", 1, rec), ("serial", "serial", 1, rec)]
+    kw = dict(enc_items=enc, on_leg=on_leg,
+              attn_layers=(2 * cfg.num_layers, cfg.num_layers))
+    outs, ref, launches = _serve_legs("whisper", cfg, model, params, base,
+                                      legs, prompts, 32, **kw)
+    seeded, _, more = _serve_legs(
+        "whisper seeded", cfg, model, params, base,
+        [("seeded", "packed", 1, dict(async_scheduling=False))], prompts,
+        32, sampling=dict(temperature=0.8, top_k=50, seed=42), **kw)
+    for k in launches:
+        launches[k] += more[k]
+    if outs["packed", 1] != outs["packed", 4]:
+        raise AssertionError("whisper packed: outputs differ across depths")
+    if seeded["seeded", 1] == outs["packed", 1]:
+        raise AssertionError("whisper: the seeded draw equals greedy")
+    if set(runs.values()) != {len(set(clips))}:
+        raise AssertionError(f"whisper: encoder runs {runs}, expected "
+                             f"{len(set(clips))} a leg")
+    noise, tol, forks = _forks_within_noise("whisper", ref,
+                                            ("padded", "serial"))
+    log(f"[whisper] clips of {cfg.encoder_seq} frames on r0-r5 (r0 and r2 "
+        f"share one), r6 and r7 text-only: encoder runs per leg {runs}; "
+        f"outputs bitwise equal across packed depths 1, 4; noise floor "
+        f"{noise:.4f}, fork tolerance {tol:.4f}; (forks, first-token diff) "
+        f"vs packed: {forks}; 0 leaked pages; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"card=[{card()}]")
+    return launches
+
+
+def _rwkv_launches(model, params, base, prompts):
+    """The CUDA launches (kernels and copies) and device ms of one packed
+    mixed step of rwkv6-3b (prefill chunks beside decodes) and of one of
+    its layers (``rwkv6_packed`` on that step's stream), counted by
+    torch.profiler: the step's serve call and its first layer call are
+    replayed after the drain, three profiler windows each, and the most
+    launches a window saw is kept (a window now and then lacks device
+    events, see ``device_ms``). Returns (step launches, layer launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import blocks_seq as BS
+    from repro_torch.serving import Engine, EngineConfig, Request, \
+        SamplingParams
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if _dev_us(e) > 0]
+        return (sum(e.count for e in evs),
+                sum(_dev_us(e) for e in evs) / 1e3)
+
+    eng = Engine(model, EngineConfig(**base), params=params, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=f"r{i}", prompt=p,
+                           sampling=SamplingParams(max_new_tokens=4)))
+    calls = {}
+    dispatch, serve, packed = eng.runner.dispatch, model.serve_step, \
+        BS.rwkv6_packed
+
+    def first(name, fn):
+        def call(*args, **kw):
+            calls.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+
+    def capturing(params_, prep):
+        sizes = [nt for _, nt, _ in prep.items]
+        if "step" in calls or min(sizes) > 1 or max(sizes) == 1:
+            return dispatch(params_, prep)
+        model.serve_step = first("step", serve)
+        BS.rwkv6_packed = first("layer", packed)
+        calls["tokens"] = sum(sizes)
+        try:
+            return dispatch(params_, prep)
+        finally:
+            del model.serve_step
+            BS.rwkv6_packed = packed
+
+    eng.runner.dispatch = capturing
+    eng.run_until_done()
+    if "step" not in calls:
+        raise AssertionError("rwkv: no packed mixed step was dispatched")
+    got = {}
+    for name, fn in (("step", serve), ("layer", packed)):
+        args, kw = calls[name]
+        got[name] = max(kernels(lambda: fn(*args, **kw)) for _ in range(3))
+    stream = calls["layer"][0][1].shape[1]
+    log(f"[rwkv] CUDA launches (torch.profiler, the most of 3 windows) and "
+        f"device ms: one packed mixed step of {calls['tokens']} tokens over "
+        f"{stream} stream slots: {got['step'][0]} launches, "
+        f"{got['step'][1]:.3f} ms; one of its {model.cfg.num_layers} "
+        f"layers (rwkv6_packed): {got['layer'][0]} launches, "
+        f"{got['layer'][1]:.3f} ms; card=[{card()}]")
+    del eng, calls
+    return got["step"][0], got["layer"][0]
+
+
+def _rwkv():
+    """rwkv6-3b at full width (32 layers, d 2560, 40 heads of 64, ff 8960,
+    vocab 65536, untied): phase 3's 8 prompts, packed at depths 1 and 4
+    (bitwise equal), packed-b256, padded and serial (fork-aware within
+    twice the noise floor), every leg drained with no leaked page and
+    state checkpoint copies made (prompts past 512 tokens). The path runs
+    no attention kernel (plain torch: the reference has no TPU kernel
+    here); the CUDA launches of one layer and of one packed mixed step
+    are counted and printed."""
+    import gc
+
+    import torch
+
+    cfg, model, params = _full_width("rwkv6-3b")
+    base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8)
+    prompts = _prompts(8, cfg.vocab_size)
+    _warm(model, params, base, prompts)
+    step_k, layer_k = _rwkv_launches(model, params, base, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    copies = {}
+    outs, ref, launches = _serve_legs(
+        "rwkv", cfg, model, params, base, _leg_set(depths=(1, 4),
+                                                   serial=True),
+        prompts, 32, attn_layers=(0, 0), copies=copies)
+    if outs["packed", 1] != outs["packed", 4]:
+        raise AssertionError("rwkv packed: outputs differ across depths")
+    made = {leg: kinds.count("checkpoint") for leg, kinds in copies.items()}
+    if not all(made.values()):
+        raise AssertionError(f"rwkv: legs without a state checkpoint copy "
+                             f"{made}")
+    noise, tol, forks = _forks_within_noise("rwkv", ref,
+                                            ("padded", "serial"))
+    log(f"[rwkv] outputs bitwise equal across packed depths 1, 4; state "
+        f"checkpoint copies per leg {made}; {layer_k} CUDA launches a "
+        f"layer, {step_k} a packed mixed step; noise floor {noise:.4f}, "
+        f"fork tolerance {tol:.4f}; (forks, first-token diff) vs packed: "
+        f"{forks}; 0 leaked pages; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"card=[{card()}]")
+    del params
+    return launches
+
+
+def phase_encdec_rwkv():
+    """Phase 8: the enc-dec family (whisper-tiny) and RWKV6 (rwkv6-3b) at
+    full width, one after the other, then both reduced, card vs CPU.
+    Returns the kernel launch totals."""
+    launches = {"varlen": 0, "paged": 0, "dense": 0}
+    for fn in (_whisper, _rwkv):
+        for k, n in fn().items():
+            launches[k] += n
+    for arch in ("whisper-tiny", "rwkv6-3b"):
+        phase_small_reference(arch)
     return launches
 
 
@@ -2219,11 +2482,12 @@ def main() -> int:
     mres = phase_mamba_kernel()
     dres = phase_dense_kernel()
     launches = phase_engine()
-    phase_small_reference()
+    phase_small_reference("granite-3-2b")
     hybrid, _ = phase_hybrid_engine()
-    phase_hybrid_small_reference()
+    phase_small_reference("zamba2-1.2b")
     train = phase_train()
-    for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm):
+    for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
+                  phase_encdec_rwkv):
         for k, n in phase().items():
             launches[k] += n
     mixed, decode, dense = kres[0], pres[0], dres[0]
@@ -2272,7 +2536,7 @@ def main() -> int:
         "route": "cuda",
         "source": dense_src,
         "replaces": dense_tpu,
-        "launches": train["fwd_launches"],
+        "launches": train["fwd_launches"] + launches["dense"],
         "max_abs_err": max(r["err"] for r in dres),
         "ms": dense["ms"],
         "plain_ms": dense["plain_ms"],

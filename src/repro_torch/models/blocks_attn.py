@@ -12,7 +12,11 @@ call over [old page slots ++ fresh chunk K/V] (the reference's
 rows with T > 1 take the reference's jnp route in plain torch
 (``prefill_flash`` over the gathered old pages, merged with the fresh
 chunk); padded T == 1 steps write their K/V first and read every page in
-place through the paged decode kernel (``attn_decode``).
+place through the paged decode kernel (``attn_decode``). The cores of the
+padded routes (``padded_prefill_attention``, ``decode_attention``) take
+projected q/k/v, so the enc-dec family's biased, rope-free projections
+share them. Packed cross attention (enc-dec) is one varlen kernel call
+over the cross slots (``packed_cross_attention``).
 """
 from __future__ import annotations
 
@@ -129,6 +133,38 @@ def packed_kernel_attention(q, k_old, v_old, k_fresh, v_fresh, meta, *,
     return out.transpose(0, 1).reshape(1, t, kvl, g, d)
 
 
+def packed_cross_meta(slot_pos, slot_seg, seg_ids, enc_lens):
+    """The varlen call's segment ids, positions and tile sizes for a packed
+    step's cross attention over the flat stream of cross (encoder) slots:
+    token i sees slot j of its own segment iff ``slot_pos[j] < enc_lens
+    [i]``, the kernel's ``kpos <= qpos`` rule with ``q_pos := enc_lens -
+    1`` (the reference's ``packed_cross_attn_kernel``). Tokens with no
+    encoder (``enc_lens`` 0, pads) get q_pos -1, see nothing and come out
+    exactly zero. There is no fresh part: the encoder's K/V are in the
+    pages before any layer reads them. The same for every layer."""
+    t = seg_ids.shape[1]
+    kv_seg, kv_pos = slot_seg[0].int(), slot_pos[0].int()
+    blk_q, blk_k = sparse_blocks(t, kv_seg.shape[0])
+    return dict(q_seg=seg_ids[0].int(), kv_seg=kv_seg,
+                q_pos=(enc_lens[0] - 1).int(), kv_pos=kv_pos,
+                kv_tiles=varlen_kv_tiles(kv_seg, kv_pos), blk_q=blk_q,
+                blk_k=blk_k)
+
+
+def packed_cross_attention(q, k, v, meta):
+    """One varlen flash call of a packed step's cross attention (``meta``:
+    ``packed_cross_meta``). q: (1,T,KVL,G,D); k/v: (1,S,KVL,D) gathered
+    cross slots. Returns (1,T,KVL,G,D) in q.dtype, rows of tokens with no
+    encoder exactly zero."""
+    _, t, kvl, g, d = q.shape
+    out = flash_attention_varlen(
+        q[0].reshape(t, kvl * g, d).transpose(0, 1), k[0].transpose(0, 1),
+        v[0].transpose(0, 1), meta["q_seg"], meta["kv_seg"],
+        meta["q_pos"], meta["kv_pos"], blk_q=meta["blk_q"],
+        blk_k=meta["blk_k"], kv_tiles=meta["kv_tiles"])    # (H, T, D)
+    return out.transpose(0, 1).reshape(1, t, kvl, g, d)
+
+
 def attn_compute(p, x, k_old, v_old, *, meta, rope, kv_local, head_dim,
                  window=0, norm_eps=1e-5):
     """Phase 2 (COMPUTE): packed attention over the gathered old pages and
@@ -185,18 +221,27 @@ def attn_compute_padded(p, x, k_old, v_old, *, meta, rope, kv_local,
     old pages merged with the fresh chunk (still in hand — the buffer
     write happens in phase 3). ``meta``: ``padded_prefill_meta``.
     Returns (x_out, k_fresh, v_fresh)."""
-    b, t, _ = x.shape
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
+    out = padded_prefill_attention(q, k, v, k_old, v_old, meta,
+                                   window=window)
+    return x + dense(out, p["o"]), k, v
+
+
+def padded_prefill_attention(q, k, v, k_old, v_old, meta, *, window=0):
+    """The attention of a padded T > 1 step: flash over the gathered old
+    pages merged with the fresh chunk (q (B,T,KVL,G,D); k/v (B,T,KVL,D);
+    ``meta``: ``padded_prefill_meta``). Returns (B, T, KVL*G*D) in
+    q.dtype."""
+    b, t = q.shape[:2]
     o, m, l = prefill_flash(q, k_old, v_old, meta["blocks"])
     if meta["fresh"] is not None:
         of, mf, lf = A.attend_tokens(q, k, v, meta["fresh"])
     else:
         of, mf, lf = A.flash_attention_partials(q, k, v, window=window)
     o, m, l = A.merge_partials(o, m, l, of, mf, lf)
-    out = A.finalize_softmax(o, l).reshape(b, t, -1).to(x.dtype)
-    return x + dense(out, p["o"]), k, v
+    return A.finalize_softmax(o, l).reshape(b, t, -1).to(q.dtype)
 
 
 def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
@@ -211,15 +256,26 @@ def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
     Only this layer's slots are written before it reads, so every other
     layer of the cycle still reads what it would before any write.
     ``plan``: the step's ``paged_decode_plan``, shared by every layer."""
-    b = x.shape[0]
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
+    out = decode_attention(q, k, v, buf, view_shape, layer, rows=rows,
+                           tables=tables, page_pos=page_pos, qpos=qpos,
+                           plan=plan, window=window)
+    return x + dense(out, p["o"])
+
+
+def decode_attention(q, k, v, buf, view_shape, layer, *, rows, tables,
+                     page_pos, qpos, plan, window=0):
+    """The attention of a padded T == 1 layer (``attn_decode``): this
+    token's K/V (k/v (B,1,KVL,D)) written into its slot first, then one
+    paged decode kernel call over the layer's view of ``buf``, read in
+    place. q: (B,1,KVL,G,D). Returns (B, 1, KVL*G*D) in q.dtype."""
     A.write_kv_rows(buf, view_shape, layer, rows, k, v)
     out = paged_decode_attention(q[:, 0], buf.view(view_shape)[:, layer],
                                  tables, page_pos, qpos, window=window,
                                  plan=plan)
-    return x + dense(out.reshape(b, 1, -1), p["o"])
+    return out.reshape(q.shape[0], 1, -1)
 
 
 def attn_train(p, x, *, kv_local, head_dim, rope, window=0, causal=True,

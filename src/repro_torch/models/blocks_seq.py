@@ -1,5 +1,5 @@
-"""Recurrent sequence mixers (``repro/models/blocks_seq.py``): the Mamba2
-half, on one device. RWKV6 is a later slice.
+"""Recurrent sequence mixers (``repro/models/blocks_seq.py``): Mamba2 and
+RWKV6, on one device.
 
 The SSD scan of ``mamba2_chunked`` (padded rows) and ``mamba2_packed``
 (segments of a packed stream) runs through the Mamba2 chunk-scan kernel,
@@ -10,8 +10,15 @@ causal conv (bf16 inputs times fp32 ``conv_w``, summed in fp32), SiLU, the
 D residual, the gated RMSNorm and the out-projection. ``mamba2_step``
 (T == 1, padded only) is plain torch, as in the reference.
 
-State layout per layer: [ssm_state (H*P*N) | conv_state ((W-1)*(d_in+2N))],
-fp32, stored in the unified buffer as bf16 pairs (``attention.read_state``).
+RWKV6 has no TPU kernel: the reference computes its chunked recurrence in
+``jnp``, and the port in plain torch with the reference's order of fp32
+operations (``rwkv6_chunked`` for padded rows, ``rwkv6_packed`` for the
+segments of a packed stream, ``rwkv6_step`` for T == 1).
+
+State layout per layer, fp32, stored in the unified buffer as bf16 pairs
+(``attention.read_state``):
+  Mamba2: [ssm_state (H*P*N) | conv_state ((W-1)*(d_in+2N))]
+  RWKV6:  [wkv_state (H*hs*hs) | att_shift (d) | cm_shift (d)]
 """
 from __future__ import annotations
 
@@ -268,3 +275,272 @@ def split_mamba_state(flat, md, d_state, headdim, conv_width):
     ssm = flat[:, :n_ssm].view(b, hl, headdim, d_state)
     conv = flat[:, n_ssm:].reshape(b, conv_width - 1, dil + 2 * d_state)
     return ssm, conv.to(torch.bfloat16)
+
+
+# ====================================================================== RWKV6
+RWKV_CHUNK = 64
+
+
+def rwkv6_dims(d_model: int, head_size: int, tp: int = 1):
+    heads = d_model // head_size
+    heads_pad = -(-heads // tp) * tp
+    h_local = heads_pad // tp
+    d_att_local = h_local * head_size
+    wkv_units = h_local * head_size * head_size
+    shift_units = 2 * d_model   # att shift + channel-mix shift
+    return dict(heads=heads, heads_pad=heads_pad, h_local=h_local,
+                d_att_local=d_att_local, wkv_units=wkv_units,
+                shift_units=shift_units)
+
+
+def _rwkv_mix(x, x_prev, mu):
+    """Token-shift lerp in bf16. x, x_prev: (B, T, d); mu: (d,)."""
+    return x + (x_prev - x) * mu.to(x.dtype)
+
+
+def _rwkv_proj(p, x, x_prev, rd, head_size: int):
+    """Time-mix projections: r, k, v, g (B, T, H, hs) bf16 and the
+    data-dependent log decay logw = -exp(ww) (B, T, H, hs) fp32 <= 0, ww
+    from the LoRA (tanh of the bf16 down-projection, an fp32 product with
+    ``w_lora_b``, plus ``w_base``)."""
+    b, t, _ = x.shape
+    hl = rd["h_local"]
+
+    def proj(name):
+        return dense(_rwkv_mix(x, x_prev, p["mu_" + name]),
+                     p["w_" + name]).reshape(b, t, hl, head_size)
+
+    r, k, v, g = proj("r"), proj("k"), proj("v"), proj("g")
+    xw = _rwkv_mix(x, x_prev, p["mu_w"])
+    ww = torch.tanh(dense(xw, p["w_lora_a"]).float())
+    ww = torch.matmul(ww, p["w_lora_b"].float())
+    ww = ww + p["w_base"].float()
+    logw = -torch.exp(ww).reshape(b, t, hl, head_size)
+    return r, k, v, g, logw
+
+
+def _packed_shift(xf, shift0, seg_ids, seg_start):
+    """Token shift over a packed stream: x_prev[t] = x[t-1] inside the
+    token's segment, the segment's carried shift state at its first token.
+    xf: (TT, d); shift0: (S, 1, d). Returns (1, TT, d)."""
+    tt = xf.shape[0]
+    idx = torch.arange(tt, device=xf.device)
+    prev = xf[(idx - 1).clamp(min=0)]
+    carry = shift0[seg_ids.clamp(min=0).long(), 0].to(xf.dtype)
+    return torch.where((idx - 1 >= seg_start)[:, None], prev, carry)[None]
+
+
+def _decay(Lprev, L, mask):
+    """exp(min(Lprev_t - L_s, 0)) where ``mask`` (t, s) holds, else 0:
+    (..., t, s, H, hs) from (..., L, H, hs) cumulative log decays."""
+    diff = Lprev.unsqueeze(-3) - L.unsqueeze(-4)
+    diff = torch.where(mask[..., None, None], diff,
+                       torch.full((), float("-inf"), device=diff.device))
+    return torch.exp(torch.clamp(diff, max=0.0))
+
+
+def _pad_chunks(a, chunk, dim):
+    """``a`` zero-padded along ``dim`` to a multiple of ``chunk``."""
+    pad = -a.shape[dim] % chunk
+    if not pad:
+        return a
+    shape = list(a.shape)
+    shape[dim] = pad
+    return torch.cat([a, a.new_zeros(shape)], dim)
+
+
+def rwkv6_chunked(p, x, rd: dict, *, head_size: int, chunk: int = RWKV_CHUNK,
+                  norm_eps=1e-5, init_state=None, length_mask=None,
+                  last_idx=None):
+    """RWKV6 time mix + channel mix over (B, T) rows (padded serving).
+    Returns (x + out, final state (B, U) fp32). Pad tokens (``length_mask``
+    False) get k = 0 and logw = 0, so the wkv state is the state after each
+    row's last real token; the shift carries are taken at ``last_idx``.
+    Outputs at pad slots are garbage."""
+    b, t, d = x.shape
+    hl = rd["h_local"]
+    if init_state is not None:
+        s0, att_shift, cm_shift = split_rwkv_state(init_state, rd,
+                                                   head_size, d)
+    else:
+        s0 = x.new_zeros((b, hl, head_size, head_size), dtype=torch.float32)
+        att_shift = cm_shift = x.new_zeros((b, 1, d))
+
+    xn = rms_norm(x, p["ln1"], norm_eps)
+    x_prev = torch.cat([att_shift, xn[:, :-1]], 1)
+    r, k, v, g, logw = _rwkv_proj(p, xn, x_prev, rd, head_size)
+    if length_mask is not None:
+        valid = length_mask[:, :, None, None]
+        k = torch.where(valid, k, torch.zeros((), dtype=k.dtype,
+                                              device=k.device))
+        logw = torch.where(valid, logw, torch.zeros((), device=x.device))
+    u = p["u"].float()                                         # (H, hs)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device), diagonal=-1)
+    parts = [_pad_chunks(a.float(), chunk, 1).split(chunk, 1)
+             for a in (r, k, v, logw)]
+    S, ys = s0, []
+    for rk, kk, vk, lw in zip(*parts):                         # (B,L,H,hs)
+        L = torch.cumsum(lw, 1)
+        Lprev = L - lw
+        dec = _decay(Lprev, L, tri)                            # (B,t,s,H,hs)
+        score = torch.einsum("bthc,btshc,bshc->bhts", rk, dec, kk)
+        diag = torch.einsum("bthc,hc,bthc->bth", rk, u, kk)
+        y = torch.einsum("bhts,bshc->bthc", score, vk)
+        y = y + diag[..., None] * vk
+        rdec = rk * torch.exp(Lprev)
+        y = y + torch.einsum("bthk,bhkv->bthv", rdec, S)
+        kdec = kk * torch.exp(L[:, -1][:, None] - L)
+        S = S * torch.exp(L[:, -1])[..., None] + \
+            torch.einsum("bshk,bshv->bhkv", kdec, vk)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :t]
+    x = x + _rwkv_out(p, y, g, b, t, norm_eps)
+
+    xc = rms_norm(x, p["ln2"], norm_eps)
+    xc_prev = torch.cat([cm_shift, xc[:, :-1]], 1)
+    x = x + _channel_mix(p, xc, xc_prev)
+    if last_idx is None:
+        att_out, cm_out = xn[:, -1:], xc[:, -1:]
+    else:
+        rows = torch.arange(b, device=x.device)
+        li = last_idx.long()
+        att_out, cm_out = xn[rows, li][:, None], xc[rows, li][:, None]
+    return x, flatten_rwkv_state(S, att_out, cm_out)
+
+
+def rwkv6_packed(p, x, rd: dict, *, head_size: int, seg_ids, seg_start,
+                 seg_last, init_state, chunk: int = RWKV_CHUNK,
+                 norm_eps=1e-5):
+    """RWKV6 over a PACKED stream (the layout of ``mamba2_packed``): the
+    chunked wkv scan carries one state per SEGMENT, with segment-equality
+    masks on the intra-chunk scores and each token's state read decayed
+    from its segment's first in-chunk token (``base``); token shifts read
+    each segment's carried shift at its first stream slot. Returns
+    (x + out (1, TT, d), final states (S, U) fp32). One departure from the
+    reference: the state update's decay exponent is clamped at 0, which
+    keeps pads that follow more than 88 nats of in-chunk decay from
+    turning the states to NaN (see the note in the loop)."""
+    _, t, d = x.shape
+    nseg = init_state.shape[0]
+    hl = rd["h_local"]
+    dev = x.device
+    s0, att_shift, cm_shift = split_rwkv_state(init_state, rd, head_size, d)
+    valid = seg_ids >= 0
+
+    xn = rms_norm(x, p["ln1"], norm_eps)
+    x_prev = _packed_shift(xn[0], att_shift, seg_ids, seg_start)
+    r, k, v, g, logw = _rwkv_proj(p, xn, x_prev, rd, head_size)
+    vmask = valid[None, :, None, None]
+    k = torch.where(vmask, k, torch.zeros((), dtype=k.dtype, device=dev))
+    logw = torch.where(vmask, logw, torch.zeros((), device=dev))
+    u = p["u"].float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev), diagonal=-1)
+    parts = [_pad_chunks(a[0].float(), chunk, 0).split(chunk, 0)
+             for a in (r, k, v, logw)]
+    segs = torch.cat([seg_ids, seg_ids.new_full((-t % chunk,), -1)]).split(
+        chunk)
+    ar = torch.arange(nseg, device=dev)
+    inf = torch.full((), float("inf"), device=dev)
+    S_seg, ys = s0, []
+    for rk, kk, vk, lw, sk in zip(*parts, segs):               # (L,H,hs)
+        oneh = (sk[:, None] == ar[None]).float()               # (L,S)
+        on = (oneh > 0)[..., None, None]
+        skc = sk.clamp(min=0).long()
+        L = torch.cumsum(lw, 0)
+        Lprev = L - lw
+        same = (sk[:, None] == sk[None, :]) & (sk >= 0)[:, None]
+        dec = _decay(Lprev, L, tri & same)                     # (t,s,H,hs)
+        score = torch.einsum("thc,tshc,shc->hts", rk, dec, kk)
+        diag = torch.einsum("thc,hc,thc->th", rk, u, kk)
+        y = torch.einsum("hts,shc->thc", score, vk)
+        y = y + diag[..., None] * vk
+        base = torch.where(on, Lprev[:, None], -inf).amax(0)   # (S,H,hs)
+        base = torch.where(torch.isfinite(base), base, 0.0)
+        rdec = rk * torch.exp(Lprev - base[skc])
+        y = y + torch.einsum("thk,thkv->thv", rdec, S_seg[skc])
+        seg_sum = torch.einsum("ls,lhc->shc", oneh, lw)
+        segend = torch.where(on, L[:, None], inf).amin(0)
+        segend = torch.where(torch.isfinite(segend), segend, 0.0)
+        # segend[s] <= L at every token of segment s, so the clamp changes
+        # no real token's factor; a pad (k = 0) reads segend of segment 0
+        # (or 0 when segment 0 is not in the chunk), and past 88 nats of
+        # in-chunk decay the reference's exp overflows there and 0 * inf
+        # turns every segment's state to NaN
+        kdec = kk * torch.exp(torch.clamp(segend[skc] - L, max=0.0))
+        S_add = torch.einsum("ls,lhk,lhv->shkv", oneh, kdec, vk)
+        S_seg = S_seg * torch.exp(seg_sum)[..., None] + S_add
+        ys.append(y)
+    y = torch.cat(ys, 0)[:t][None]
+    x = x + _rwkv_out(p, y, g, 1, t, norm_eps)
+
+    xc = rms_norm(x, p["ln2"], norm_eps)
+    xc_prev = _packed_shift(xc[0], cm_shift, seg_ids, seg_start)
+    x = x + _channel_mix(p, xc, xc_prev)
+    last = seg_last.long().clamp(0, t - 1)
+    return x, flatten_rwkv_state(S_seg, xn[0][last][:, None],
+                                 xc[0][last][:, None])
+
+
+def rwkv6_step(p, x, state_flat, rd: dict, *, head_size: int,
+               norm_eps=1e-5):
+    """Single-token decode (padded T == 1). x: (B, 1, d). Returns
+    (x + out, new state (B, U) fp32)."""
+    b, _, d = x.shape
+    hl = rd["h_local"]
+    S, att_shift, cm_shift = split_rwkv_state(state_flat, rd, head_size, d)
+    xn = rms_norm(x, p["ln1"], norm_eps)
+    r, k, v, g, logw = _rwkv_proj(p, xn, att_shift, rd, head_size)
+    rk, kk, vk = (a[:, 0].float() for a in (r, k, v))
+    w = torch.exp(logw[:, 0])                                  # (B,H,hs)
+    u = p["u"].float()
+    kv = torch.einsum("bhk,bhv->bhkv", kk, vk)
+    wkv = S + u[None, :, :, None] * kv
+    y = torch.einsum("bhk,bhkv->bhv", rk, wkv)[:, None]
+    S = S * w[..., None] + kv
+    x = x + _rwkv_out(p, y.reshape(b, 1, hl, head_size), g, b, 1, norm_eps)
+    xc = rms_norm(x, p["ln2"], norm_eps)
+    x = x + _channel_mix(p, xc, cm_shift)
+    return x, flatten_rwkv_state(S, xn[:, -1:], xc[:, -1:])
+
+
+def _rwkv_out(p, y, g, b, t, norm_eps):
+    """The wkv output (fp32 (B, T, H, hs)) rounded to bf16, its per-layer
+    RMSNorm, the SiLU(g) gate and the output projection."""
+    y = y.reshape(b, t, -1).to(torch.bfloat16)
+    y = rms_norm(y, p["ln_x"], norm_eps)
+    y = y * F.silu(g.reshape(b, t, -1).float()).to(y.dtype)
+    return dense(y, p["w_o"])
+
+
+def _channel_mix(p, xc, xc_prev):
+    """RWKV channel mix: relu(k)^2 through ``cm_wv``, gated by
+    sigmoid(r) in fp32 (one device: the reference's all_gather over the
+    output-column shards is the identity)."""
+    xk = _rwkv_mix(xc, xc_prev, p["cm_mu_k"])
+    xr = _rwkv_mix(xc, xc_prev, p["cm_mu_r"])
+    k = dense(xk, p["cm_wk"])
+    k = torch.square(F.relu(k.float())).to(xc.dtype)
+    vloc = dense(k, p["cm_wv"])
+    rloc = torch.sigmoid(dense(xr, p["cm_wr"]).float())
+    return (vloc.float() * rloc).to(xc.dtype)
+
+
+def flatten_rwkv_state(S, att_shift, cm_shift):
+    """(B, H, hs, hs) fp32 wkv state and (B, 1, d) shifts -> (B, U) fp32."""
+    b = S.shape[0]
+    return torch.cat([S.float().reshape(b, -1),
+                      att_shift.float().reshape(b, -1),
+                      cm_shift.float().reshape(b, -1)], dim=-1)
+
+
+def split_rwkv_state(flat, rd, head_size, d):
+    """(B, U) fp32 -> (wkv (B, H, hs, hs) fp32, att shift (B, 1, d) bf16,
+    cm shift (B, 1, d) bf16)."""
+    b = flat.shape[0]
+    n = rd["wkv_units"]
+    S = flat[:, :n].reshape(b, rd["h_local"], head_size, head_size)
+    att = flat[:, n:n + d].reshape(b, 1, d).to(torch.bfloat16)
+    cm = flat[:, n + d:n + 2 * d].reshape(b, 1, d).to(torch.bfloat16)
+    return S.float(), att, cm

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms and the bf16 linear, with the reference's
-rounding points (``repro/models/common.py``)."""
+"""Shared building blocks: norms (RMS and layer) and the bf16 linear, with
+the reference's rounding points (``repro/models/common.py``)."""
 from __future__ import annotations
 
 import torch
@@ -33,6 +33,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * _as(weight, torch.float32)).to(
+        x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm as the reference computes it: mean and (biased) variance
+    in fp32, times rsqrt(var + eps), fp32 weight and bias, cast back to
+    ``x.dtype``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps)
+    return (y * _as(weight, torch.float32) + _as(bias, torch.float32)).to(
         x.dtype)
 
 

@@ -1,0 +1,325 @@
+"""Whisper-style encoder-decoder backbone (``repro/models/encdec.py``), the
+audio family, serving on one device.
+
+The conv frontend is a stub, as in the reference: the runner supplies
+precomputed frame embeddings (rows, encoder_seq, d). The transformer is
+real: LayerNorm, GELU (tanh) MLP and MHA, sinusoidal encoder positions,
+learned decoder positions (no RoPE), causal decoder self-attention over
+"full_attn" pages and cross attention over "cross_attn" pages, which the
+encoder writes once at a request's first chunk and every later step only
+reads (the Llama-3.2-Vision pattern of Jenga §3.2).
+
+Kernels: the encoder's self attention runs through the dense flash forward
+kernel (non-causal over every frame; the reference attends zero-filled
+frames too, and zero pad keys up to a multiple of 512, ``ENC_KV_BLOCK``;
+``enc_lens`` masks only the cross attention). Packed steps run
+both decoder attentions through the varlen kernel (self: old pages ++ the
+fresh chunk; cross: the cross slots with ``q_pos := enc_lens - 1``).
+Padded T == 1 self attention reads its pages in place through the paged
+decode kernel, padded T > 1 self attention and padded cross attention run
+in plain torch (the reference's jnp routes; no TPU kernel stands behind
+padded cross attention).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..core.spec import KVCacheSpec, attention_spec, cross_attention_spec
+from ..kernels.flash_attention import dense_flash_fwd
+from . import attention as A
+from . import blocks_attn as BA
+from .common import dense, layer_norm, set_matmul_precision
+from .lm import DecodeBatch, DecoderLM, draw_normal, unstack
+from .params import MATRICES
+from .rotary import sinusoidal_positions
+from .tp import embed_lookup
+
+MAX_DEC_POS = 32768 + 8
+# The reference's encoder attention (``flash_attention_partials``, block
+# 512) pads K/V with zeros to a multiple of its block and, non-causal with
+# no ``kv_len``, leaves those slots unmasked: each softmax row also weighs
+# -t % 512 zero keys (score 0, value 0). The port gives the kernel the
+# same zero-padded K/V, so it computes the same function.
+ENC_KV_BLOCK = 512
+
+
+def _mlp(p, x, eps):
+    """LayerNorm, the GELU MLP (``jax.nn.gelu``'s tanh form, in fp32) and
+    the residual, with the bias added in bf16 after it as the reference
+    does."""
+    xn = layer_norm(x, p["ln_w"], p["ln_b"], eps)
+    h = dense(xn, p["w1"], p["b1"])
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    y = dense(h, p["w2"])
+    return x + y + p["b2"].to(y.dtype)
+
+
+def _heads(a, hd):
+    """(B, T, heads*hd) -> the dense kernel's (B*heads, T, hd), contiguous."""
+    b, t, _ = a.shape
+    return a.view(b, t, -1, hd).transpose(1, 2).contiguous().view(-1, t, hd)
+
+
+class EncDecLM(DecoderLM):
+    """The encdec family. Parameters mirror the reference tree with the tp
+    dim dropped: ``embed`` (tied), ``dec_pos``, ``enc`` ({``attn``,
+    ``mlp``} stacks of ``encoder_layers``), ``enc_ln_post_w/_b``,
+    ``dec_self``, ``dec_cross``, ``dec_mlp`` (stacks of ``num_layers``)
+    and ``final_ln_w/_b``."""
+
+    def __init__(self, cfg: ModelConfig):
+        cfg.validate()
+        if cfg.family != "encdec":
+            raise ValueError(f"family {cfg.family!r} is not encdec")
+        set_matmul_precision()
+        self.cfg = cfg
+        self.is_moe = False
+        self.kv_local = cfg.num_kv_heads
+        self.v_pad = cfg.vocab_size
+        self.max_dec_pos = MAX_DEC_POS
+
+    # ----------------------------------------------------------- kv specs
+    def kv_specs(self) -> Tuple[KVCacheSpec, ...]:
+        cfg = self.cfg
+        kw = dict(num_layers=cfg.num_layers, kv_heads=self.kv_local,
+                  head_dim=cfg.head_dim, tokens_per_page=cfg.tokens_per_page)
+        return (attention_spec("full_attn", **kw),
+                cross_attention_spec("cross_attn", **kw))
+
+    def page_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        cfg = self.cfg
+        shp = (2, cfg.tokens_per_page, self.kv_local, cfg.head_dim)
+        return {"full_attn": shp, "cross_attn": shp}
+
+    # --------------------------------------------------------------- init
+    def _attn_shapes(self, n):
+        cfg = self.cfg
+        d, qd = cfg.d_model, cfg.num_heads * cfg.head_dim
+        kvd = self.kv_local * cfg.head_dim
+        return {"ln_w": (n, d), "ln_b": (n, d), "q": (n, d, qd),
+                "q_bias": (n, qd), "o": (n, qd, d), "o_bias": (n, d),
+                "k": (n, d, kvd), "v": (n, d, kvd), "v_bias": (n, kvd)}
+
+    def _mlp_shapes(self, n):
+        d, ff = self.cfg.d_model, self.cfg.d_ff
+        return {"ln_w": (n, d), "ln_b": (n, d), "w1": (n, d, ff),
+                "b1": (n, ff), "w2": (n, ff, d), "b2": (n, d)}
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template with the tp dim dropped."""
+        cfg = self.cfg
+        d, le, ld = cfg.d_model, cfg.encoder_layers, cfg.num_layers
+        return {
+            "embed": (self.v_pad, d), "dec_pos": (self.max_dec_pos, d),
+            "enc": {"attn": self._attn_shapes(le),
+                    "mlp": self._mlp_shapes(le)},
+            "enc_ln_post_w": (d,), "enc_ln_post_b": (d,),
+            "dec_self": self._attn_shapes(ld),
+            "dec_cross": self._attn_shapes(ld),
+            "dec_mlp": self._mlp_shapes(ld),
+            "final_ln_w": (d,), "final_ln_b": (d,),
+        }
+
+    def init(self, seed: int = 0, device="cuda",
+             master: bool = False) -> Dict[str, Any]:
+        """Random weights from ``seed`` with the reference template's
+        shapes and scales (normal 0.02; ``dec_pos`` 0.01; ``w2``
+        0.02/sqrt(2L); layer-norm weights ones, biases zeros), drawn by a
+        ``torch.Generator`` on ``device``. Matrices (and ``dec_pos``) are
+        bf16, every other leaf fp32. The draws differ from the reference's
+        ``jax.random`` ones."""
+        if master:
+            raise NotImplementedError("enc-dec training is not ported")
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out_scale = 0.02 / (2 * self.cfg.num_layers) ** 0.5
+
+        def leaf(name, shape):
+            if name.endswith("_w") and "ln" in name:
+                return torch.ones(shape, dtype=torch.float32, device=dev)
+            if name.endswith(("_b", "bias")) or name in ("b1", "b2"):
+                return torch.zeros(shape, dtype=torch.float32, device=dev)
+            scale = {"w2": out_scale, "dec_pos": 0.01}.get(name, 0.02)
+            return draw_normal(shape, scale, torch.bfloat16
+                               if name in MATRICES else torch.float32, gen)
+
+        def tree(shapes):
+            return {n: (tree(s) if isinstance(s, dict) else leaf(n, s))
+                    for n, s in shapes.items()}
+
+        return tree(self.param_shapes())
+
+    def train_loss(self, params, tokens, targets, **_):
+        raise NotImplementedError("enc-dec training is not ported")
+
+    # ------------------------------------------------------------- encoder
+    def _mha(self, p, x, eps):
+        """The encoder's self attention: LayerNorm, biased q and v (k has no
+        bias), one non-causal dense flash forward over all frames of every
+        row and the reference's zero pad keys (``ENC_KV_BLOCK``), the o
+        projection and its bias, the residual."""
+        hd = self.cfg.head_dim
+        b, t, _ = x.shape
+        xn = layer_norm(x, p["ln_w"], p["ln_b"], eps)
+        q = _heads(dense(xn, p["q"], p["q_bias"]), hd)
+        k = _heads(dense(xn, p["k"]), hd)
+        v = _heads(dense(xn, p["v"], p["v_bias"]), hd)
+        pad = -t % ENC_KV_BLOCK
+        if pad:
+            k, v = (F.pad(a, (0, 0, 0, pad)) for a in (k, v))
+        out, _ = dense_flash_fwd(q, k, v, causal=False)
+        out = out.view(b, -1, t, hd).transpose(1, 2).reshape(b, t, -1)
+        y = dense(out, p["o"])
+        return x + y + p["o_bias"].to(y.dtype)
+
+    def _encode(self, params, enc_embeds):
+        """Stub frame embeddings (rows, S, d) -> encoder output (rows, S, d)
+        bf16: sinusoidal positions, the encoder layers, the post
+        LayerNorm."""
+        eps = self.cfg.norm_eps
+        x = enc_embeds.to(torch.bfloat16)
+        s, d = x.shape[1:]
+        x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
+        enc = params["enc"]
+        for pa, pm in zip(unstack(enc["attn"]), unstack(enc["mlp"])):
+            x = self._mha(pa, x, eps)
+            x = _mlp(pm, x, eps)
+        return layer_norm(x, params["enc_ln_post_w"],
+                          params["enc_ln_post_b"], eps)
+
+    def _write_cross(self, params, buffer, cview, batch):
+        """Run the encoder and write every decoder layer's cross K/V (k
+        unbiased, v with ``v_bias``) to slot ``j % tpp`` of the page of
+        encoder position j; eids < 0 go to the scratch page."""
+        hd = self.cfg.head_dim
+        enc_out = self._encode(params, batch.enc_embeds)
+        b, s, _ = enc_out.shape
+        slots = (torch.arange(s, device=enc_out.device) % cview[3]).expand(
+            b, s)
+        rows = A.kv_rows(cview, batch.enc_write_eids.reshape(b, s), slots)
+        for layer, pc in enumerate(unstack(params["dec_cross"])):
+            k = dense(enc_out, pc["k"]).view(b, s, self.kv_local, hd)
+            v = dense(enc_out, pc["v"], pc["v_bias"]).view(
+                b, s, self.kv_local, hd)
+            A.write_kv_rows(buffer, cview, layer, rows, k, v)
+
+    # --------------------------------------------------------------- serve
+    def _rope(self, batch: DecodeBatch):
+        return None                     # learned positions, no RoPE
+
+    def _final_norm(self, params, x):
+        return layer_norm(x, params["final_ln_w"], params["final_ln_b"],
+                          self.cfg.norm_eps)
+
+    def _cross_invariants(self, batch: DecodeBatch, cview):
+        """What every layer shares of the cross attention: the tables and
+        their page index and, packed, the varlen call's metadata over the
+        cross slots (``packed_cross_meta``) or, padded, the mask ``slot <
+        enc_lens`` of each row."""
+        packed = batch.seg_ids is not None
+        b = 1 if packed else batch.tokens.shape[0]
+        tables = batch.tables["cross_attn"].reshape(b, -1)
+        st = dict(tables=tables, index=A.page_index(tables))
+        if packed:
+            slot_pos, slot_seg = BA.page_slots(
+                batch.page_pos["cross_attn"].reshape(1, -1),
+                batch.page_seg["cross_attn"].reshape(1, -1), cview[3])
+            st["meta"] = BA.packed_cross_meta(slot_pos, slot_seg,
+                                              batch.seg_ids, batch.enc_lens)
+        else:
+            sc = tables.shape[1] * cview[3]
+            st["mask"] = (torch.arange(sc, device=tables.device)[None]
+                          < batch.enc_lens[:, None])[:, None, :]
+        return st
+
+    def _qkv(self, p, xn, with_kv=True):
+        cfg = self.cfg
+        b, t, _ = xn.shape
+        hd = cfg.head_dim
+        q = A.group_q(dense(xn, p["q"], p["q_bias"]).view(b, t, -1, hd),
+                      self.kv_local)
+        if not with_kv:
+            return q
+        k = dense(xn, p["k"]).view(b, t, self.kv_local, hd)
+        v = dense(xn, p["v"], p["v_bias"]).view(b, t, self.kv_local, hd)
+        return q, k, v
+
+    def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,
+                   prefill: Optional[bool] = None) -> torch.Tensor:
+        """One serving step in the reference ``_serve_body``'s order: at a
+        prefill step that carries frame embeddings, the encoder runs and
+        every layer's cross K/V is written; then per decoder layer, its
+        self and cross pages are read before any write, causal self
+        attention, cross attention, the MLP, and last the layer's self K/V
+        write (padded T == 1: written first and read in place by the paged
+        decode kernel, which only this layer's read sees). Writes into
+        ``buffer`` IN PLACE and returns fp32 logits, one row per segment
+        (packed) or per batch row (padded)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        packed = batch.seg_ids is not None
+        positions = batch.positions
+        if prefill is None:
+            prefill = packed or positions.shape[1] > 1
+        views = self._layer_views(buffer)
+        sview, cview = views["full_attn"], views["cross_attn"]
+        if prefill and batch.enc_embeds is not None:
+            self._write_cross(params, buffer, cview, batch)
+        b, t = positions.shape
+        x = embed_lookup(batch.tokens, params["embed"])
+        pos = positions.clamp(0, self.max_dec_pos - 1).long()
+        x = x + params["dec_pos"][pos].to(x.dtype)
+        if packed:
+            _, step = self._packed_invariants(batch, views)
+        else:
+            _, step = self._padded_invariants(batch, views, prefill)
+        st = step["full_attn"]
+        ct = self._cross_invariants(batch, cview)
+        qpos = positions[:, 0].contiguous()
+        layers = zip(unstack(params["dec_self"]),
+                     unstack(params["dec_cross"]),
+                     unstack(params["dec_mlp"]))
+        for layer, (ps, pc, pm) in enumerate(layers):
+            if prefill:
+                k_old, v_old = BA.attn_gather(buffer, sview, st["tables"],
+                                              layer, st["index"])
+            kc, vc = BA.attn_gather(buffer, cview, ct["tables"], layer,
+                                    ct["index"])
+            xn = layer_norm(x, ps["ln_w"], ps["ln_b"], eps)
+            q, k, v = self._qkv(ps, xn)
+            if packed:
+                out = BA.packed_kernel_attention(q, k_old, v_old, k, v,
+                                                 st["meta"])
+                out = out.reshape(b, t, -1)
+            elif prefill:
+                out = BA.padded_prefill_attention(q, k, v, k_old, v_old,
+                                                  st["meta"])
+            else:
+                out = BA.decode_attention(
+                    q, k, v, buffer, sview, layer, rows=st["rows"],
+                    tables=st["tables"], page_pos=st["page_pos"], qpos=qpos,
+                    plan=st["plan"])
+            y = dense(out, ps["o"])
+            x = x + y + ps["o_bias"].to(y.dtype)
+            xn = layer_norm(x, pc["ln_w"], pc["ln_b"], eps)
+            qc = self._qkv(pc, xn, with_kv=False)
+            if packed:
+                out = BA.packed_cross_attention(qc, kc, vc, ct["meta"])
+                out = out.reshape(b, t, -1)
+            else:
+                # the reference's padded route has no zero guard: a row
+                # with enc_lens 0 averages every slot it gathered
+                o, _, l = A.attend_tokens(qc, kc, vc, ct["mask"])
+                out = A.finalize_softmax(o, l).reshape(b, t, -1).to(x.dtype)
+            y = dense(out, pc["o"])
+            x = x + y + pc["o_bias"].to(y.dtype)
+            x = _mlp(pm, x, eps)
+            if prefill:
+                A.write_kv_rows(buffer, sview, layer, st["rows"], k, v)
+        return self._head(params, x, batch)

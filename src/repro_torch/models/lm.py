@@ -57,6 +57,24 @@ class DecodeBatch:
     page_seg: Any = None         # type -> (1, 1, 1, P) i32 owning segment
 
 
+def draw_normal(shape, scale: float, dtype, gen) -> torch.Tensor:
+    """A ``dtype`` tensor of normal draws times ``scale`` from ``gen``, on
+    its device, drawn in fp32 in slices of its first axis (or of its
+    second, when one slice of the first is larger) of at most DRAW_CHUNK
+    values, so the fp32 draw of a bf16 leaf never needs the whole leaf in
+    fp32."""
+    w = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = w if math.prod(shape[1:]) <= DRAW_CHUNK else \
+        w.view(-1, *shape[2:])
+    rows = max(1, DRAW_CHUNK // math.prod(flat.shape[1:]))
+    for i in range(0, flat.shape[0], rows):
+        part = torch.randn((min(rows, flat.shape[0] - i), *flat.shape[1:]),
+                           generator=gen, dtype=torch.float32,
+                           device=gen.device)
+        flat[i:i + rows] = part.mul_(scale)
+    return w
+
+
 def unstack(tree: Dict[str, torch.Tensor]):
     """Per-layer views of a dict of (L, ...) stacked parameters."""
     names = list(tree)
@@ -185,17 +203,8 @@ class DecoderLM:
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
             scale = out_scale if name in ("o", "down", "moe_down") else 0.02
             bf16 = not master and name in MATRICES
-            w = torch.empty(shape, dtype=torch.bfloat16 if bf16 else
-                            torch.float32, device=dev)
-            flat = w if math.prod(shape[1:]) <= DRAW_CHUNK else \
-                w.view(-1, *shape[2:])
-            rows = max(1, DRAW_CHUNK // math.prod(flat.shape[1:]))
-            for i in range(0, flat.shape[0], rows):
-                part = torch.randn((min(rows, flat.shape[0] - i),
-                                    *flat.shape[1:]), generator=gen,
-                                   dtype=torch.float32, device=dev)
-                flat[i:i + rows] = part.mul_(scale)
-            return w
+            return draw_normal(shape, scale, torch.bfloat16 if bf16 else
+                               torch.float32, gen)
 
         shapes = self.param_shapes()
         params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}
@@ -423,7 +432,7 @@ class DecoderLM:
         row per segment (packed: its last token in the stream) or per
         batch row (padded: its last real token, or its last slot when the
         batch has no ``last_idx``)."""
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = self._final_norm(params, x)
         if batch.seg_ids is not None:
             x = x[0].index_select(0, batch.seg_last_tok.long())
         elif batch.last_idx is not None:
@@ -433,6 +442,9 @@ class DecoderLM:
             x = x[:, -1]
         logits = logits_local(x, self._unembed(params))
         return mask_pad_vocab(logits, self.cfg.vocab_size)
+
+    def _final_norm(self, params, x):
+        return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def _serve_padded(self, params, buffer: torch.Tensor, batch: DecodeBatch,
                       prefill: Optional[bool]) -> torch.Tensor:

@@ -24,7 +24,9 @@ _TP_AXIS = {"embed": 0, "unembed": 0, "q": 1, "k": 1, "v": 1, "o": 1,
             "v_bias": 1}
 MATRICES = frozenset({"embed", "unembed", "q", "k", "v", "o", "gate", "up",
                       "down", "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out",
-                      "moe_gate", "moe_up", "moe_down"})
+                      "moe_gate", "moe_up", "moe_down", "w_r", "w_k", "w_v",
+                      "w_g", "w_o", "w_lora_a", "cm_wk", "cm_wv", "cm_wr",
+                      "w1", "w2", "dec_pos"})
 # hybrid subtrees: stacked Mamba2 leaves carry tp at axis 1 (their "norm"
 # has none); the shared attention block's matrices at axis 0
 _HYBRID_TP_AXIS = {
@@ -33,6 +35,12 @@ _HYBRID_TP_AXIS = {
     "shared_attn": {n: 0 for n in ("q", "k", "v", "o", "gate", "up",
                                    "down")},
 }
+# ssm (RWKV6) layer stacks and enc-dec attention / MLP stacks: tp at axis 1
+_SSM_TP_AXIS = {n: 1 for n in ("ln_x", "w_r", "w_k", "w_v", "w_g", "w_o",
+                               "w_lora_a", "w_lora_b", "w_base", "u",
+                               "cm_wk", "cm_wv", "cm_wr")}
+_ENCDEC_TP_AXIS = {n: 1 for n in ("q", "k", "v", "o", "q_bias", "v_bias",
+                                  "w1", "b1", "w2")}
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -75,11 +83,13 @@ def _leaf(name: str, a, device, master: bool, axes=None) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
     """Convert the reference's param tree (leaves as numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) of a dense, moe, vlm or hybrid
-    ``cfg``. With ``master`` every leaf stays fp32 (training's masters);
-    otherwise matrices become bf16 (serving). The hybrid's ``conv_w`` and
-    the MoE ``router`` stay fp32: the reference multiplies by them in
-    fp32 (a bf16 router of a bf16-param model is widened exactly)."""
+    ``jax.tree.map(np.asarray, params)``) of any family's ``cfg``. With
+    ``master`` every leaf stays fp32 (training's masters); otherwise
+    matrices (and the enc-dec ``dec_pos`` table, which the reference
+    rounds to bf16 before use) become bf16 (serving). The hybrid's
+    ``conv_w``, the MoE ``router`` and RWKV6's ``w_lora_b`` stay fp32:
+    the reference multiplies by them in fp32 (a bf16 router of a
+    bf16-param model is widened exactly)."""
     if cfg.family == "hybrid":
         out = {}
         for name, a in tree.items():
@@ -91,11 +101,17 @@ def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
             else:
                 out[name] = _leaf(name, a, device, master)
         return out
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: dense, moe, vlm and hybrid only")
+    if cfg.family == "encdec":
+        def conv(name, a, axes):
+            if isinstance(a, dict):
+                return {n: conv(n, x, _ENCDEC_TP_AXIS) for n, x in a.items()}
+            return _leaf(name, a, device, master, axes)
+        return {name: conv(name, a, None) for name, a in tree.items()}
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+        raise NotImplementedError(f"family {cfg.family!r}")
+    axes = _SSM_TP_AXIS if cfg.family == "ssm" else None
     out = {name: _leaf(name, a, device, master)
            for name, a in tree.items() if name != "layers"}
-    out["layers"] = {name: _leaf(name, a, device, master)
+    out["layers"] = {name: _leaf(name, a, device, master, axes)
                      for name, a in tree["layers"].items()}
     return out

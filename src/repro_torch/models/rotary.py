@@ -67,3 +67,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 1e6) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq) int32."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal encoder positions, fp32 (seq_len,
+    d_model): [sin | cos] of pos / 10000^(2i / d_model)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)

@@ -48,8 +48,9 @@ from repro_torch.kernels.mamba_scan.kernel import check_inputs  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention_plain)
 from repro_torch.kernels.paged_attention import kernel as paged_kernel  # noqa: E402
-from repro_torch.models import (DecoderLM, HybridLM, blocks_attn,  # noqa: E402
-                                build_model, params_from_numpy)
+from repro_torch.models import (RWKVLM, DecoderLM, EncDecLM,  # noqa: E402
+                                HybridLM, blocks_attn, build_model,
+                                params_from_numpy)
 from repro_torch.models import blocks_seq  # noqa: E402
 from repro_torch.models.attention import bf16_pair_to_f32  # noqa: E402
 from repro_torch.models.params import tensor_from_numpy  # noqa: E402
@@ -482,9 +483,19 @@ def test_build_model_and_later_slices():
     model = build_model(cfg)
     assert isinstance(model, HybridLM)
     assert isinstance(build_model(reduced(ARCHS["granite-3-2b"])), DecoderLM)
-    for arch in ("rwkv6-3b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError):
-            build_model(reduced(ARCHS[arch]))
+    # the last two families: their seeded init has the bridged tree's
+    # shapes and dtypes
+    flat = jax.tree_util.tree_flatten_with_path
+    for arch, cls in (("rwkv6-3b", RWKVLM), ("whisper-tiny", EncDecLM)):
+        later = build_model(reduced(ARCHS[arch]))
+        assert isinstance(later, cls)
+        _, lcfg, lparams = get_model(arch)
+        a = flat(later.init(seed=0, device="cpu"))[0]
+        b = flat(params_from_numpy(jax.tree.map(np.asarray, lparams), lcfg,
+                                   "cpu"))[0]
+        assert [k for k, _ in a] == [k for k, _ in b]
+        for (k, x), (_, y) in zip(a, b):
+            assert x.shape == y.shape and x.dtype == y.dtype, (arch, k)
     with pytest.raises(NotImplementedError):
         model.train_loss(None, None, None)
     # the port's seeded init has the bridged tree's shapes and dtypes
