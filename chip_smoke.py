@@ -151,6 +151,31 @@ slots (two text-only, whose rows must be exact zeros) as a mixed and a
 decode stream, the paged phase its G 1 heads and phase 2b its encoder
 (BH 48, T = S = 1500 non-causal, and the serve call's S 1536).
 
+Phase 9, speculative decoding, the data-parallel fleet and budget
+autotuning on full-width granite-3-2b (random bf16 weights from seed 0),
+after the earlier phases' memory is released. Spec legs: k 3 on phase 3's
+first 4 prompts, 32 new tokens each, one request at a time, with draft
+(a) the config cut to 4 layers with its own weights (seed 1; a smaller
+page, mostly rejecting, so rounds roll pages back) and draft (b) the
+target's config and weights under the ``draft_`` prefix (mostly
+accepting, so pre-issued rounds are reused): outputs fork-aware equal to
+the plain greedy engine on the same traffic within twice the noise floor
+(the plain engine against the same requests batched), 0 used units after
+every request, varlen launches == 40 x target dispatches + the draft's
+layers x draft dispatches; accept lengths, ``overlapped_rounds`` and
+``spec_rollback_pages`` printed. Fleet legs (2 GiB a pool; phase 3's 8
+prompts, then 4 that share the first 512 tokens of r1, r0, r1 and r2; 16
+new tokens): (i) a 1-shard fleet bitwise equal to the solo engine; (ii)
+cache-aware against round-robin placement over 2 shards: more prefix-hit
+tokens, outputs fork-aware equal to solo; (iii) roles prefill / decode:
+zero prefill tokens on the decode shard, one handoff a request, every
+adopted page byte-equal to its source page before the source releases
+it; (iv) shard 1 crashed after 4 ticks: every request finished once,
+fork-aware equal to (ii); each leg with one varlen launch a layer of
+every dispatch and 0 used units on every shard. Then one engine packed
+at depth 2 with ``autotune_budgets``: seed budget 288 (the H100's
+roofline), its adjustments printed, fork-aware equal to solo.
+
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
 CUDA device.
@@ -2294,6 +2319,381 @@ def phase_encdec_rwkv():
     return launches
 
 
+# ----------------------------------------------------------------- phase 9
+SPEC_K = 3
+POOL_BYTES = 2 << 30    # each spec engine's, solo engine's and shard's pool
+CRASH_TICK = 4          # fleet leg (iv): shard 1 dies after this many ticks
+
+
+def _sync(device):
+    import torch
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _varlen_launches():
+    from repro_torch.kernels.flash_attention import flash_attention_varlen
+    return flash_attention_varlen.launches
+
+
+def _spec_generate(sd, prompts, new_tokens, vocab):
+    """Generate every prompt, one after the other, through ``sd``; return
+    the outputs and, per request, the target's fp32 logits row behind
+    each output token (the last prefill chunk's for the first token, the
+    verify dispatch's for each accepted one) for the fork-aware check."""
+    import types
+    rounds, first = [], [None]
+    verify, fetch = sd._verify_chain, sd.t_runner.fetch
+
+    def recording_verify(treq, base, k):
+        handles = verify(treq, base, k)
+        rounds.append(handles)
+        return handles
+
+    def recording_fetch(handle, n):
+        out = fetch(handle, n)
+        first[0] = out[0][:vocab]
+        return out
+
+    sd._verify_chain = recording_verify
+    sd.t_runner.fetch = recording_fetch
+    finished, log = [], {}
+    for i, p in enumerate(prompts):
+        rounds.clear()
+        n0 = len(sd.accept_lengths)
+        out = sd.generate(p, new_tokens, rid=f"r{i}")
+        rows = [first[0]]
+        for handles, a in zip(rounds, sd.accept_lengths[n0:]):
+            rows += [h.logits[0, :vocab].float().cpu().numpy()
+                     for h in handles[:a + 1]]
+        finished.append(types.SimpleNamespace(rid=f"r{i}", output=out))
+        log[f"r{i}"] = rows[:len(out)]
+        stats = sd.mgr.memory_stats()
+        if stats.used_units != 0:
+            raise AssertionError(f"spec r{i}: leaked pages: {stats}")
+    return types.SimpleNamespace(finished=finished, sample_log=log)
+
+
+def _plain_one_at_a_time(model, params, base, prompts, new_tokens, device):
+    """The plain greedy ``Engine`` serving the prompts one after the other
+    (the spec engine's traffic); returns the engine and the wall seconds."""
+    from repro_torch.serving import Engine, EngineConfig, Request, \
+        SamplingParams
+    eng = Engine(model, EngineConfig(**base), params=params, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=f"r{i}", prompt=p, sampling=SamplingParams(
+            max_new_tokens=new_tokens)))
+        eng.run_until_done()
+    _sync(device)
+    return eng, time.perf_counter() - t0
+
+
+def _spec_legs(cfg, params, device, tol):
+    """Speculative decoding at k 3 on 4 of phase 3's prompts, 32 new
+    tokens each, one request at a time, against the plain greedy engine
+    of the target with the same chunk size on the same traffic, fork-aware
+    within ``tol`` (twice the noise floor of ``_fleet_legs``). Draft (a):
+    the target's config cut to 4 layers with its own weights (seed 1), a
+    smaller page, mostly rejecting (rollbacks); draft (b): the target's
+    config and weights under the ``draft_`` prefix, mostly accepting
+    (overlapped rounds)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models import build_model
+    from repro_torch.serving import SpecDecodeConfig, SpecDecodeEngine
+
+    prompts = _prompts(8, cfg.vocab_size)[:4]
+    new_tokens, chunk = 32, 256
+    plain_cfg = dict(kv_pool_bytes=POOL_BYTES, max_num_batched_tokens=512,
+                     chunk_size=chunk, max_running=8,
+                     enable_prefix_caching=False, async_scheduling=False,
+                     record_sample_logits=True)
+    plain, plain_s = _plain_one_at_a_time(build_model(cfg), params,
+                                          plain_cfg, prompts, new_tokens,
+                                          device)
+    n_out = sum(len(r.output) for r in plain.finished)
+    plain_tps = n_out / plain_s
+    log(f"[spec] plain greedy engine, one request at a time: "
+        f"{len(plain.finished)} requests, {n_out} tokens in "
+        f"{plain_s:.3f} s, output_tok_per_s={plain_tps:.1f}; fork "
+        f"tolerance {tol:.4f}; card=[{card()}]")
+
+    small = dataclasses.replace(cfg, num_layers=4)
+    draft_a = build_model(small)
+    legs = (("a", small, draft_a, draft_a.init(seed=1, device=device)),
+            ("b", cfg, build_model(cfg), params))
+    launches = 0
+    for name, dcfg, dmodel, dparams in legs:
+        sd = SpecDecodeEngine(build_model(cfg), dmodel, SpecDecodeConfig(
+            k=SPEC_K, kv_pool_bytes=POOL_BYTES, chunk_size=chunk),
+            target_params=params, draft_params=dparams, device=device)
+        pages = {s.name: s.page_units for s in sd.mgr.specs}
+        v0 = _varlen_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        rec = _spec_generate(sd, prompts, new_tokens, cfg.vocab_size)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        varlen = _varlen_launches() - v0
+        want = cfg.num_layers * sd.t_runner.dispatch_count + \
+            dcfg.num_layers * sd.d_runner.dispatch_count
+        if varlen != want:
+            raise AssertionError(f"spec ({name}): {varlen} varlen launches, "
+                                 f"expected {want}")
+        diff = _first_row_diff(plain, rec)
+        if diff > tol:
+            raise AssertionError(f"spec ({name}): first-token logits differ "
+                                 f"from the plain engine by {diff} > {tol}")
+        forks = _fork_aware_equal(plain, rec, f"spec ({name})", tol)
+        acc = sd.accept_lengths
+        n_out = sum(len(r.output) for r in rec.finished)
+        log(f"[spec] draft ({name}): {dcfg.num_layers} layers, pages "
+            f"{pages}; k={SPEC_K}; {len(acc)} rounds, mean accept length "
+            f"{np.mean(acc):.3f}, accept lengths "
+            f"{np.bincount(acc, minlength=SPEC_K + 1).tolist()} (count of "
+            f"0..{SPEC_K}), overlapped_rounds={sd.overlapped_rounds} "
+            f"spec_rollback_pages={sd.spec_rollback_pages}; dispatches "
+            f"target {sd.t_runner.dispatch_count} draft "
+            f"{sd.d_runner.dispatch_count}, varlen launches {varlen} "
+            f"(expected {want}); {n_out} tokens in {wall:.3f} s, "
+            f"output_tok_per_s={n_out / wall:.1f} "
+            f"({n_out / wall / plain_tps:.3f}x the plain engine); forks vs plain {forks}, first-token diff "
+            f"{diff:.4f}; 0 used units; card=[{card()}]")
+        if name == "a" and not sd.spec_rollback_pages:
+            raise AssertionError("spec (a): no round rolled back")
+        if name == "b" and not sd.overlapped_rounds:
+            raise AssertionError("spec (b): no overlapped round")
+        launches += varlen
+        del sd, rec
+        gc.collect()
+    return launches
+
+
+def _fleet_workload(vocab):
+    """Phase 3's 8 prompts (wave 1) and 4 that share the first 512 tokens
+    of r1, r0, r1 and r2 (wave 2), so that round-robin sends each sharer
+    to the shard that does not hold its prefix."""
+    prompts = _prompts(8, vocab)
+    rng = np.random.default_rng(9)
+    wave2 = [prompts[s][:512] + rng.integers(
+        0, vocab, int(rng.integers(32, 97))).tolist() for s in (1, 0, 1, 2)]
+    return prompts, wave2
+
+
+def _serve_waves(fleet, waves, new_tokens, device):
+    """Submit each wave and run the engine or fleet until it is done;
+    returns the wall seconds."""
+    from repro_torch.serving import Request, SamplingParams
+    _sync(device)
+    t0 = time.perf_counter()
+    i = 0
+    for wave in waves:
+        for p in wave:
+            fleet.submit(Request(rid=f"r{i}", prompt=p, sampling=SamplingParams(
+                max_new_tokens=new_tokens)))
+            i += 1
+        fleet.run_until_done()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def _fleet_checks(label, fleet, n_req, n_layers):
+    """Every request finished once, every shard drained with its
+    invariants, and one varlen launch a layer of every dispatch."""
+    rids = [r.rid for r in fleet.finished]
+    if len(rids) != n_req or len(set(rids)) != n_req:
+        raise AssertionError(f"{label}: {len(rids)} finishes of {n_req} "
+                             "requests")
+    engines = [sh.engine for sh in fleet.shards] \
+        if hasattr(fleet, "shards") else [fleet]
+    for i, eng in enumerate(engines):
+        eng.mgr.check_invariants()
+        stats = eng.mgr.memory_stats()
+        if stats.used_units != 0:
+            raise AssertionError(f"{label}: shard {i} leaked {stats}")
+    return n_layers * sum(eng.runner.dispatch_count for eng in engines)
+
+
+def _fleet_legs(cfg, params, device):
+    """The data-parallel fleet on one card: 2 shards of 2 GiB each, the
+    12 requests of ``_fleet_workload`` in two waves, 16 new tokens each.
+    (i) a 1-shard fleet is bitwise the solo engine; (ii) cache-aware vs
+    round-robin routing: more prefix-hit tokens, outputs fork-aware equal
+    to solo; (iii) roles prefill/decode: zero prefill tokens on the decode
+    shard, one handoff a request, each adopted page byte-equal to its
+    source page before the source releases it; (iv) shard 1 crashed
+    after 4 ticks (mid-prefill): every request finishes once, outputs
+    fork-aware equal to (ii)'s. Then one engine packed at depth 2 with
+    ``autotune_budgets``. Returns the varlen launches and the fork
+    tolerance: twice the noise floor (the solo engine against itself at
+    budget 256), at least TIE_FORK_TOL."""
+    import gc
+
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving import DPEngine, Engine, EngineConfig
+
+    model = build_model(cfg)
+    wave1, wave2 = _fleet_workload(cfg.vocab_size)
+    waves, n_req, new_tokens = (wave1, wave2), 12, 16
+    base = dict(kv_pool_bytes=POOL_BYTES, max_num_batched_tokens=512,
+                chunk_size=256, max_running=8, async_scheduling=False,
+                record_sample_logits=True)
+    L = cfg.num_layers
+    launches = 0
+
+    def leg(label, fleet, extra=""):
+        nonlocal launches
+        v0 = _varlen_launches()
+        wall = _serve_waves(fleet, waves, new_tokens, device)
+        varlen = _varlen_launches() - v0
+        want = _fleet_checks(label, fleet, n_req, L)
+        if varlen != want:
+            raise AssertionError(f"{label}: {varlen} varlen launches, "
+                                 f"expected {want}")
+        launches += varlen
+        n_out = sum(len(r.output) for r in fleet.finished)
+        if isinstance(fleet, DPEngine):
+            stats = fleet.fleet_stats()
+            extra = ", " + ", ".join(f"{k}={stats[k]}" for k in (
+                "steps_per_shard", "requests_per_shard", "prefix_hit_tokens",
+                "readmissions", "handoffs", "handoff_pages")) + extra
+        log(f"[fleet] {label}: {n_out} tokens in {wall:.3f} s, "
+            f"output_tok_per_s={n_out / wall:.1f}, varlen launches {varlen} "
+            f"(expected {want}){extra}; 0 used units on every shard; "
+            f"card=[{card()}]")
+        return wall
+
+    solo = Engine(model, EngineConfig(**base), params=params, device=device)
+    solo_s = leg("solo", solo)
+    b256 = Engine(model, EngineConfig(**dict(base, max_num_batched_tokens=256)),
+                  params=params, device=device)
+    leg("solo-b256", b256)
+    noise = _first_row_diff(solo, b256)
+    tol = max(TIE_FORK_TOL, 2 * noise)
+    log(f"[fleet] noise floor (solo vs solo-b256 first-token logits) "
+        f"{noise:.4f}, fork tolerance {tol:.4f}")
+    del b256
+    outs = {r.rid: list(r.output) for r in solo.finished}
+
+    def fleet(n, **kw):
+        return DPEngine(model, EngineConfig(**base), params=params,
+                        num_shards=n, split_pool=False, device=device, **kw)
+
+    one = fleet(1)
+    leg("(i) 1 shard", one)
+    if {r.rid: list(r.output) for r in one.finished} != outs:
+        raise AssertionError("(i): the 1-shard fleet differs from solo")
+    del one
+
+    hits = {}
+    ref_ii = None
+    for policy in ("cache-aware", "round-robin"):
+        dp = fleet(2, policy=policy)
+        wall = leg(f"(ii) 2 shards {policy}", dp)
+        hits[policy] = dp.fleet_stats()["prefix_hit_tokens"]
+        forks = _fork_aware_equal(solo, dp, f"(ii) {policy}", tol)
+        log(f"[fleet] (ii) {policy}: {solo_s / wall:.3f}x the solo "
+            f"output tokens/s, "
+            f"forks vs solo {forks}")
+        if policy == "cache-aware":
+            ref_ii = dp
+        else:
+            del dp
+    if not hits["cache-aware"] > hits["round-robin"]:
+        raise AssertionError(f"(ii): cache-aware hit {hits['cache-aware']} "
+                             f"tokens, round-robin {hits['round-robin']}")
+
+    dp = fleet(2, roles=["prefill", "decode"])
+    adopted, copy_ms = [], []
+    for sh in dp.shards:
+        runner = sh.engine.runner
+        adopt = runner.adopt_pages
+
+        def checked(src, pairs, runner=runner, adopt=adopt):
+            _sync(device)
+            t0 = time.perf_counter()
+            adopt(src, pairs)
+            _sync(device)
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+            for name, s, d in pairs:
+                size = runner.mgr.spec(name).page_units
+                if not torch.equal(
+                        src.buffer[s * size:(s + 1) * size].view(torch.int16),
+                        runner.buffer[d * size:(d + 1) * size].view(
+                            torch.int16)):
+                    raise AssertionError(f"(iii): adopted page {d} differs "
+                                         f"from source page {s} ({name})")
+                adopted.append(size)
+
+        runner.adopt_pages = checked
+    leg("(iii) prefill/decode", dp)
+    decode_prefill = sum(m.prefill_tokens for m in dp.shards[1].engine.metrics)
+    if decode_prefill != 0 or len(dp.handoffs) != n_req or \
+            len(adopted) != dp.fleet_stats()["handoff_pages"]:
+        raise AssertionError(f"(iii): decode shard prefill tokens "
+                             f"{decode_prefill}, {len(dp.handoffs)} handoffs "
+                             f"of {n_req}, {len(adopted)} pages checked")
+    forks = _fork_aware_equal(solo, dp, "(iii)", tol)
+    log(f"[fleet] (iii): decode shard prefill tokens 0, {len(dp.handoffs)} "
+        f"handoffs, {len(adopted)} adopted pages "
+        f"({sum(adopted) * 2 / 2 ** 20:.1f} MiB) each byte-equal to its "
+        f"source, copied in {sum(copy_ms):.3f} ms in all (the most for one "
+        f"handoff {max(copy_ms):.3f} ms; host clock around a synchronised "
+        f"copy); forks vs solo {forks}; card=[{card()}]")
+    del dp
+
+    dp = fleet(2)
+    run = dp.run_until_done
+
+    def crash_midway(max_ticks=10_000):
+        if dp.tick == 0:            # wave 1: crash shard 1 mid-prefill
+            for _ in range(CRASH_TICK):
+                dp.step()
+            if not dp.inject_crash(1):
+                raise AssertionError("(iv): shard 1 held no request")
+        return run(max_ticks)
+
+    dp.run_until_done = crash_midway
+    leg("(iv) shard 1 crashed", dp)
+    forks = _fork_aware_equal(ref_ii, dp, "(iv)", tol)
+    log(f"[fleet] (iv): every request finished once, "
+        f"{dp.fleet_stats()['readmissions']} re-admitted; forks vs (ii) "
+        f"{forks}")
+    del dp, ref_ii
+
+    tuned = Engine(model, EngineConfig(**dict(
+        base, autotune_budgets=True, async_scheduling=True,
+        pipeline_depth=2)), params=params, device=device)
+    seed = (tuned.autotuner.budget, tuned.autotuner.prefill_cap)
+    if seed[0] != 288:
+        raise AssertionError(f"autotune seed budget {seed[0]}, expected 288")
+    leg("autotune depth 2", tuned, f", seed budget {seed[0]} (prefill cap "
+        f"{seed[1]}), {tuned.autotuner.adjustments} adjustments, final "
+        f"budget {tuned.scheduler.cfg.max_num_batched_tokens} (prefill cap "
+        f"{tuned.scheduler.cfg.max_prefill_tokens_per_step})")
+    forks = _fork_aware_equal(solo, tuned, "autotune", tol)
+    log(f"[fleet] autotune: forks vs solo {forks}")
+    del tuned, solo
+    gc.collect()
+    return launches, tol
+
+
+def phase_spec_fleet(device="cuda"):
+    """Phase 9: speculative decoding and the data-parallel fleet on
+    full-width granite-3-2b (random bf16 weights from seed 0). Returns the
+    kernel launch totals."""
+    cfg, _, params = _full_width("granite-3-2b")
+    t0 = time.perf_counter()
+    varlen, tol = _fleet_legs(cfg, params, device)
+    varlen += _spec_legs(cfg, params, device, tol)
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
+    return {"varlen": varlen, "paged": 0, "dense": 0}
+
+
 # ----------------------------------------------------------------- phase 5
 TRAIN_LOSS_TOL = 1e-2   # card vs CPU losses, reduced granite (bf16 sums in another order)
 
@@ -2487,7 +2887,7 @@ def main() -> int:
     phase_small_reference("zamba2-1.2b")
     train = phase_train()
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
-                  phase_encdec_rwkv):
+                  phase_encdec_rwkv, phase_spec_fleet):
         for k, n in phase().items():
             launches[k] += n
     mixed, decode, dense = kres[0], pres[0], dres[0]

@@ -3,12 +3,12 @@ manager (a copy of ``repro/serving/engine.py`` driving the torch
 ``ModelRunner`` on a torch device).
 
 The port's engine serves the three batching modes ("packed", "padded",
-"serial") with greedy and seeded temperature/top-k sampling;
-``autotune_budgets`` raises ``NotImplementedError``. Packed self-attention
-always runs through the varlen flash kernel (the reference's
-``attention_impl="kernel"`` route), so the port has no ``attention_impl``
-option; padded T == 1 dispatches (every decode group of "serial") read
-their pages in place through the paged decode kernel.
+"serial") with greedy and seeded temperature/top-k sampling, and seeds
+its budgets from the H100's roofline under ``autotune_budgets``. Packed
+self-attention always runs through the varlen flash kernel (the
+reference's ``attention_impl="kernel"`` route), so the port has no
+``attention_impl`` option; padded T == 1 dispatches (every decode group
+of "serial") read their pages in place through the paged decode kernel.
 
 Each ``step()`` is build-batch -> ONE ``serve_step`` dispatch -> advance /
 sample / retire:
@@ -257,10 +257,6 @@ class Engine:
         self.cfg = cfg
         assert cfg.batching_mode in ("packed", "padded", "serial"), \
             cfg.batching_mode
-        if cfg.autotune_budgets:
-            raise NotImplementedError(
-                "autotune_budgets: needs H100 roofline constants, a later "
-                "slice of the port")
         # serial mode issues two dispatch groups per step — double buffering
         # would interleave their completions; fall back to the sync loop.
         # pipeline_depth 1 means "nothing in flight": also the sync loop.
@@ -300,6 +296,12 @@ class Engine:
                 max_prefill_tokens_per_step=cfg.max_prefill_tokens_per_step,
                 serial=cfg.batching_mode == "serial",
                 prefill_only=cfg.role == "prefill"))
+        self.autotuner = None
+        if cfg.autotune_budgets:
+            from .autotune import BudgetAutotuner
+            self.autotuner = BudgetAutotuner(model.cfg)
+            self.scheduler.set_budgets(self.autotuner.budget,
+                                       self.autotuner.prefill_cap)
         self.runner = ModelRunner(model, self.mgr,
                                   stub_embed_fn=stub_modality_embed,
                                   device=device)
@@ -650,6 +652,9 @@ class Engine:
         self._sample_ms = 0.0
         self._bytes_seen = r.bytes_fetched
         self.step_count += 1
+        if self.autotuner is not None and self.autotuner.observe(m):
+            self.scheduler.set_budgets(self.autotuner.budget,
+                                       self.autotuner.prefill_cap)
         return m
 
     def _count_encoder_runs(self, scheduled: Sequence[ScheduledSeq]) -> None:

@@ -221,16 +221,30 @@ def _seg_intervals(vals: np.ndarray, block: int):
 
 class ModelRunner:
     def __init__(self, model, manager: JengaKVCacheManager,
-                 stub_embed_fn=None, device="cuda"):
+                 stub_embed_fn=None, device="cuda",
+                 buffer: Optional[torch.Tensor] = None):
+        """``buffer``: another runner's unified buffer to share (two models
+        on one manager, as speculative decoding runs them); by default the
+        runner allocates its own, zeroed."""
         self.model = model
         self.mgr = manager
         self.device = resolve_device(device)
         self.specs = {s.name: s for s in model.kv_specs()}
         self.stub_embed_fn = stub_embed_fn
-        big = _lcm([s.page_units for s in self.specs.values()])
-        units = manager.geometry.total_units + big   # + scratch page
-        self.buffer = torch.zeros((units,), dtype=torch.bfloat16,
-                                  device=self.device)
+        # The scratch page (where dropped writes land, ``kv_rows``) is one
+        # page of EVERY type the manager holds, not only this model's:
+        # each type's view puts it at ``vp - 1``, and with several models
+        # on one buffer a smaller LCM would leave another type's ``vp - 1``
+        # on its last real page.
+        big = _lcm([s.page_units for s in manager.specs])
+        units = manager.geometry.total_units + big
+        if buffer is None:
+            buffer = torch.zeros((units,), dtype=torch.bfloat16,
+                                 device=self.device)
+        assert tuple(buffer.shape) == (units,) and \
+            buffer.device.type == self.device.type, \
+            (tuple(buffer.shape), units, buffer.device, self.device)
+        self.buffer = buffer
         self._mirrors: Dict[str, _SeqMirror] = {}
         self._table_specs = {n: s for n, s in self.specs.items()
                              if s.kind not in ("mamba", "rwkv")}
@@ -751,6 +765,14 @@ class ModelRunner:
                           TT, seg_ids[0], page_seg)}
 
 
+    def build_plan(self, items, packed: bool = True
+                   ) -> Tuple[DecodeBatch, dict]:
+        """Build one plan's device batch (host build + upload). Kept for
+        direct layout inspection; the engine drives prepare/dispatch/fetch
+        separately."""
+        prep = self.prepare(items, packed=packed)
+        return self._to_batch(prep.arrs), prep.info
+
     # ----------------------------------------------------------------- run
     def dispatch(self, params, prep: PreparedStep):
         """Phase 2: upload the prepared batch, zero freshly allocated pages,
@@ -825,6 +847,13 @@ class ModelRunner:
         self.bytes_fetched += out.nbytes
         return out
 
+    def run_plan(self, params, items, packed: bool = True) -> np.ndarray:
+        """Execute one mixed step plan in a single dispatch (prepare +
+        dispatch + fetch back to back — the synchronous path). Returns
+        last-token logits, one row per item, in plan order."""
+        prep = self.prepare(items, packed=packed)
+        return self.fetch(self.dispatch(params, prep), prep.n)
+
     # ------------------------------------------------------------- copies
     def _page_rows(self, size: int) -> Optional[torch.Tensor]:
         """The buffer as (pages, size) rows, or None when the pool is not
@@ -884,6 +913,44 @@ class ModelRunner:
         """Zero one small page (fresh recurrent-state initialisation)."""
         size = self.specs[type_name].page_units
         self._zero_range(eid * size, size)
+
+    def adopt_pages(self, src_runner: "ModelRunner",
+                    pairs: Sequence[Tuple[str, int, int]]) -> None:
+        """Prefill->decode handoff copy stream: install exported pages from
+        ANOTHER runner's unified buffer into this one, one gather from the
+        source's rows and one in-place scatter into this buffer's rows per
+        KV type (page by page where a pool is not a multiple of the page
+        size). Both runners issue on the same device's current stream, so
+        the copy reads the source pages after every source dispatch issued
+        before it and before any issued after it — the order the
+        reference gets from immutable arrays. Adopted pages are kept out
+        of the fresh-page zeroing queue: they carry transferred content a
+        later zeroing pass would destroy."""
+        if not pairs:
+            return
+        assert src_runner.buffer.device == self.buffer.device, \
+            (src_runner.buffer.device, self.buffer.device)
+        by_type: Dict[str, List[Tuple[int, int]]] = {}
+        for name, src, dst in pairs:
+            by_type.setdefault(name, []).append((src, dst))
+        for name, group in by_type.items():
+            size = self.mgr.spec(name).page_units
+            s_rows = src_runner._page_rows(size)
+            d_rows = self._page_rows(size)
+            if s_rows is None or d_rows is None:
+                for src, dst in group:   # misaligned pool: per-page copy
+                    self._adopt_one(src_runner, name, src, dst)
+                continue
+            srcs = self._upload(np.array([p[0] for p in group], np.int64))
+            dsts = self._upload(np.array([p[1] for p in group], np.int64))
+            d_rows.index_copy_(0, dsts, s_rows.index_select(0, srcs))
+
+    def _adopt_one(self, src_runner: "ModelRunner", type_name: str,
+                   src: int, dst: int) -> None:
+        """Misaligned-pool fallback: one cross-buffer page copy."""
+        size = self.mgr.spec(type_name).page_units
+        self.buffer[dst * size:(dst + 1) * size].copy_(
+            src_runner.buffer[src * size:(src + 1) * size])
 
     def copy_page(self, type_name: str, src: int, dst: int) -> None:
         """Device copy of one whole small page (state checkpoint/restore)."""

@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_varlen, flash_attention_varlen_plain)
 from repro_torch.kernels.flash_attention.kernel import check_inputs  # noqa: E402
 from repro_torch.models import blocks_attn  # noqa: E402
-from repro_torch.models import DecoderLM, params_from_numpy  # noqa: E402
+from repro_torch.models import (DecoderLM, build_model,  # noqa: E402
+                                params_from_numpy)
 from repro_torch.serving import (Engine, EngineConfig, Request,  # noqa: E402
                                  SamplingParams)
 
@@ -159,8 +160,13 @@ def test_main_path_feeds_the_kernel_valid_inputs(monkeypatch):
 def test_later_slices_raise():
     for mode in ("padded", "serial"):        # ported: they construct
         assert port_engine(batching_mode=mode).cfg.batching_mode == mode
+    # budget autotuning is ported: it constructs; hybrid training is not
+    assert port_engine(autotune_budgets=True).autotuner is not None
+    hybrid = build_model(reduced(ARCHS["zamba2-1.2b"]))
     with pytest.raises(NotImplementedError):
-        port_engine(autotune_budgets=True)
+        hybrid.init(0, "cpu", master=True)
+    with pytest.raises(NotImplementedError):
+        hybrid.train_loss({}, None, None)
     eng = port_engine()
     # seeded temperature/top-k sampling is ported: it serves
     eng.submit(Request(rid="t", prompt=[1, 2, 3],

@@ -35,4 +35,5 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_port():
     names = {p.name for p in _files()}
     assert {"engine.py", "runner.py", "kernel.py", "lm.py",
-            "chip_smoke.py"} <= names
+            "spec_decode.py", "router.py", "dp_engine.py", "autotune.py",
+            "roofline.py", "chip_smoke.py"} <= names
