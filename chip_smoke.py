@@ -53,6 +53,20 @@ Phases, each of which raises on failure:
    (device time by kernel group); reduced granite card vs CPU losses,
    exact resume from a checkpoint and the NaN watchdog.
 
+Training the hybrid, VLM and MoE families (since the scan's backward
+kernel): phase 2c also holds the scan's backward kernel
+(``mamba_chunk_scan_bwd``, csrc/mamba_scan_bwd.cu) against its plain
+version (autograd through the plain scan) at zamba2-1.2b's training shape
+(2 rows of 2048, H = P = N = 64), on ragged rows and at the reduced
+widths (H 8, P = N = 16): every gradient within MAMBA_BWD_TOL, repeatable
+bytes, its time per call beside the plain version's and the bound, every
+instance's ptxas line. Phase 5b trains full-width zamba2-1.2b,
+qwen2-vl-2b (a seeded image span in every row) and qwen3-moe-235b-a22b
+at full per-layer width (1 of 94 layers) 4 steps each from fp32 masters,
+with exact scan and dense launch counts per micro-batch, ms per step,
+tokens/s and peak memory, then their reduced configs card vs CPU and the
+reduced hybrid's exact resume.
+
 The hybrid path (since the Mamba2 chunk-scan kernel): phase 2c holds the
 scan kernel against its plain version at zamba2-1.2b's widths (H 64, P 64,
 N 64) on a packed mixed step, a packed decode step (non-zero initial
@@ -945,6 +959,122 @@ def phase_mamba_kernel():
                             call_ms=call_ms, host_ms=host_ms,
                             plain_ms=plain_ms, bound_ms=bound, bound_by=by))
         del args, y, y2, s1, s2, ry, rs
+    return results
+
+
+# ------------------------------------------------------ phase 2c, backward
+# the scan backward's gradients: bf16 ones (dx, dB, dC) within 2 bf16 ulps
+# of the largest |value| (both sides round an fp32 sum in another order
+# to bf16 once), fp32 ones (ddt, da_log) within 1e-4 of it
+MAMBA_BWD_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+
+
+def mamba_bwd_cases():
+    """(name, row_start, row_len, TT, H, P, N) of scan-backward calls:
+    zamba2-1.2b's training micro-batch (2 rows of 2048, H = P = N = 64),
+    ragged rows (an empty one, a one-token one, rows ending mid-chunk,
+    gaps) at zamba2's widths, and the reduced configs' widths (H 8,
+    P = N = 16) on ragged rows."""
+    def packed(lens):
+        return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
+
+    return [
+        ("zamba2 train 2 x 2048", [0, 2048], [2048, 2048], 4096, 64, 64, 64),
+        ("ragged", [0, 300, 301, 700, 1800], [300, 0, 1, 1000, 47], 1900,
+         64, 64, 64),
+        ("reduced ragged", *packed([256, 150, 1, 0, 60, 45]), 512, 8, 16,
+         16),
+    ]
+
+
+def _scan_bwd_work(lens, h, p, n, chunk=64):
+    """FLOPs of the scan backward on these rows: per head and chunk of l
+    tokens, the causal pairs' C.B, dy.x, score^T dy, dG B and dG^T C
+    products, the l x P x N products of dS B, dS^T x, S_in^T dy and the
+    two recomputed state passes."""
+    flops = 0.0
+    for ln in lens:
+        for c0 in range(0, int(ln), chunk):
+            l_ = min(chunk, int(ln) - c0)
+            pairs = l_ * (l_ + 1) / 2
+            flops += h * (2 * pairs * (2 * n + 2 * p) + 2 * l_ * p * n * 5)
+    return flops
+
+
+def phase_mamba_bwd_kernel():
+    """The Mamba2 scan's backward kernel (``mamba_chunk_scan_bwd``)
+    against its plain version (autograd through the plain scan) on the
+    card (``mamba_bwd_cases``): every gradient within MAMBA_BWD_TOL, two
+    calls giving the same bytes, dx 0 outside every row; the time per
+    call (its three launches and the wrapper's zero-filled buffers), the
+    plain version's time, the bound; every instance's ptxas register/spill
+    line (fp32 CUDA-core products: no tensor-core instructions)."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
+                                                mamba_chunk_scan_bwd_plain)
+
+    _build_facts("mamba_scan_bwd", "mamba_bwd", 9, exempt=("mamba_bwd",))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    results = []
+    for case in mamba_bwd_cases():
+        name, starts, lens, tt, H, P, N = case
+        x, bm, cm, dt, a_log, rs, rl, _ = mamba_inputs(case, gen, dev)
+        dy = torch.randn((tt, H, P), generator=gen, device=dev)
+        args = (x, bm, cm, dt, a_log, rs, rl, dy)
+        got = mamba_chunk_scan_bwd(*args)
+        again = mamba_chunk_scan_bwd(*args)
+        want = mamba_chunk_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for label, a, b, c in zip(("dx", "dbm", "dcm", "ddt", "da_log"),
+                                  got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mamba bwd {name}: {label}: two calls "
+                                     "differ")
+            tol = MAMBA_BWD_TOL[str(a.dtype).split(".")[-1]]
+            e = (a.float() - c.float()).abs().max().item()
+            scale = c.float().abs().max().item()
+            if not np.isfinite(e) or e > tol * scale:
+                raise AssertionError(f"mamba bwd {name}: {label} max abs err "
+                                     f"{e} > {tol} x {scale}")
+            errs.append(f"{label} {e:.3e} (rel {e / scale:.2e}, tol {tol:g})")
+        inside = np.zeros(tt, bool)
+        for st, ln in zip(starts, lens):
+            inside[st:st + ln] = True
+        if bool((got[0][torch.tensor(~inside, device=dev)] != 0).any()):
+            raise AssertionError(f"mamba bwd {name}: dx not 0 outside rows")
+
+        def kern():
+            return mamba_chunk_scan_bwd(*args)
+
+        ms = cuda_time_ms(kern, iters=10)
+        plain_ms = cuda_time_ms(lambda: mamba_chunk_scan_bwd_plain(*args),
+                                iters=3, warmup=1)
+        live = int(np.sum(lens))
+        # x, B, C, dt and dy read once; dx, dB, dC (bf16), ddt and da_log
+        # written once
+        nbytes = live * (H * P * 2 + 2 * N * 2 + H * 4 + H * P * 4) + \
+            live * (H * P * 2 + 2 * N * 2 + H * 4) + 2 * H * 4 + \
+            2 * len(lens) * 4
+        flops = _scan_bwd_work(lens, H, P, N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernel mamba_scan_bwd] {name} H={H} P={P} N={N} rows="
+            f"{list(map(int, lens))}: max abs err {'; '.join(errs)}; "
+            f"repeatable=True zero_outside_rows=True ms={ms:.4f} (per call,"
+            f" 3 launches) plain_ms={plain_ms:.4f} library_ms=none (no "
+            f"single call) bound_ms={bound:.5f} ({by}; {flops / 1e9:.3f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB) share_of_bound={bound / ms:.4f}"
+            f" [{card()}]")
+        results.append(dict(case=name, err=max(
+            (a.float() - c.float()).abs().max().item()
+            for a, c in zip(got, want)), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by))
+        del args, got, again, want
     return results
 
 
@@ -2871,6 +3001,223 @@ def phase_train():
                 tok_s=tok_s, peak=peak)
 
 
+# ---------------------------------------------------------------- phase 5b
+# (arch, depth cut, micro-batches of the 4 x 2048-token step)
+FAMILY_TRAIN = (("zamba2-1.2b", {}, 2), ("qwen2-vl-2b", {}, 2),
+                ("qwen3-moe-235b-a22b", {"num_layers": 1}, 4))
+IMAGE_AT, IMAGE_GRID = 16, 16     # the VLM rows' image span: 16 x 16 patches
+
+
+def _image_batch(cfg, seed, grid=IMAGE_GRID):
+    """``Trainer.extra_batch`` for the VLM: per row one image span of
+    ``grid`` x ``grid`` positions at IMAGE_AT, its embeddings drawn from
+    ``seed`` and the step's first token, M-RoPE at (t, h, w) = (16, 16 +
+    row, 16 + column) of the grid, the text after it from 16 + grid on."""
+    n = grid * grid
+
+    def extra(tokens):
+        b, t = tokens.shape
+        rng = np.random.default_rng([seed, int(tokens[0, 0])])
+        emb = np.zeros((b, t, cfg.d_model), np.float32)
+        emb[:, IMAGE_AT:IMAGE_AT + n] = 0.02 * rng.standard_normal(
+            (b, n, cfg.d_model), dtype=np.float32)
+        mask = np.zeros((b, t), bool)
+        mask[:, IMAGE_AT:IMAGE_AT + n] = True
+        pos = np.zeros((3, t), np.int32)
+        pos[:, :IMAGE_AT] = np.arange(IMAGE_AT)
+        cells = np.arange(n)
+        pos[0, IMAGE_AT:IMAGE_AT + n] = IMAGE_AT
+        pos[1, IMAGE_AT:IMAGE_AT + n] = IMAGE_AT + cells // grid
+        pos[2, IMAGE_AT:IMAGE_AT + n] = IMAGE_AT + cells % grid
+        pos[:, IMAGE_AT + n:] = IMAGE_AT + grid + np.arange(
+            t - IMAGE_AT - n)
+        return dict(mm_embeds=emb, mm_mask=mask,
+                    mrope_pos=np.ascontiguousarray(
+                        np.broadcast_to(pos[:, None], (3, b, t))))
+    return extra
+
+
+def _family_counts(cfg):
+    """Kernel launches of one micro-batch's forward and backward: the
+    scan forward 2 x per Mamba2 layer (recomputation), its backward once;
+    dense forward 2 x per attention call, backward once."""
+    if cfg.family == "hybrid":
+        n_attn, n_scan = cfg.num_layers // cfg.attn_every, cfg.num_layers
+    else:
+        n_attn, n_scan = cfg.num_layers, 0
+    return dict(scan_fwd=2 * n_scan, scan_bwd=n_scan, dense_fwd=2 * n_attn,
+                dense_bwd=n_attn)
+
+
+def phase_train_families(device="cuda"):
+    """Training the hybrid, VLM and MoE families. (a) Full width, fp32
+    masters from seed 0, 4 steps of 4 x 2048-token sequences in 2
+    micro-batches: zamba2-1.2b; qwen2-vl-2b with a seeded image span in
+    every row (``_image_batch``); qwen3-moe-235b-a22b at full per-layer
+    width cut to 1 of its 94 layers (a layer's fp32 masters, gradients and
+    AdamW moments are 16 bytes x 2.49 B params = 39.8 GB, the untied
+    embedding and head 16 x 1.24 B = 19.9 GB: 2 layers would not fit 80
+    GB) and to micro-batches of 1 x 2048 tokens (4 a step: the
+    (2048, 151936) fp32 logits and their gradient, and the bf16 copies of
+    the expert masters the products take, fit beside the 59.7 GB). Each:
+    finite losses (the MoE aux loss printed), the scan and
+    dense kernels' launches exactly ``_family_counts`` per micro-batch,
+    ms per step, tokens/s and peak memory. (b) Reduced configs with the
+    same fp32 weights on the card and on the CPU: 3 steps' losses within
+    TRAIN_LOSS_TOL each; the reduced hybrid resumed exactly from a
+    checkpoint (rtol 1e-5, as phase 5). Returns the launch counts."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels.flash_attention import (dense_flash_bwd,
+                                                     dense_flash_fwd)
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
+                                                mamba_chunk_scan_varlen)
+    from repro_torch.models import blocks_attn, build_model
+    from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
+                                      TrainerConfig, init)
+    from repro_torch.training.optimizer import tree_map
+
+    counters = dict(scan_fwd=mamba_chunk_scan_varlen,
+                    scan_bwd=mamba_chunk_scan_bwd,
+                    dense_fwd=dense_flash_fwd, dense_bwd=dense_flash_bwd)
+    totals = dict.fromkeys(counters, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="smoke_fam_", dir=ROOT / "build")
+    try:
+        # ---- (a) full width
+        steps, seq, batch = 4, 2048, 4
+        for arch, cut, micro in FAMILY_TRAIN:
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(ARCHS[arch], **cut)
+            extra = _image_batch(cfg, 5) if cfg.family == "vlm" else None
+            tr = Trainer(build_model(cfg), AdamWConfig(),
+                         TrainerConfig(micro_batches=micro,
+                                       ckpt_every=1 << 30,
+                                       ckpt_dir=f"{ckpt_root}/{arch}"),
+                         extra_batch=extra)
+            t0 = time.perf_counter()
+            params, state = tr.init_state(0, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            n_params = sum(p.numel() for p in _leaves(params))
+            init_s = time.perf_counter() - t0
+            data = SyntheticLM(cfg.vocab_size, seq_len=seq,
+                               global_batch=batch, mode="markov")
+            aux = []
+            moe = blocks_attn.moe_aux
+
+            def recording(*a, **kw):
+                out = moe(*a, **kw)
+                aux.append(out.detach())
+                return out
+
+            blocks_attn.moe_aux = recording
+            try:
+                params, state, warm = tr.run(params, state, data,
+                                             num_steps=1)
+                if device == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                times = []
+                for fn in counters.values():
+                    fn.launches = 0
+                aux.clear()
+                params, state, hist = tr.run(
+                    params, state, data, num_steps=1 + steps, start_step=1,
+                    log_every=1,
+                    on_metrics=lambda s, m: times.append(m["sec_per_step"]))
+            finally:
+                blocks_attn.moe_aux = moe
+            got = {k: fn.launches for k, fn in counters.items()}
+            want = {k: v * micro * steps
+                    for k, v in _family_counts(cfg).items()}
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+                else 0
+            if len(hist) != steps or not np.isfinite(hist).all() or \
+                    tr.restores:
+                raise AssertionError(f"{arch} losses {hist} (restores "
+                                     f"{tr.restores})")
+            if got != want:
+                raise AssertionError(f"{arch} launches {got}, expected {want}")
+            for k, n in got.items():
+                totals[k] += n
+            aux_line = ""
+            if cfg.num_experts:
+                # forward and recomputation each form it: the first of a
+                # micro-batch's pair is its forward's
+                vals = [float(a) for a in aux[::2]]
+                if not vals or not np.isfinite(vals).all():
+                    raise AssertionError(f"{arch} aux losses {vals}")
+                aux_line = (f" aux_loss per micro-batch (layer 0) "
+                            f"{[round(v, 6) for v in vals]}")
+            step_ms = 1e3 * float(np.mean(times))
+            tok_s = batch * seq / (step_ms / 1e3)
+            cut_s = (f" ({cfg.num_layers} of {ARCHS[arch].num_layers} layers)"
+                     if cut else "")
+            log(f"[train {arch}] full width{cut_s}: {n_params / 1e9:.3f} B "
+                f"params fp32, init {init_s:.1f} s; losses "
+                f"{[round(x, 4) for x in warm + hist]} (first untimed)"
+                f"{aux_line}; step_ms={[round(1e3 * t, 1) for t in times]} "
+                f"mean_step_ms={step_ms:.1f} train_tok_per_s={tok_s:.1f} "
+                f"peak_mem_gb={peak / 1e9:.2f} launches {got} (= "
+                f"{_family_counts(cfg)} x {micro} x {steps}) [{card()}]")
+            del params, state, tr
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- (b) reduced: card vs CPU, and the hybrid's exact resume
+        adamw = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=200)
+        for arch, _, _ in FAMILY_TRAIN:
+            rcfg = reduced(ARCHS[arch])
+            rdata = SyntheticLM(rcfg.vocab_size, seq_len=64, global_batch=4,
+                                mode="markov")
+            extra = _image_batch(rcfg, 5, grid=4) \
+                if rcfg.family == "vlm" else None
+
+            def trainer(name, every=1 << 30):
+                return Trainer(build_model(rcfg), adamw,
+                               TrainerConfig(micro_batches=2,
+                                             ckpt_every=every,
+                                             ckpt_dir=f"{ckpt_root}/{name}"),
+                               extra_batch=extra)
+
+            cpu_tr = trainer(f"{arch}-cpu")
+            cpu_p, cpu_s = cpu_tr.init_state(0, device="cpu")
+            dev_p = tree_map(lambda t: t.to(device, copy=True), cpu_p)
+            _, _, h_cpu = cpu_tr.run(cpu_p, cpu_s, rdata, num_steps=3)
+            _, _, h_dev = trainer(f"{arch}-dev").run(
+                dev_p, init(dev_p), rdata, num_steps=3)
+            diff = float(np.abs(np.array(h_cpu) - np.array(h_dev)).max())
+            if diff > TRAIN_LOSS_TOL:
+                raise AssertionError(f"reduced {arch} card vs CPU losses "
+                                     f"{h_dev} vs {h_cpu}")
+            line = (f"[train {arch}] reduced card vs CPU losses {h_dev} vs "
+                    f"{h_cpu} (max diff {diff:.2e}, tol {TRAIN_LOSS_TOL})")
+            if rcfg.family == "hybrid":
+                tr1 = trainer("resume", every=5)
+                p, s = tr1.init_state(0, device=device)
+                _, _, hist = tr1.run(p, s, rdata, num_steps=7)
+                tr2 = trainer("resume")
+                p2, s2, _ = tr2.restore(5, device=device)
+                _, _, hist2 = tr2.run(p2, s2, rdata, num_steps=7,
+                                      start_step=5)
+                if not np.allclose(hist[-2:], hist2, rtol=1e-5):
+                    raise AssertionError(f"hybrid resume: {hist[-2:]} vs "
+                                         f"{hist2}")
+                line += (f"; exact resume steps 5-6 {hist2} vs {hist[-2:]} "
+                         f"(rtol 1e-5)")
+            log(line)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2880,12 +3227,14 @@ def main() -> int:
     kres = phase_kernels()
     pres = phase_paged_kernel()
     mres = phase_mamba_kernel()
+    bres = phase_mamba_bwd_kernel()
     dres = phase_dense_kernel()
     launches = phase_engine()
     phase_small_reference("granite-3-2b")
     hybrid, _ = phase_hybrid_engine()
     phase_small_reference("zamba2-1.2b")
     train = phase_train()
+    fam = phase_train_families()
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
                   phase_encdec_rwkv, phase_spec_fleet):
         for k, n in phase().items():
@@ -2924,7 +3273,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:19",
-        "launches": hybrid["mamba"],
+        "launches": hybrid["mamba"] + fam["scan_fwd"],
         "max_abs_err": max(r["err"] for r in mres),
         "ms": mres[0]["ms"],
         "plain_ms": mres[0]["plain_ms"],
@@ -2932,11 +3281,25 @@ def main() -> int:
         "bound_by": mres[0]["bound_by"],
         "library_ms": None,
     }, {
+        "name": "mamba_chunk_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                  "mamba_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:19",
+        "launches": fam["scan_bwd"],
+        "max_abs_err": max(r["err"] for r in bres),
+        "ms": bres[0]["ms"],
+        "plain_ms": bres[0]["plain_ms"],
+        "bound_ms": bres[0]["bound_ms"],
+        "bound_by": bres[0]["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "dense_flash_fwd",
         "route": "cuda",
         "source": dense_src,
         "replaces": dense_tpu,
-        "launches": train["fwd_launches"] + launches["dense"],
+        "launches": train["fwd_launches"] + launches["dense"] +
+        fam["dense_fwd"],
         "max_abs_err": max(r["err"] for r in dres),
         "ms": dense["ms"],
         "plain_ms": dense["plain_ms"],
@@ -2948,7 +3311,7 @@ def main() -> int:
         "route": "cuda",
         "source": dense_src,
         "replaces": dense_tpu,
-        "launches": train["bwd_launches"],
+        "launches": train["bwd_launches"] + fam["dense_bwd"],
         "max_abs_err": max(r["grad_err"] for r in dres),
         "ms": dense["bwd_ms"],
         "plain_ms": dense["plain_bwd_ms"],

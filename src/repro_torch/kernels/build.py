@@ -29,6 +29,7 @@ SOURCES: Dict[str, pathlib.Path] = {
     "paged_decode": _PKG / "paged_attention" / "csrc" / "paged_decode.cu",
     "dense_flash": _PKG / "flash_attention" / "csrc" / "dense_flash.cu",
     "mamba_scan": _PKG / "mamba_scan" / "csrc" / "mamba_scan.cu",
+    "mamba_scan_bwd": _PKG / "mamba_scan" / "csrc" / "mamba_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

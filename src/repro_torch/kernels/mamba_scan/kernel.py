@@ -21,6 +21,14 @@ On the H100 a call is bound by the bytes it moves and, in practice, by
 latency; the kernel spreads the chunks of long rows over blocks that pass
 the state along in order, runs its products on the tensor cores, and
 takes a light path for one-token rows (``csrc/mamba_scan.cu``).
+
+Training: ``mamba_chunk_scan_bwd`` launches the backward kernel
+(``csrc/mamba_scan_bwd.cu``, which replaces no TPU kernel: the reference
+differentiates its jnp scan) over the same rows from zero states, and
+``mamba_chunk_scan_train`` is the autograd Function whose forward is
+``mamba_chunk_scan_varlen`` and whose backward is
+``mamba_chunk_scan_bwd``; ``mamba_chunk_scan_bwd.launches`` counts the
+backward's calls.
 """
 from __future__ import annotations
 
@@ -121,17 +129,9 @@ def scan_blocks(tt, r, h):
     return -(-tt // ZERO_TILE) + (tt // CHUNK + r) * h
 
 
-def check_inputs(x, bm, cm, dt, a_log, row_start, row_len, init_state):
-    """Validate the kernel's inputs (any device) and return its launch
-    sizes (tt, r, h, p, n). x (TT, H, P) and bm/cm (TT, N) are bf16 whose
-    inner dims are contiguous, with token strides that are multiples of 8
-    (bm and cm share theirs) and 16-byte aligned data: the kernel reads
-    them through tensor maps. dt (TT, H), a_log (H,), row_start/row_len
-    (R,) contiguous; init_state (R, H, P, N) fp32 with contiguous
-    (H, P, N), a row stride that is a multiple of 4 and 16-byte aligned
-    data (16-byte state loads). P and N are 16, 32, 64 or 128. Every call
-    of the serve path makes these checks, so each tensor is tested in one
-    condition, and explained only when it fails."""
+def _check_stream(x, bm, cm, dt, a_log, row_start, row_len):
+    """``check_inputs`` without the state: x, bm, cm, dt, a_log and the
+    rows. Returns (tt, r, h, p, n)."""
     tt, h, p = x.shape
     n = bm.shape[-1] if bm.dim() == 2 else -1
     r = row_start.shape[0] if row_start.dim() == 1 else -1
@@ -162,6 +162,24 @@ def check_inputs(x, bm, cm, dt, a_log, row_start, row_len, init_state):
                 not v.is_contiguous():
             _check(name, v, dtype, shape, dev)
             raise ValueError(f"{name}: must be contiguous")
+    if not 1 <= r <= 65535 or tt < 1:
+        raise ValueError(f"{r} rows over {tt} tokens: 1..65535 rows")
+    return tt, r, h, p, n
+
+
+def check_inputs(x, bm, cm, dt, a_log, row_start, row_len, init_state):
+    """Validate the kernel's inputs (any device) and return its launch
+    sizes (tt, r, h, p, n). x (TT, H, P) and bm/cm (TT, N) are bf16 whose
+    inner dims are contiguous, with token strides that are multiples of 8
+    (bm and cm share theirs) and 16-byte aligned data: the kernel reads
+    them through tensor maps. dt (TT, H), a_log (H,), row_start/row_len
+    (R,) contiguous; init_state (R, H, P, N) fp32 with contiguous
+    (H, P, N), a row stride that is a multiple of 4 and 16-byte aligned
+    data (16-byte state loads). P and N are 16, 32, 64 or 128. Every call
+    of the serve path makes these checks, so each tensor is tested in one
+    condition, and explained only when it fails."""
+    tt, r, h, p, n = _check_stream(x, bm, cm, dt, a_log, row_start, row_len)
+    dev, f32 = x.device, torch.float32
     s = init_state
     if s.dtype is not f32 or s.shape != (r, h, p, n) or s.device != dev or \
             s.stride()[1:] != (p * n, n, 1) or s.stride(0) % 4 or \
@@ -170,8 +188,6 @@ def check_inputs(x, bm, cm, dt, a_log, row_start, row_len, init_state):
         raise ValueError(f"init_state: (H, P, N) must be contiguous, the row "
                          f"stride a multiple of 4, the data 16-byte aligned "
                          f"(strides {s.stride()})")
-    if not 1 <= r <= 65535 or tt < 1:
-        raise ValueError(f"{r} rows over {tt} tokens: 1..65535 rows")
     return tt, r, h, p, n
 
 
@@ -261,3 +277,138 @@ def mamba_chunk_scan(x, bm, cm, dt, a_log, *, chunk=64):
         x.reshape(b * t, h, p), bm.reshape(b * t, n), cm.reshape(b * t, n),
         dt.reshape(b * t, h), a_log, rows, lens, s0)
     return y.view(b, t, h, p)
+
+
+# ------------------------------------------------------------------ backward
+_BWD_DIMS = (16, 32, 64)    # P == N, the kernel's instances
+
+
+def mamba_chunk_scan_bwd_plain(x, bm, cm, dt, a_log, row_start, row_len, dy):
+    """The backward's contract in fp32 torch: autograd through
+    ``mamba_chunk_scan_varlen_plain`` (zero initial states) for the
+    upstream gradient ``dy`` (TT, H, P). Returns (dx, dbm, dcm, ddt,
+    da_log), each in its input's dtype."""
+    ins = (x, bm, cm, dt, a_log)
+    leaves = [v.detach().float().requires_grad_(True) for v in ins]
+    s0 = torch.zeros((row_start.shape[0], x.shape[1], x.shape[2],
+                      bm.shape[-1]), dtype=torch.float32, device=x.device)
+    with torch.enable_grad():
+        y, _ = mamba_chunk_scan_varlen_plain(*leaves, row_start, row_len, s0)
+        grads = torch.autograd.grad(y, leaves, dy.float())
+    return tuple(g.to(v.dtype) for g, v in zip(grads, ins))
+
+
+def check_bwd_inputs(x, bm, cm, dt, a_log, row_start, row_len, dy):
+    """The backward kernel's inputs: the forward's (``check_inputs``, no
+    state) with P == N in 16, 32 or 64, and dy (TT, H, P) fp32
+    contiguous. Returns (tt, r, h, p, n)."""
+    tt, r, h, p, n = _check_stream(x, bm, cm, dt, a_log, row_start, row_len)
+    if p != n or p not in _BWD_DIMS:
+        raise ValueError(f"backward: head dim {p} / state dim {n}: the "
+                         f"kernel takes P == N in {_BWD_DIMS}")
+    if dy.dtype is not torch.float32 or dy.shape != (tt, h, p) or \
+            dy.device != x.device or not dy.is_contiguous():
+        _check("dy", dy, torch.float32, (tt, h, p), x.device)
+        raise ValueError("dy: must be contiguous")
+    return tt, r, h, p, n
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd():
+    lib = build.load("mamba_scan_bwd")
+    fn = lib.mamba_scan_bwd
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    fn.argtypes = [ptr, i64, ptr, ptr, i64] + [ptr] * 15 + \
+        [ctypes.c_int] * 6 + [ptr]
+    fn.restype = ctypes.c_int
+    lib.mamba_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.mamba_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def mamba_chunk_scan_bwd(x, bm, cm, dt, a_log, row_start, row_len, dy):
+    """Gradients of ``mamba_chunk_scan_varlen``'s y with zero initial
+    states, for the upstream gradient dy (TT, H, P) fp32: (dx, dbm, dcm,
+    ddt, da_log) in the dtypes of x, bm, cm, dt and a_log (the kernel
+    computes them in fp32); 0 on tokens outside every row. There is no
+    gradient with respect to the initial or final states.
+
+    Tensors on the CPU take the plain version; CUDA tensors launch the
+    kernel (``csrc/mamba_scan_bwd.cu``) on the current stream or raise.
+    Two calls on the same inputs give the same bytes."""
+    if x.device.type == "cpu":
+        return mamba_chunk_scan_bwd_plain(x, bm, cm, dt, a_log, row_start,
+                                          row_len, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    tt, r, h, p, n = check_bwd_inputs(x, bm, cm, dt, a_log, row_start,
+                                      row_len, dy)
+    dev = x.device
+    lib = _bind_bwd()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = tt // CHUNK + r
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = torch.empty((g, h, p, n), **f32)
+    dstates = torch.empty((g, h, p, n), **f32)
+    dx = torch.zeros((tt, h, p), **f32)
+    dbp = torch.zeros((tt, h, n), **f32)
+    dcp = torch.zeros((tt, h, n), **f32)
+    ddt = torch.zeros((tt, h), **f32)
+    da_part = torch.zeros((g, h), **f32)
+    dbm = torch.empty((tt, n), **f32)
+    dcm = torch.empty((tt, n), **f32)
+    da_log = torch.empty((h,), **f32)
+    args = (x.data_ptr(), x.stride(0), bm.data_ptr(), cm.data_ptr(),
+            bm.stride(0), dt.data_ptr(), a_log.data_ptr(),
+            row_start.data_ptr(), row_len.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
+            dbp.data_ptr(), dcp.data_ptr(), ddt.data_ptr(),
+            da_part.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+            da_log.data_ptr(), tt, r, h, p, n, g, stream)
+    with torch.cuda.device(dev):
+        rc = lib.mamba_scan_bwd(*args)
+    if rc != 0:
+        msg = lib.mamba_scan_bwd_error_string(rc).decode()
+        raise RuntimeError(f"mamba_scan_bwd launch failed: {msg} ({rc})")
+    mamba_chunk_scan_bwd.launches += 1
+    return (dx.to(x.dtype), dbm.to(bm.dtype), dcm.to(cm.dtype), ddt,
+            da_log)
+
+
+mamba_chunk_scan_bwd.launches = 0
+
+
+class _ScanTrain(torch.autograd.Function):
+    """y of the scan with zero initial states: the forward through
+    ``mamba_chunk_scan_varlen``, the backward through
+    ``mamba_chunk_scan_bwd`` (each the kernel on the card, the plain
+    version on the CPU). The backward recomputes the chunk states."""
+
+    @staticmethod
+    def forward(ctx, x, bm, cm, dt, a_log, row_start, row_len):
+        s0 = torch.zeros((row_start.shape[0], x.shape[1], x.shape[2],
+                          bm.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+        y, _ = mamba_chunk_scan_varlen(x, bm, cm, dt, a_log, row_start,
+                                       row_len, s0)
+        ctx.save_for_backward(x, bm, cm, dt, a_log, row_start, row_len)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bm, cm, dt, a_log, row_start, row_len = ctx.saved_tensors
+        grads = mamba_chunk_scan_bwd(x, bm, cm, dt, a_log, row_start,
+                                     row_len, dy.float().contiguous())
+        return (*grads, None, None)
+
+
+def mamba_chunk_scan_train(x, bm, cm, dt, a_log, row_start, row_len,
+                           init_state=None):
+    """``mamba_chunk_scan_varlen``'s y (TT, H, P) fp32, differentiable with
+    respect to x, bm, cm, dt and a_log: the training route. Initial states
+    are zero; there is no gradient with respect to a state, so an
+    ``init_state`` raises."""
+    if init_state is not None:
+        raise ValueError("mamba_chunk_scan_train: the backward takes zero "
+                         "initial states and gives no state gradient")
+    return _ScanTrain.apply(x, bm, cm, dt, a_log, row_start, row_len)

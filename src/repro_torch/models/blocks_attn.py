@@ -323,6 +323,26 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
+class _BmmF32(torch.autograd.Function):
+    """``_bmm_f32`` with a gradient (cuBLAS's ``out_dtype`` product has
+    none): the fp32 upstream gradient times the other operand's values in
+    fp32, rounded once to each operand's dtype, as autograd gives for the
+    CPU's fp32 product of the bf16 values. Serving and training both call
+    it; without a gradient it is ``_bmm_f32``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        return (torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype),
+                torch.bmm(a.float().transpose(1, 2), g).to(b.dtype))
+
+
 def moe_top_k(probs, k: int):
     """The k largest entries of each row of ``probs`` and their indices,
     largest first, exact ties broken toward the lower index: the rule of
@@ -330,6 +350,11 @@ def moe_top_k(probs, k: int):
     descending sort keeps equal entries in index order."""
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[:, :k], order[:, :k]
+
+
+def moe_probs(tok, router):
+    """The router's softmax over fp32 x fp32 logits: (N, E) fp32."""
+    return torch.softmax(torch.matmul(tok.float(), router.float()), dim=-1)
 
 
 def moe_route(tok, router, *, num_experts, top_k, capacity_factor=1.25):
@@ -343,9 +368,7 @@ def moe_route(tok, router, *, num_experts, top_k, capacity_factor=1.25):
     ``expert * cap + place`` of the (E * cap) dispatch, a dropped copy's
     (place >= cap) the row ``E * cap`` past it."""
     n, e = tok.shape[0], num_experts
-    logits = torch.matmul(tok.float(), router.float())           # (N, E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = moe_top_k(probs, top_k)                         # (N, K)
+    gates, idx = moe_top_k(moe_probs(tok, router), top_k)        # (N, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     cap = int(max(1, round(n * top_k / e * capacity_factor)))
     e_flat = idx.reshape(-1)                                     # (N*K,)
@@ -356,11 +379,23 @@ def moe_route(tok, router, *, num_experts, top_k, capacity_factor=1.25):
     return gates, idx, slot, cap
 
 
+def moe_aux(probs, idx, *, num_experts, top_k, aux_weight):
+    """The Switch load-balance loss at the reference's rounding points:
+    ``aux_weight * E * sum_e mean(probs)_e * count_e / (N * K)``, the
+    counts of each expert among the (N, K) routed copies exact in fp32."""
+    n, e = probs.shape[0], num_experts
+    me = probs.mean(0)
+    count = (idx.reshape(-1)[:, None] == torch.arange(
+        e, device=idx.device)).sum(0).float()
+    return (aux_weight * e) * torch.sum(me * (count / (n * top_k)))
+
+
 def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
-              norm_eps=1e-5, drops=None):
+              norm_eps=1e-5, drops=None, aux_weight=None):
     """GShard capacity MoE (the reference's ``moe_block``) on one device:
     expert parallelism and expert-TP are 1, so its all_to_all and psum are
-    identities, and the aux loss, which serving drops, is not formed.
+    identities. Serving drops the aux loss and gets x back; training
+    passes ``aux_weight`` and gets (x, aux) (``moe_aux``).
 
     Every token of the (B, T) stream is routed (``moe_route``), pads and
     killed segments included: N = B * T sets the capacity, and a pad ahead
@@ -376,19 +411,23 @@ def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
     e = num_experts
     xn = rms_norm(x, p["mlp_norm"], norm_eps)
     tok = xn.reshape(b * t, d)
-    gates, _, slot, cap = moe_route(tok, p["router"], num_experts=e,
-                                    top_k=top_k,
-                                    capacity_factor=capacity_factor)
+    gates, idx, slot, cap = moe_route(tok, p["router"], num_experts=e,
+                                      top_k=top_k,
+                                      capacity_factor=capacity_factor)
     if drops is not None:
         drops.append((slot == e * cap).sum())
     dispatch = tok.new_zeros((e * cap + 1, d))
     dispatch.index_copy_(0, slot, tok.repeat_interleave(top_k, dim=0))
     disp = dispatch[:-1].view(e, cap, d)
-    g = _bmm_f32(disp, p["moe_gate"].to(x.dtype))
-    u = _bmm_f32(disp, p["moe_up"].to(x.dtype))
+    g = _BmmF32.apply(disp, p["moe_gate"].to(x.dtype))
+    u = _BmmF32.apply(disp, p["moe_up"].to(x.dtype))
     h = (F.silu(g) * u).to(x.dtype)
     y = torch.bmm(h, p["moe_down"].to(x.dtype))                  # (E, C, d)
     back = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
     gathered = back.index_select(0, slot).view(b * t, top_k, d)
     out = (gathered.float() * gates[..., None]).sum(1).to(x.dtype)
-    return x + out.view(b, t, d)
+    out = x + out.view(b, t, d)
+    if aux_weight is None:
+        return out
+    return out, moe_aux(moe_probs(tok, p["router"]), idx, num_experts=e,
+                        top_k=top_k, aux_weight=aux_weight)

@@ -4,8 +4,11 @@ RWKV6, on one device.
 The SSD scan of ``mamba2_chunked`` (padded rows) and ``mamba2_packed``
 (segments of a packed stream) runs through the Mamba2 chunk-scan kernel,
 ``kernels.mamba_scan.mamba_chunk_scan_varlen``: both are a scan over
-independent token runs, each with its own initial state. Everything around
-it stays plain torch with the reference's rounding points: projections,
+independent token runs, each with its own initial state. Training
+(``mamba2_chunked(..., train=True)``) runs it through
+``mamba_chunk_scan_train``, whose backward is the scan's backward kernel.
+Everything around it stays plain torch with the reference's rounding
+points: projections,
 causal conv (bf16 inputs times fp32 ``conv_w``, summed in fp32), SiLU, the
 D residual, the gated RMSNorm and the out-projection. ``mamba2_step``
 (T == 1, padded only) is plain torch, as in the reference.
@@ -25,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba_scan import mamba_chunk_scan_varlen
+from ..kernels.mamba_scan import (mamba_chunk_scan_train,
+                                  mamba_chunk_scan_varlen)
 from .common import dense, rms_norm
 
 
@@ -162,17 +166,38 @@ def _split_xbc(xbc, dil, d_state):
 
 def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
                    conv_width: int, norm_eps=1e-5, init_state=None,
-                   length_mask=None, last_idx=None):
-    """Mamba2 over (B, T) rows (padded serving T > 1). Returns (x + out,
-    final state (B, U) fp32). ``length_mask`` (B, T) marks valid tokens
-    and ``last_idx`` (B,) the last valid slot per row: padded tokens get
-    dt = 0 and lie outside the scan's rows, so the final state is the
-    state after each row's last real token; the conv carry is gathered at
-    ``last_idx``. Outputs at padded slots are garbage."""
+                   length_mask=None, last_idx=None, train=False):
+    """Mamba2 over (B, T) rows (padded serving T > 1, and training).
+    Returns (x + out, final state (B, U) fp32). ``length_mask`` (B, T)
+    marks valid tokens and ``last_idx`` (B,) the last valid slot per row:
+    padded tokens get dt = 0 and lie outside the scan's rows, so the final
+    state is the state after each row's last real token; the conv carry is
+    gathered at ``last_idx``. Outputs at padded slots are garbage.
+
+    ``train``: the training route (the reference's ``train_loss`` calls):
+    rows of equal length T from zero states, the scan through
+    ``mamba_chunk_scan_train`` (differentiable: its backward is the scan's
+    backward kernel on the card), no in-place write on the autograd graph,
+    and no final state (returned as None)."""
     b, t, _ = x.shape
     hl, dil = md["h_local"], md["d_in_local"]
+    if train and (init_state is not None or length_mask is not None or
+                  last_idx is not None):
+        raise ValueError("mamba2_chunked(train=True) takes equal rows from "
+                         "zero states")
     xn = rms_norm(x, p["norm"], norm_eps)
     z, xr, bm, cm, dt = _mamba_project(p, xn)
+    if train:
+        xbc, _ = _causal_conv(torch.cat([xr, bm, cm], dim=-1), p["conv_w"])
+        xbc = F.silu(xbc.float()).to(x.dtype)
+        xr, bm, cm = _split_xbc(xbc.view(b * t, -1), dil, d_state)
+        dev = x.device
+        y = mamba_chunk_scan_train(
+            xr.view(b * t, hl, headdim), bm, cm, dt.reshape(b * t, hl),
+            p["A_log"], torch.arange(b, dtype=torch.int32, device=dev) * t,
+            torch.full((b,), t, dtype=torch.int32, device=dev))
+        return _gated_out(p, x, y.view(b, t, hl, headdim), xr, z,
+                          norm_eps), None
     if length_mask is not None:
         dt = dt * length_mask[..., None].to(dt.dtype)
     if init_state is not None:

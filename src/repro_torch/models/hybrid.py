@@ -4,18 +4,20 @@ one *shared* attention block (and its MLP) applied after every
 Mamba2 layers, and one full-attention spec with a cache layer per
 shared-block invocation.
 
-Serving only: packed steps run the Mamba2 scans through the chunk-scan
-kernel (``blocks_seq.mamba2_packed``) and the shared attention through the
-varlen kernel; padded T > 1 steps through the chunk-scan kernel
+Serving: packed steps run the Mamba2 scans through the chunk-scan kernel
+(``blocks_seq.mamba2_packed``) and the shared attention through the varlen
+kernel; padded T > 1 steps through the chunk-scan kernel
 (``mamba2_chunked``) and plain-torch attention; padded T == 1 steps through
-``mamba2_step`` (plain torch) and the paged decode kernel. Training is a
-later slice.
+``mamba2_step`` (plain torch) and the paged decode kernel. Training
+(``train_loss``): the scans through the chunk-scan kernel and its backward
+kernel, the shared attention through the dense flash kernels.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -23,10 +25,11 @@ from ..core.spec import KVCacheSpec, attention_spec, mamba_spec
 from . import attention as A
 from . import blocks_attn as BA
 from . import blocks_seq as BS
-from .common import set_matmul_precision
+from .common import rms_norm, set_matmul_precision
 from .lm import DecodeBatch, DecoderLM, unstack
 from .params import MATRICES
-from .tp import embed_lookup
+from .rotary import rope_tables
+from .tp import embed_lookup, logits_local, sharded_softmax_xent
 
 
 class HybridLM(DecoderLM):
@@ -109,11 +112,10 @@ class HybridLM(DecoderLM):
         shapes and scales (normal 0.02; ``conv_w`` 0.2; ``w_out``
         0.02/sqrt(2L); norms and ``D`` ones; ``dt_bias`` and ``A_log``
         zeros), drawn by a ``torch.Generator`` on ``device``. Matrices are
-        bf16 unless ``master``; ``conv_w`` and the vectors stay fp32. The
-        draws differ from the reference's ``jax.random`` ones."""
-        if master:
-            raise NotImplementedError(
-                "hybrid training (fp32 masters) is a later slice")
+        bf16 (serving) or, with ``master``, fp32 like every other leaf
+        (training's masters, the reference's ``PARAM_DTYPE``); ``conv_w``
+        and the vectors are fp32. The draws differ from the reference's
+        ``jax.random`` ones."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -127,16 +129,64 @@ class HybridLM(DecoderLM):
             scale = {"conv_w": 0.2, "w_out": out_scale}.get(name, 0.02)
             w = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=dev) * scale
-            return w.to(torch.bfloat16) if name in MATRICES else w
+            return w.to(torch.bfloat16) if name in MATRICES and \
+                not master else w
 
         return {name: ({n: leaf(n, s) for n, s in shape.items()}
                        if isinstance(shape, dict) else leaf(name, shape))
                 for name, shape in self.param_shapes().items()}
 
     # --------------------------------------------------------------- train
-    def train_loss(self, params, tokens, targets, **_):
-        raise NotImplementedError(
-            "hybrid training: a later slice (mamba2_chunked's backward)")
+    def train_loss(self, params, tokens, targets, *, mm_embeds=None,
+                   mm_mask=None, mrope_pos=None):
+        """Mean next-token cross-entropy of (B, T) ``tokens`` against
+        ``targets`` (the reference's ``_train_body``): per super-block,
+        ``attn_every`` Mamba2 layers (``mamba2_chunked(..., train=True)``)
+        and then the shared attention block (``attn_train``: the dense
+        flash kernels) and its MLP, each super-block recomputed in the
+        backward (``torch.utils.checkpoint``), as the reference
+        checkpoints its scan body; then the tail Mamba2 layers, each
+        recomputed on its own. The hybrid takes no multimodal inputs."""
+        if mm_embeds is not None or mm_mask is not None or \
+                mrope_pos is not None:
+            raise ValueError("the hybrid family takes no multimodal inputs")
+        cfg = self.cfg
+        t = tokens.shape[1]
+        x = embed_lookup(tokens, params["embed"])
+        rope = rope_tables(torch.arange(t, dtype=torch.int32,
+                                        device=tokens.device),
+                           cfg.head_dim, cfg.rope_theta)
+        main = unstack(params["mamba_main"])
+        ae = cfg.attn_every
+        for cyc in range(self.n_super):
+            x = checkpoint(self._train_super, x, rope,
+                           main[cyc * ae:(cyc + 1) * ae],
+                           params["shared_attn"], use_reentrant=False)
+        if self.n_tail:
+            for pj in unstack(params["mamba_tail"]):
+                x = checkpoint(self._train_mamba, x, pj, use_reentrant=False)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = logits_local(x, self._unembed(params))
+        return sharded_softmax_xent(logits, targets)
+
+    def _train_mamba(self, x, pj):
+        cfg = self.cfg
+        x, _ = BS.mamba2_chunked(
+            pj, x, self.md, d_state=cfg.mamba_d_state,
+            headdim=cfg.mamba_headdim, conv_width=cfg.mamba_conv_width,
+            norm_eps=cfg.norm_eps, train=True)
+        return x
+
+    def _train_super(self, x, rope, pjs, shared):
+        """One super-block: its Mamba2 layers, then the shared attention
+        block and MLP."""
+        cfg = self.cfg
+        for pj in pjs:
+            x = self._train_mamba(x, pj)
+        x = BA.attn_train(shared, x, kv_local=self.kv_local,
+                          head_dim=cfg.head_dim, rope=rope,
+                          norm_eps=cfg.norm_eps)
+        return BA.mlp_block(shared, x, cfg.norm_eps)
 
     # --------------------------------------------------------------- serve
     def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,

@@ -1,6 +1,5 @@
-"""Decoder-only LM: the dense family's training loss, and the packed and
-padded serve steps of the dense, MoE and VLM-backbone families
-(``repro/models/lm.py``)."""
+"""Decoder-only LM: the training loss and the packed and padded serve
+steps of the dense, MoE and VLM-backbone families (``repro/models/lm.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -223,43 +222,71 @@ class DecoderLM:
         to call ``backward`` on. Each cycle of the attention pattern is
         recomputed in the backward (``torch.utils.checkpoint``), as the
         reference checkpoints each cycle of its scan, so the forward runs
-        twice per layer and the backward once."""
-        if mm_embeds is not None or mm_mask is not None or \
-                mrope_pos is not None:
-            raise NotImplementedError(
-                "multimodal training: the vlm family is a later slice")
-        if self.is_moe:
-            raise NotImplementedError(
-                "MoE training: the port serves the moe family only")
-        return self._train_body(params, tokens, targets)
+        twice per layer and the backward once.
 
-    def _train_body(self, params, tokens, targets):
+        MoE: each layer's Switch load-balance loss is summed over the
+        layers, divided by the number of cycles and added. VLM: the
+        multimodal batch (``mm_embeds`` (B, T, d), ``mm_mask`` (B, T),
+        ``mrope_pos`` (3, B, T)) splices the image embeddings in where
+        ``mm_mask`` is set and rotates by M-RoPE at ``mrope_pos``; without
+        it a VLM trains on text with RoPE at ``arange(T)``, as the
+        reference does."""
+        mm = (mm_embeds, mm_mask, mrope_pos)
+        if any(v is not None for v in mm):
+            if self.cfg.family != "vlm":
+                raise ValueError(f"family {self.cfg.family!r} takes no "
+                                 "multimodal inputs")
+            if any(v is None for v in mm):
+                raise ValueError("mm_embeds, mm_mask and mrope_pos go "
+                                 "together")
+        return self._train_body(params, tokens, targets, *mm)
+
+    def _train_body(self, params, tokens, targets, mm_embeds=None,
+                    mm_mask=None, mrope_pos=None):
         cfg = self.cfg
         t = tokens.shape[1]
         x = embed_lookup(tokens, params["embed"])
-        rope = rope_tables(torch.arange(t, dtype=torch.int32,
-                                        device=tokens.device),
-                           cfg.head_dim, cfg.rope_theta)
+        if mm_embeds is not None:
+            x = torch.where(mm_mask[..., None], mm_embeds.to(x.dtype), x)
+            rope = mrope_tables(mrope_pos, cfg.head_dim, cfg.rope_theta)
+        else:
+            rope = rope_tables(torch.arange(t, dtype=torch.int32,
+                                            device=tokens.device),
+                               cfg.head_dim, cfg.rope_theta)
         layers = self._layer_params(params)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device) \
+            if self.is_moe else None
         for cycle in range(self.cycles):
             pjs = layers[cycle * self.period:(cycle + 1) * self.period]
-            x = checkpoint(self._train_cycle, x, rope, pjs,
-                           use_reentrant=False)
+            x, aux = checkpoint(self._train_cycle, x, rope, pjs, aux,
+                                use_reentrant=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_local(x, self._unembed(params))
-        return sharded_softmax_xent(logits, targets)
+        loss = sharded_softmax_xent(logits, targets)
+        if aux is not None:
+            loss = loss + aux / max(1, self.cycles)
+        return loss
 
-    def _train_cycle(self, x, rope, pjs):
+    def _train_cycle(self, x, rope, pjs, aux=None):
         """One cycle of the pattern: each layer's attention (its kind's
-        window) and MLP."""
+        window) and MLP, or MoE with its aux loss added to ``aux`` (None
+        for a dense model). Returns (x, aux)."""
         cfg = self.cfg
         for pj, kind in zip(pjs, self.period_kinds):
             x = BA.attn_train(
                 pj, x, kv_local=self.kv_local, head_dim=cfg.head_dim,
                 rope=rope, window=cfg.sliding_window if kind == "swa" else 0,
                 norm_eps=cfg.norm_eps)
-            x = BA.mlp_block(pj, x, cfg.norm_eps)
-        return x
+            if self.is_moe:
+                x, a = BA.moe_block(
+                    pj, x, num_experts=cfg.num_experts,
+                    top_k=cfg.experts_per_token,
+                    capacity_factor=cfg.capacity_factor,
+                    norm_eps=cfg.norm_eps, aux_weight=cfg.router_aux_weight)
+                aux = aux + a
+            else:
+                x = BA.mlp_block(pj, x, cfg.norm_eps)
+        return x, aux
 
     # --------------------------------------------------------------- serve
     def _layer_views(self, buffer_flat: torch.Tensor):

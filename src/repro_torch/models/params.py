@@ -68,10 +68,19 @@ def squeeze_tp(name: str, a, axes=None) -> np.ndarray:
     return a
 
 
-def expand_tp(name: str, a: np.ndarray) -> np.ndarray:
+def expand_tp(name: str, a: np.ndarray, axes=None) -> np.ndarray:
     """The inverse of ``squeeze_tp``: the reference's expanded layout."""
-    ax = _TP_AXIS.get(name)
+    ax = (_TP_AXIS if axes is None else axes).get(name)
     return a if ax is None else np.expand_dims(a, ax)
+
+
+def subtree_tp_axes(parent: str):
+    """The leaf-name -> tp-axis map of the leaves under the dict key
+    ``parent`` of a hybrid tree (``mamba_main`` / ``mamba_tail``,
+    ``shared_attn``); None (the dense map) for any other key."""
+    if parent in ("mamba_main", "mamba_tail"):
+        return _HYBRID_TP_AXIS["mamba"]
+    return _HYBRID_TP_AXIS.get(parent)
 
 
 def _leaf(name: str, a, device, master: bool, axes=None) -> torch.Tensor:
@@ -94,8 +103,7 @@ def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
         out = {}
         for name, a in tree.items():
             if isinstance(a, dict):
-                axes = _HYBRID_TP_AXIS["shared_attn" if name == "shared_attn"
-                                       else "mamba"]
+                axes = subtree_tp_axes(name)
                 out[name] = {n: _leaf(n, x, device, master, axes)
                              for n, x in a.items()}
             else:

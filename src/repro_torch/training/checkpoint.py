@@ -3,8 +3,9 @@ checkpoint.py``), with async save.
 
 Format: one ``.npy`` per leaf plus ``meta.json``, each file named as the
 reference names it (``jax.tree_util.keystr`` of the leaf's path, sanitised:
-``params_layers_q.npy``, ``opt_.mu_embed.npy``, ``opt_.step.npy``) and
-holding the reference's layout, with its size-1 tp axis. So a checkpoint
+``params_layers_q.npy``, ``opt_.mu_embed.npy``, ``opt_.step.npy``,
+``params_mamba_main_w_z.npy``) and holding the reference's layout, with its
+size-1 tp axis where the leaf's subtree puts it. So a checkpoint
 written by the reference's ``Trainer`` restores here, and one written here
 restores there. Saves snapshot every leaf to host memory synchronously and
 write the files on a background thread (``wait()`` joins it before the
@@ -23,28 +24,34 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.params import expand_tp, squeeze_tp, tensor_from_numpy
+from ..models.params import (expand_tp, squeeze_tp, subtree_tp_axes,
+                             tensor_from_numpy)
 
 
-def _walk(node, path: str, name: str, out: List[Tuple[str, str, Any]]):
-    """(keystr path, leaf name, leaf) in the reference's flatten order:
-    dict keys sorted, NamedTuple fields in order."""
+def _walk(node, path: str, name: str, parent: str,
+          out: List[Tuple[str, str, str, Any]]):
+    """(keystr path, leaf name, parent dict key, leaf) in the reference's
+    flatten order: dict keys sorted, NamedTuple fields in order."""
     if isinstance(node, dict):
         for key in sorted(node):
-            _walk(node[key], f"{path}['{key}']", key, out)
+            _walk(node[key], f"{path}['{key}']", key, name, out)
     elif hasattr(node, "_fields"):
         for field in node._fields:
-            _walk(getattr(node, field), f"{path}.{field}", field, out)
+            _walk(getattr(node, field), f"{path}.{field}", field, name, out)
     else:
-        out.append((path, name, node))
+        out.append((path, name, parent, node))
 
 
-def _leaf_files(tree) -> List[Tuple[str, str, Any]]:
-    """(file name, leaf name, leaf) for every leaf of ``tree``."""
-    out: List[Tuple[str, str, Any]] = []
-    _walk(tree, "", "", out)
+def _leaf_files(tree) -> List[Tuple[str, str, Any, Any]]:
+    """(file name, leaf name, tp-axis map, leaf) for every leaf of
+    ``tree``; the map is the leaf's subtree's (a hybrid's ``mamba_main``
+    / ``mamba_tail`` / ``shared_attn`` leaves carry their tp axis
+    elsewhere than the dense tree's)."""
+    out: List[Tuple[str, str, str, Any]] = []
+    _walk(tree, "", "", "", out)
     return [(re.sub(r"[^A-Za-z0-9_.-]+", "_", path).strip("_") + ".npy",
-             name, leaf) for path, name, leaf in out]
+             name, subtree_tp_axes(parent), leaf)
+            for path, name, parent, leaf in out]
 
 
 def _rebuild(node, it):
@@ -56,11 +63,11 @@ def _rebuild(node, it):
     return next(it)
 
 
-def _to_host(name: str, t: torch.Tensor) -> np.ndarray:
+def _to_host(name: str, t: torch.Tensor, axes) -> np.ndarray:
     if t.dtype not in (torch.float32, torch.int32):
         raise TypeError(f"{name}: checkpoints hold float32 and int32 "
                         f"leaves, not {t.dtype}")
-    return expand_tp(name, t.detach().cpu().numpy())
+    return expand_tp(name, t.detach().cpu().numpy(), axes)
 
 
 class Checkpointer:
@@ -76,7 +83,8 @@ class Checkpointer:
         self.wait()
         # snapshot to host memory synchronously, then write the files on a
         # background thread (async checkpointing)
-        host = [(f, _to_host(name, t)) for f, name, t in _leaf_files(tree)]
+        host = [(f, _to_host(name, t, axes))
+                for f, name, axes, t in _leaf_files(tree)]
         meta = {"step": int(step), "extra": extra or {},
                 "leaves": [f for f, _ in host]}
 
@@ -130,11 +138,11 @@ class Checkpointer:
         with open(os.path.join(d, "meta.json")) as fh:
             meta = json.load(fh)
         leaves = _leaf_files(target_tree)
-        if [f for f, _, _ in leaves] != list(meta["leaves"]):
+        if [f for f, _, _, _ in leaves] != list(meta["leaves"]):
             raise ValueError(f"{d}: tree structure changed")
         out = []
-        for fname, name, ref in leaves:
-            arr = squeeze_tp(name, np.load(os.path.join(d, fname)))
+        for fname, name, axes, ref in leaves:
+            arr = squeeze_tp(name, np.load(os.path.join(d, fname)), axes)
             if arr.shape != tuple(ref.shape):
                 raise ValueError(f"{fname}: shape {arr.shape}, expected "
                                  f"{tuple(ref.shape)}")

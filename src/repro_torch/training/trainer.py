@@ -11,8 +11,14 @@
   * straggler monitor: per-step wall-time EMA and a slow-step counter.
 
 ``zero1`` is accepted for the reference's config: on one card the data
-axis has size 1 and the optimizer state stays whole. The reference's
-``extra_batch`` hook (multimodal inputs) waits for the vlm family.
+axis has size 1 and the optimizer state stays whole.
+
+``extra_batch`` (the reference's hook): ``tokens -> {name: array}`` of
+extra ``train_loss`` arguments for a step's batch (a VLM's
+``mm_embeds`` / ``mm_mask`` / ``mrope_pos``), split per micro-batch along
+the batch axis: axis 1 of ``mrope_pos`` (3, B, T), axis 0 of the others.
+(The reference reshapes axis 0 of every extra, which cannot split a
+(3, B, T) ``mrope_pos``.)
 """
 from __future__ import annotations
 
@@ -46,11 +52,17 @@ class TrainerConfig:
     max_restores: int = 3
 
 
+def _batch_axis(name: str) -> int:
+    return 1 if name == "mrope_pos" else 0
+
+
 class Trainer:
-    def __init__(self, model, adamw: opt.AdamWConfig, tcfg: TrainerConfig):
+    def __init__(self, model, adamw: opt.AdamWConfig, tcfg: TrainerConfig,
+                 extra_batch: Optional[Callable] = None):
         self.model = model
         self.adamw = adamw
         self.tcfg = tcfg
+        self.extra_batch = extra_batch or (lambda tokens: {})
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
         # straggler stats
         self.step_ema: Optional[float] = None
@@ -59,16 +71,20 @@ class Trainer:
 
     # ------------------------------------------------------------------- init
     def init_state(self, seed: int = 0, device="cuda"):
-        """fp32 master params from ``seed`` (``DecoderLM.init``) and a
+        """fp32 master params from ``seed`` (the model's ``init(...,
+        master=True)``: the dense, MoE, VLM and hybrid families) and a
         fresh optimizer state, on ``device``."""
         params = self.model.init(seed, device=resolve_device(device),
                                  master=True)
         return params, opt.init(params)
 
     # ------------------------------------------------------------------- step
-    def _step(self, params, tokens, targets):
+    def _step(self, params, tokens, targets, extras=None):
         """Gradients of the mean micro-batch loss, summed in fp32 in the
-        params' ``.grad`` buffers. Returns (mean loss tensor, grads tree)."""
+        params' ``.grad`` buffers. ``extras``: ``train_loss``'s extra
+        arguments for the whole batch. Returns (mean loss tensor, grads
+        tree)."""
+        extras = extras or {}
         n_micro = self.tcfg.micro_batches
         b = tokens.shape[0]
         if b % n_micro:
@@ -81,7 +97,10 @@ class Trainer:
         lsum = None
         for i in range(n_micro):
             sl = slice(i * mb, (i + 1) * mb)
-            loss = self.model.train_loss(params, tokens[sl], targets[sl])
+            ex = {k: v.narrow(_batch_axis(k), i * mb, mb)
+                  for k, v in extras.items()}
+            loss = self.model.train_loss(params, tokens[sl], targets[sl],
+                                         **ex)
             loss.backward()
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
@@ -105,10 +124,12 @@ class Trainer:
         dev = next(opt.leaves(params)).device
         while step < num_steps:
             tokens_np, targets_np = dataset.batch_at(step)
+            extras = {k: torch.as_tensor(np.asarray(v)).to(dev)
+                      for k, v in self.extra_batch(tokens_np).items()}
             t0 = time.perf_counter()
             loss_t, grads = self._step(
                 params, torch.from_numpy(tokens_np).to(dev),
-                torch.from_numpy(targets_np).to(dev))
+                torch.from_numpy(targets_np).to(dev), extras)
             loss = float(loss_t)
             # ---- NaN watchdog: restore + skip the poisoned step (before
             # the in-place update touches params or moments)

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import jax  # noqa: E402
 
@@ -496,8 +496,12 @@ def test_build_model_and_later_slices():
         assert [k for k, _ in a] == [k for k, _ in b]
         for (k, x), (_, y) in zip(a, b):
             assert x.shape == y.shape and x.dtype == y.dtype, (arch, k)
-    with pytest.raises(NotImplementedError):
-        model.train_loss(None, None, None)
+        with pytest.raises(NotImplementedError):     # a later slice
+            later.train_loss(None, None, None)
+    # the hybrid trains (test_torch_train_hybrid.py holds it to JAX)
+    tok = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    loss = model.train_loss(model.init(0, "cpu", master=True), tok, tok)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
     # the port's seeded init has the bridged tree's shapes and dtypes
     _, bridged = port_model()
     own = model.init(seed=0, device="cpu")

@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -328,8 +328,9 @@ def test_kernel_wrappers_accept_the_new_group_sizes():
 def test_build_model_params_and_init():
     """``build_model`` returns a ``DecoderLM`` for both MoE configs; the
     bridged tree and the port's seeded init have the same leaves, shapes
-    and dtypes (router fp32, experts bf16, no dense MLP); MoE training
-    raises."""
+    and dtypes (router fp32, experts bf16, no dense MLP); MoE trains
+    from fp32 masters (``test_torch_train_moe_vlm.py`` holds it to
+    JAX)."""
     for name, (arch, ov) in MOE.items():
         cfg = reduced(ARCHS[arch], **ov)
         model = build_model(cfg)
@@ -350,8 +351,9 @@ def test_build_model_params_and_init():
         ratio = float(lay["moe_down"].float().std() /
                       lay["moe_gate"].float().std())
         assert abs(ratio - (2 * cfg.num_layers) ** -0.5) < 0.05
-        with pytest.raises(NotImplementedError):
-            model.train_loss(None, None, None)
+        tok = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+        loss = model.train_loss(model.init(0, "cpu", master=True), tok, tok)
+        assert loss.dtype == torch.float32 and torch.isfinite(loss)
 
 
 # ---------------------------------------------------------- serve step

@@ -25,7 +25,7 @@ import pytest
 
 pytest.importorskip("hypothesis")
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import hypothesis.strategies as st  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 from conftest import assert_greedy_equiv, make_engine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402

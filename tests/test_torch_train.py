@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import jax  # noqa: E402
 
@@ -104,9 +104,11 @@ def test_loss_and_grads_match_jax(arch):
 
 
 def test_train_loss_rejects_multimodal_arguments():
+    """Only the vlm family takes a multimodal batch (its training is held
+    to JAX in ``test_torch_train_moe_vlm.py``)."""
     model, params = _port("granite-3-2b", get_model("granite-3-2b")[2])
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         model.train_loss(params, tok, tok, mm_embeds=torch.zeros(1))
 
 

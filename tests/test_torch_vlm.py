@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # see scripts/torch_cpu_first_vml_call.py
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -219,5 +219,14 @@ def test_build_model_and_params():
     for (k, x), (_, y) in zip(a, b):
         assert x.shape == y.shape and x.dtype == y.dtype, k
     assert own["layers"]["q_bias"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):         # multimodal training
-        model.train_loss(own, None, None, mm_embeds=torch.zeros(1))
+    # multimodal training: the three inputs go together
+    tok = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    with pytest.raises(ValueError):
+        model.train_loss(own, tok, tok, mm_embeds=torch.zeros(1))
+    pos = torch.arange(8, dtype=torch.int32).expand(2, 8)
+    loss = model.train_loss(
+        model.init(seed=0, device="cpu", master=True), tok, tok,
+        mm_embeds=torch.full((2, 8, cfg.d_model), 0.05),
+        mm_mask=torch.arange(8).expand(2, 8) < 2,
+        mrope_pos=torch.stack([pos] * 3))
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
