@@ -58,9 +58,11 @@ kernel): phase 2c also holds the scan's backward kernel
 (``mamba_chunk_scan_bwd``, csrc/mamba_scan_bwd.cu) against its plain
 version (autograd through the plain scan) at zamba2-1.2b's training shape
 (2 rows of 2048, H = P = N = 64), on ragged rows and at the reduced
-widths (H 8, P = N = 16): every gradient within MAMBA_BWD_TOL, repeatable
-bytes, its time per call beside the plain version's and the bound, every
-instance's ptxas line. Phase 5b trains full-width zamba2-1.2b,
+widths (H 8, P = N = 16) and on H 6 over a partial head group (P = N =
+32): every gradient within MAMBA_BWD_TOL, repeatable bytes, dx, dB, dC
+and ddt 0 outside rows, its time per call and each of its two launches'
+device time beside the plain version's and the bound, every instance's
+ptxas line and HGMMA count. Phase 5b trains full-width zamba2-1.2b,
 qwen2-vl-2b (a seeded image span in every row) and qwen3-moe-235b-a22b
 at full per-layer width (1 of 94 layers) 4 steps each from fp32 masters,
 with exact scan and dense launch counts per micro-batch, ms per step,
@@ -973,8 +975,10 @@ def mamba_bwd_cases():
     """(name, row_start, row_len, TT, H, P, N) of scan-backward calls:
     zamba2-1.2b's training micro-batch (2 rows of 2048, H = P = N = 64),
     ragged rows (an empty one, a one-token one, rows ending mid-chunk,
-    gaps) at zamba2's widths, and the reduced configs' widths (H 8,
-    P = N = 16) on ragged rows."""
+    gaps) at zamba2's widths, the reduced configs' widths (H 8,
+    P = N = 16) on ragged rows and on 40 rows, H 6 at P = N = 32, whose
+    last head group (``kernel.HEAD_GROUP`` 4) holds 2 heads, and 48 rows
+    of at most one chunk each at zamba2's widths."""
     def packed(lens):
         return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
 
@@ -984,6 +988,18 @@ def mamba_bwd_cases():
          64, 64, 64),
         ("reduced ragged", *packed([256, 150, 1, 0, 60, 45]), 512, 8, 16,
          16),
+        # H 6 over head groups of 4 and 2 (P = N = 32): rows that end
+        # mid-chunk in both groups, a gap and an empty row
+        ("ragged across a head-group edge", [0, 70, 250, 250],
+         [70, 129, 0, 45], 330, 6, 32, 32),
+        # more than 32 rows: the work search's scan spans warps; rows of
+        # at most 3 chunks, so launch A's units form one level
+        ("40 rows", *packed([37 * i % 150 for i in range(40)]), 3232, 8,
+         16, 16),
+        # a packed batch of short sequences: every row at most one chunk,
+        # so launch B's units form one level too
+        ("48 rows of at most 64 tokens",
+         *packed([23 * i % 65 for i in range(48)]), 1600, 64, 64, 64),
     ]
 
 
@@ -1005,15 +1021,18 @@ def phase_mamba_bwd_kernel():
     """The Mamba2 scan's backward kernel (``mamba_chunk_scan_bwd``)
     against its plain version (autograd through the plain scan) on the
     card (``mamba_bwd_cases``): every gradient within MAMBA_BWD_TOL, two
-    calls giving the same bytes, dx 0 outside every row; the time per
-    call (its three launches and the wrapper's zero-filled buffers), the
-    plain version's time, the bound; every instance's ptxas register/spill
-    line (fp32 CUDA-core products: no tensor-core instructions)."""
+    calls giving the same bytes, dx, dB, dC and ddt 0 outside every row;
+    the time per call (its two launches), each launch's device time under
+    ``torch.profiler`` (A: the chunk states, B: the gradients and the
+    sums), the plain version's time, the bound; every instance's ptxas
+    register/spill line and HGMMA count (the phase fails if an instance
+    has none: both launches run their products on the tensor cores)."""
     import torch
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
                                                 mamba_chunk_scan_bwd_plain)
+    from repro_torch.kernels.mamba_scan.kernel import HEAD_GROUP, bwd_plan
 
-    _build_facts("mamba_scan_bwd", "mamba_bwd", 9, exempt=("mamba_bwd",))
+    _build_facts("mamba_scan_bwd", "mamba_bwd", 6, exempt=())
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1043,13 +1062,18 @@ def phase_mamba_bwd_kernel():
         inside = np.zeros(tt, bool)
         for st, ln in zip(starts, lens):
             inside[st:st + ln] = True
-        if bool((got[0][torch.tensor(~inside, device=dev)] != 0).any()):
-            raise AssertionError(f"mamba bwd {name}: dx not 0 outside rows")
+        out = torch.tensor(~inside, device=dev)
+        for label, a in zip(("dx", "dbm", "dcm", "ddt"), got[:4]):
+            if bool((a[out] != 0).any()):
+                raise AssertionError(f"mamba bwd {name}: {label} not 0 "
+                                     "outside rows")
 
         def kern():
             return mamba_chunk_scan_bwd(*args)
 
         ms = cuda_time_ms(kern, iters=10)
+        dev_a = device_ms(kern, "mamba_bwd_states_kernel")
+        dev_b = device_ms(kern, "mamba_bwd_chunk_kernel")
         plain_ms = cuda_time_ms(lambda: mamba_chunk_scan_bwd_plain(*args),
                                 iters=3, warmup=1)
         live = int(np.sum(lens))
@@ -1063,17 +1087,21 @@ def phase_mamba_bwd_kernel():
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
+        plan = bwd_plan(tt, len(lens), H, P, N)
         log(f"[kernel mamba_scan_bwd] {name} H={H} P={P} N={N} rows="
-            f"{list(map(int, lens))}: max abs err {'; '.join(errs)}; "
-            f"repeatable=True zero_outside_rows=True ms={ms:.4f} (per call,"
-            f" 3 launches) plain_ms={plain_ms:.4f} library_ms=none (no "
-            f"single call) bound_ms={bound:.5f} ({by}; {flops / 1e9:.3f} "
-            f"GFLOP, {nbytes / 1e6:.2f} MB) share_of_bound={bound / ms:.4f}"
-            f" [{card()}]")
+            f"{list(map(int, lens))} blocks A={plan.blocks_a} B="
+            f"{plan.blocks_b} (head groups of {HEAD_GROUP}): max abs err "
+            f"{'; '.join(errs)}; repeatable=True zero_outside_rows=True "
+            f"(dx, dB, dC, ddt) ms={ms:.4f} (per call, 2 launches; device "
+            f"ms A={dev_a:.4f} B={dev_b:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms=none (no single call) bound_ms={bound:.5f} ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
+            f"share_of_bound={bound / ms:.4f} [{card()}]")
         results.append(dict(case=name, err=max(
             (a.float() - c.float()).abs().max().item()
-            for a, c in zip(got, want)), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by))
+            for a, c in zip(got, want)), ms=ms, device_a_ms=dev_a,
+            device_b_ms=dev_b, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by))
         del args, got, again, want
     return results
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -281,6 +282,54 @@ def mamba_chunk_scan(x, bm, cm, dt, a_log, *, chunk=64):
 
 # ------------------------------------------------------------------ backward
 _BWD_DIMS = (16, 32, 64)    # P == N, the kernel's instances
+HEAD_GROUP = 4              # heads of one launch-B block (the .cu's kGroup)
+STATE_UNIT = 4              # chunks of one launch-A block (the .cu's kKA)
+
+
+class BwdPlan(NamedTuple):
+    """The backward kernel's launch plan (``csrc/mamba_scan_bwd.cu``) for
+    TT tokens in R rows of H heads of P x N, sized without reading the
+    row lengths (the host never sees them).
+
+    * ``blocks_a``: launch A, one block per (unit, head), a row's chunks
+      but its last cut into units of STATE_UNIT in order (at most
+      TT // (64 STATE_UNIT) + R units over all rows), heads innermost.
+    * ``blocks_b``: launch B, ``tiles`` blocks that zero the outputs of
+      ZERO_TILE-token tiles outside every row, then one block per (chunk,
+      head group) of every chunk (at most ``chunks`` = TT // 64 + R), a
+      row's chunks in reverse, groups innermost.
+    * Both number the rows' chunks level by level (every row's first,
+      then every row's second, ...: the chains of all rows advance
+      together); a block waits only on its row's previous chunk, which
+      has the smaller ticket.
+    * scratch: ``states`` (chunks, H, P, N) fp32, each chunk's S_in from
+      launch A; ``carry`` (R, H, P, N) fp32, the dS hand-off of launch B;
+      ``parts`` (2, TT, groups, N) fp32, each head group's dB and dC sums;
+      ``da_part`` (chunks, H) fp32; ``sync`` int32 of the stream scratch:
+      the ticket and done counter, a flag per (row, head), a counter per
+      chunk."""
+    groups: int
+    chunks: int
+    tiles: int
+    blocks_a: int
+    blocks_b: int
+    states: tuple
+    carry: tuple
+    parts: tuple
+    da_part: tuple
+    sync: int
+
+
+def bwd_plan(tt, r, h, p, n):
+    groups = -(-h // HEAD_GROUP)
+    chunks = tt // CHUNK + r
+    tiles = -(-tt // ZERO_TILE)
+    return BwdPlan(groups=groups, chunks=chunks, tiles=tiles,
+                   blocks_a=(tt // CHUNK // STATE_UNIT + r) * h,
+                   blocks_b=tiles + chunks * groups,
+                   states=(chunks, h, p, n), carry=(r, h, p, n),
+                   parts=(2, tt, groups, n), da_part=(chunks, h),
+                   sync=_SYNC_BASE + r * h + chunks)
 
 
 def mamba_chunk_scan_bwd_plain(x, bm, cm, dt, a_log, row_start, row_len, dy):
@@ -329,13 +378,16 @@ def _bind_bwd():
 def mamba_chunk_scan_bwd(x, bm, cm, dt, a_log, row_start, row_len, dy):
     """Gradients of ``mamba_chunk_scan_varlen``'s y with zero initial
     states, for the upstream gradient dy (TT, H, P) fp32: (dx, dbm, dcm,
-    ddt, da_log) in the dtypes of x, bm, cm, dt and a_log (the kernel
-    computes them in fp32); 0 on tokens outside every row. There is no
-    gradient with respect to the initial or final states.
+    ddt, da_log) in the dtypes of x, bm, cm, dt and a_log; 0 on tokens
+    outside every row. There is no gradient with respect to the initial or
+    final states.
 
     Tensors on the CPU take the plain version; CUDA tensors launch the
-    kernel (``csrc/mamba_scan_bwd.cu``) on the current stream or raise.
-    Two calls on the same inputs give the same bytes."""
+    kernel (``csrc/mamba_scan_bwd.cu``, two launches on the plan of
+    ``bwd_plan``) on the current stream or raise. The kernel writes every
+    output in its final dtype (dx, dB and dC in bf16) and every element of
+    it, so nothing is zero-filled. Two calls on the same inputs give the
+    same bytes."""
     if x.device.type == "cpu":
         return mamba_chunk_scan_bwd_plain(x, bm, cm, dt, a_log, row_start,
                                           row_len, dy)
@@ -346,33 +398,32 @@ def mamba_chunk_scan_bwd(x, bm, cm, dt, a_log, row_start, row_len, dy):
     dev = x.device
     lib = _bind_bwd()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    g = tt // CHUNK + r
+    plan = bwd_plan(tt, r, h, p, n)
     f32 = dict(dtype=torch.float32, device=dev)
-    states = torch.empty((g, h, p, n), **f32)
-    dstates = torch.empty((g, h, p, n), **f32)
-    dx = torch.zeros((tt, h, p), **f32)
-    dbp = torch.zeros((tt, h, n), **f32)
-    dcp = torch.zeros((tt, h, n), **f32)
-    ddt = torch.zeros((tt, h), **f32)
-    da_part = torch.zeros((g, h), **f32)
-    dbm = torch.empty((tt, n), **f32)
-    dcm = torch.empty((tt, n), **f32)
+    dx = torch.empty((tt, h, p), dtype=x.dtype, device=dev)
+    dbm = torch.empty((tt, n), dtype=bm.dtype, device=dev)
+    dcm = torch.empty((tt, n), dtype=cm.dtype, device=dev)
+    ddt = torch.empty((tt, h), **f32)
     da_log = torch.empty((h,), **f32)
+    states = torch.empty(plan.states, **f32)
+    carry = torch.empty(plan.carry, **f32)
+    parts = torch.empty(plan.parts, **f32)
+    da_part = torch.empty(plan.da_part, **f32)
+    sync = stream_scratch(dev, stream, plan.sync)
     args = (x.data_ptr(), x.stride(0), bm.data_ptr(), cm.data_ptr(),
             bm.stride(0), dt.data_ptr(), a_log.data_ptr(),
             row_start.data_ptr(), row_len.data_ptr(), dy.data_ptr(),
-            states.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
-            dbp.data_ptr(), dcp.data_ptr(), ddt.data_ptr(),
-            da_part.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
-            da_log.data_ptr(), tt, r, h, p, n, g, stream)
+            dx.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), ddt.data_ptr(),
+            da_log.data_ptr(), states.data_ptr(), carry.data_ptr(),
+            parts.data_ptr(), da_part.data_ptr(), sync.data_ptr(), tt, r, h,
+            p, plan.blocks_a, plan.blocks_b, stream)
     with torch.cuda.device(dev):
         rc = lib.mamba_scan_bwd(*args)
     if rc != 0:
         msg = lib.mamba_scan_bwd_error_string(rc).decode()
         raise RuntimeError(f"mamba_scan_bwd launch failed: {msg} ({rc})")
     mamba_chunk_scan_bwd.launches += 1
-    return (dx.to(x.dtype), dbm.to(bm.dtype), dcm.to(cm.dtype), ddt,
-            da_log)
+    return dx, dbm, dcm, ddt, da_log
 
 
 mamba_chunk_scan_bwd.launches = 0

@@ -27,20 +27,16 @@ def test_header_edit_changes_library_path(tmp_path, monkeypatch):
 
 
 def test_flash_libraries_hash_the_shared_header():
-    """Every kernel library of the serve and dense training paths (the
-    three attention kernels and the Mamba2 scan) includes the Hopper
-    helpers' one header, shared from ``kernels/csrc``, and their names
-    cover it; the scan's backward (fp32 CUDA-core products) includes
-    none."""
+    """Every kernel library (the three attention kernels, the Mamba2 scan
+    and, since its tensor-core redesign, the scan's backward) includes the
+    Hopper helpers' one header, shared from ``kernels/csrc``, and their
+    names cover it."""
     header = build.SOURCES["dense_flash"].parents[2] / "csrc" / "hopper.cuh"
     assert set(build.SOURCES) == {"dense_flash", "varlen_flash",
                                   "mamba_scan", "paged_decode",
                                   "mamba_scan_bwd"}
     for name in build.SOURCES:
         files = build._sources(build.SOURCES[name])
-        if name == "mamba_scan_bwd":
-            assert [p.name for p in files] == [f"{name}.cu"], files
-            continue
         assert [p.name for p in files] == [f"{name}.cu", "hopper.cuh"], files
         assert files[1] == header.resolve()
 

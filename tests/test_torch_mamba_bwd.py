@@ -8,11 +8,19 @@
   every gradient within 1e-4 of the largest |value| (both fp32: the sums
   run in another order, the sequential recurrence against the chunked
   algebra).
-* ``emulate_kernel``: the CUDA kernel's three passes in torch fp64, in
-  its order (chunk states recomputed forward, dS carried in reverse, each
-  chunk's gradients from S_in and dS alone, head and chunk parts summed
-  last), against the plain backward in fp64: 1e-9 relative. The kernel
-  itself cannot run here; this holds its algebra.
+* ``emulate_kernel``: the CUDA kernel's two launches in torch, in its
+  order (chunk-local U_c and the forward state chain; chunks of a row in
+  reverse, chunk-local V_c and the reverse dS chain, each chunk's
+  gradients from S_in and dS alone, dB and dC summed over head groups in
+  a fixed order, then the groups and da_log's chunk parts), against the
+  plain backward in fp64: 1e-9 relative; with every fp32 tensor-core
+  operand as a bf16 hi + lo pair at zamba2's widths, within the card's
+  tolerance. The kernel itself cannot run here; this holds its algebra
+  and its rounding.
+* ``bwd_plan`` and a Python mirror of the device-side work rule
+  (``bwd_items``): grids, head groups, scratch and the reverse ticket
+  order at each P = N. The CUDA mapping itself (``find_unit``) runs only
+  on the card: ``chip_smoke.py`` phase 2c holds it on many-row cases.
 * The training entry (``mamba_chunk_scan_train``, an autograd Function)
   on the CPU gives the plain gradients, refuses an initial state, and the
   kernel's input checks refuse what the kernel does not take.
@@ -31,7 +39,8 @@ from repro.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     mamba_chunk_scan_bwd, mamba_chunk_scan_bwd_plain, mamba_chunk_scan_train)
 from repro_torch.kernels.mamba_scan.kernel import (  # noqa: E402
-    _scan_rows, check_bwd_inputs)
+    HEAD_GROUP, STATE_UNIT, ZERO_TILE, _scan_rows, bwd_plan,
+    check_bwd_inputs)
 
 L = 64
 # (row_start, row_len, TT, H, P, N): ragged rows with a gap, an empty row
@@ -98,88 +107,156 @@ def test_plain_backward_matches_jax_grad(shape):
                        torch.zeros_like(ours[0][torch.from_numpy(~inside)]))
 
 
-def emulate_kernel(x, bm, cm, dt, a_log, row_start, row_len, dy):
-    """``csrc/mamba_scan_bwd.cu``'s algorithm in torch (any float dtype):
-    pass 1 per (row, head) recomputes each chunk's S_in forward and its dS
-    in reverse; pass 2 per (chunk, head) forms every gradient of the chunk
-    from them; pass 3 sums dB and dC over heads and da_log over chunks."""
+def _split(v, tc):
+    """An fp32 tensor-core operand as the kernel multiplies it: a bf16 hi +
+    lo pair when ``tc``, else the value itself and 0 (the algebra alone)."""
+    if not tc:
+        return v, torch.zeros_like(v)
+    hi = v.to(torch.bfloat16).to(v.dtype)
+    return hi, (v - hi).to(torch.bfloat16).to(v.dtype)
+
+
+def _mm(a, b, tc, split_a=True, split_b=True):
+    """a @ b as the kernel's wgmmas take it: hi.hi + hi.lo + lo.hi where both
+    sides are fp32, two products where one side is bf16 (not split)."""
+    ah, al = _split(a, tc and split_a)
+    bh, bl = _split(b, tc and split_b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def bwd_items(row_len, tt, h):
+    """Python mirror of the backward's device-side work rule for grids of
+    ``bwd_plan``'s sizes. Launch A: ticket w -> unit w // h, head w % h,
+    a row's units its chunks but the last in runs of STATE_UNIT, in order
+    (unit k holds chunks k STATE_UNIT ..); launch B: tickets
+    below ``tiles`` zero a tile, the rest -> unit (w - tiles) // groups,
+    head group (w - tiles) % groups, a row's units its chunks from the
+    last. Units are numbered level by level (every row's unit 0 in row
+    order, then every row's unit 1, ...), so all rows' chains advance
+    together. Returns (plan, A items (row, chunk, head) or None, B items
+    ("tile", k), ("chunk", row, chunk, group) or None)."""
+    plan = bwd_plan(tt, len(row_len), h, 16, 16)
+    nch = [-(-int(v) // L) for v in row_len]
+    top = max(nch, default=0)
+    units_a = [(r, k) for k in range(top) for r, n_ in enumerate(nch)
+               if k < -(-(n_ - 1) // STATE_UNIT)]
+    units_b = [(r, n_ - 1 - k) for k in range(top)
+               for r, n_ in enumerate(nch) if k < n_]
+    items_a = []
+    for w in range(plan.blocks_a):
+        u, head = divmod(w, h)
+        items_a.append((*units_a[u], head) if u < len(units_a) else None)
+    items_b = []
+    for w in range(plan.blocks_b):
+        if w < plan.tiles:
+            items_b.append(("tile", w))
+            continue
+        u, grp = divmod(w - plan.tiles, plan.groups)
+        items_b.append(("chunk", *units_b[u], grp) if u < len(units_b)
+                       else None)
+    return plan, items_a, items_b
+
+
+def emulate_kernel(x, bm, cm, dt, a_log, row_start, row_len, dy, tc=False):
+    """``csrc/mamba_scan_bwd.cu``'s algorithm in torch. Launch A: each
+    chunk's state contribution U_c = x^T (cf B) on its own, then the
+    forward chain S_in(c + 1) = exp(lc_last) S_in(c) + U_c, chunk by
+    chunk. Launch B, a row's chunks in reverse: V_c = dy^T (exp(lc) C) on
+    its own, the reverse chain dS(c - 1) = exp(lc_last) dS(c) + V_c, and
+    every gradient of the chunk from S_in and dS; dB and dC summed over
+    each group of HEAD_GROUP heads, then the groups summed in order and
+    da_log over chunks (the last blocks' sums). With ``tc`` every fp32
+    tensor-core operand enters as a bf16 hi + lo pair (``_mm``); the
+    products run in the inputs' float dtype (or fp32 for bf16 inputs) and
+    dx, dB, dC come back in the inputs' dtypes."""
+    dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    xf, bf, cf_ = (v.to(dtype) for v in (x, bm, cm))
+    dt, a_log, dy = (v.to(dtype) for v in (dt, a_log, dy))
     tt, h, p = x.shape
     n = bm.shape[1]
     a = -torch.exp(a_log)
-    chunks = [(int(s) + c * L, min(L, int(ln) - c * L))
-              for s, ln in zip(row_start.tolist(), row_len.tolist())
-              for c in range(-(-int(ln) // L))]
-    g = len(chunks)
-    states = torch.zeros((g, h, p, n), dtype=x.dtype)
-    dstates = torch.zeros_like(states)
+    plan = bwd_plan(tt, len(row_len), h, p, n)
+    tri = torch.ones((L, L), dtype=torch.bool).tril()
 
-    def chunk_of(t0, l_, hh, v, width):
-        out = torch.zeros((L, width), dtype=x.dtype)
-        out[:l_] = v[t0:t0 + l_] if v.dim() == 2 else v[t0:t0 + l_, hh]
+    def chunk(v, t0, l_):
+        out = v.new_zeros((L, *v.shape[1:]))
+        out[:l_] = v[t0:t0 + l_]
         return out
 
-    def decay_of(t0, l_, hh):
-        dtl = torch.zeros(L, dtype=x.dtype)
-        dtl[:l_] = dt[t0:t0 + l_, hh]
-        return dtl, torch.cumsum(dtl * a[hh], 0)
+    def decay(t0, l_):
+        dtl = chunk(dt, t0, l_).T                      # (H, L)
+        lc = torch.cumsum(dtl * a[:, None], 1)
+        last = lc[:, -1:]
+        return dtl, lc, last, torch.exp((last - lc).clamp(max=0))
 
-    # pass 1: chunk states in order, dS in reverse, per (row, head)
-    gi = 0
+    rows = []
+    g = 0
     for s, ln in zip(row_start.tolist(), row_len.tolist()):
-        nch = -(-int(ln) // L)
-        for hh in range(h):
-            st = torch.zeros((p, n), dtype=x.dtype)
-            for c in range(nch):
-                t0, l_ = chunks[gi + c]
-                dtl, lc = decay_of(t0, l_, hh)
-                w = torch.exp((lc[-1] - lc).clamp(max=0)) * dtl
-                states[gi + c, hh] = st
-                st = torch.exp(lc[-1]) * st + (
-                    w[:, None] * chunk_of(t0, l_, hh, x, p)).T @ \
-                    chunk_of(t0, l_, hh, bm, n)
-            ds = torch.zeros((p, n), dtype=x.dtype)
-            for c in reversed(range(nch)):
-                t0, l_ = chunks[gi + c]
-                dtl, lc = decay_of(t0, l_, hh)
-                dstates[gi + c, hh] = ds
-                ds = torch.exp(lc[-1]) * ds + (
-                    torch.exp(lc)[:, None] * chunk_of(t0, l_, hh, dy, p)).T \
-                    @ chunk_of(t0, l_, hh, cm, n)
-        gi += nch
-    # pass 2: one (chunk, head) at a time
-    dx = torch.zeros_like(x)
-    ddt = torch.zeros_like(dt)
-    dbp = torch.zeros((tt, h, n), dtype=x.dtype)
-    dcp = torch.zeros_like(dbp)
-    da_part = torch.zeros((g, h), dtype=x.dtype)
-    tri = torch.ones((L, L), dtype=torch.bool).tril()
-    for gi, (t0, l_) in enumerate(chunks):
-        for hh in range(h):
-            xs, dys = chunk_of(t0, l_, hh, x, p), chunk_of(t0, l_, hh, dy, p)
-            bs, cs = chunk_of(t0, l_, hh, bm, n), chunk_of(t0, l_, hh, cm, n)
-            dtl, lc = decay_of(t0, l_, hh)
-            s_in, ds = states[gi, hh], dstates[gi, hh]
-            last = lc[-1]
-            cf = torch.exp((last - lc).clamp(max=0)) * dtl
-            w = torch.where(tri, torch.exp((lc[:, None] - lc[None])
+        k = -(-int(ln) // L)
+        rows.append([(g + c, int(s) + c * L, min(L, int(ln) - c * L))
+                     for c in range(k)])
+        g += k
+    # launch A
+    states = {}
+    for chunks in rows:
+        st = None
+        for gi, t0, l_ in chunks[:-1]:
+            dtl, lc, last, dec = decay(t0, l_)
+            xs = chunk(xf, t0, l_).permute(1, 2, 0)    # (H, P, L)
+            u = _mm(xs, (dec * dtl)[..., None] * chunk(bf, t0, l_), tc,
+                    split_a=False)
+            st = u if st is None else torch.exp(last)[..., None] * st + u
+            states[gi + 1] = st
+    # launch B
+    dx = torch.zeros((tt, h, p), dtype=dtype)
+    ddt = torch.zeros((tt, h), dtype=dtype)
+    parts = torch.zeros((2, tt, plan.groups, n), dtype=dtype)
+    da_part = torch.zeros((plan.chunks, h), dtype=dtype)
+    for chunks in rows:
+        carry = torch.zeros((h, p, n), dtype=dtype)
+        for gi, t0, l_ in reversed(chunks):
+            dtl, lc, last, dec = decay(t0, l_)
+            cf = dec * dtl
+            el = torch.exp(lc)
+            xs = chunk(xf, t0, l_).transpose(0, 1)     # (H, L, P)
+            dys = chunk(dy, t0, l_).transpose(0, 1)
+            bs, cs = chunk(bf, t0, l_), chunk(cf_, t0, l_)
+            v = _mm(dys.transpose(1, 2), el[..., None] * cs, tc)
+            ds = carry
+            carry = torch.exp(last)[..., None] * ds + v
+            s_in = states.get(gi, torch.zeros_like(ds))
+            dot = (ds * s_in).sum((1, 2))
+            gm = cs @ bs.T                             # exact: bf16 inputs
+            w = torch.where(tri, torch.exp((lc[:, :, None] - lc[:, None])
                                            .clamp(max=0)), 0.0)
-            gm, dxm = cs @ bs.T, dys @ xs.T
-            sc, dg, vv = gm * w * dtl[None], dxm * w * dtl[None], dxm * gm * w
-            sy, sx = dys @ s_in, xs @ ds
-            dx[t0:t0 + l_, hh] = (sc.T @ dys + cf[:, None] * (bs @ ds.T))[:l_]
-            dcp[t0:t0 + l_, hh] = (dg @ bs + torch.exp(lc)[:, None] * sy)[:l_]
-            dbp[t0:t0 + l_, hh] = (dg.T @ cs + cf[:, None] * sx)[:l_]
-            colv = vv.sum(0)
-            ud = torch.exp((last - lc).clamp(max=0)) * (bs * sx).sum(1)
-            dlc = (vv * dtl[None]).sum(1) - colv * dtl + \
-                torch.exp(lc) * (cs * sy).sum(1) - ud * dtl
-            dlc[l_ - 1] += torch.exp(last) * (ds * s_in).sum() + \
-                (ud * dtl).sum()
-            dl = torch.flip(torch.cumsum(torch.flip(dlc, [0]), 0), [0])
-            ddt[t0:t0 + l_, hh] = (colv + ud + dl * a[hh])[:l_]
-            da_part[gi, hh] = (dl * dtl).sum()
-    # pass 3
-    return dx, dbp.sum(1), dcp.sum(1), ddt, da_part.sum(0) * a
+            dm = _mm(dys, xs.transpose(1, 2), tc, split_b=False)
+            dg = dm * w * dtl[:, None]
+            vv = dm * gm * w
+            rowq = (vv * dtl[:, None]).sum(2)
+            colv = vv.sum(1)
+            score = gm * w * dtl[:, None]
+            sx = _mm(xs, ds, tc, split_a=False)
+            uu = (bs * sx).sum(2)
+            db = cf[..., None] * sx + _mm(dg.transpose(1, 2), cs, tc,
+                                          split_b=False)
+            bd = _mm(bs, ds.transpose(1, 2), tc, split_a=False)
+            dxc = cf[..., None] * bd + _mm(score.transpose(1, 2), dys, tc)
+            sy = _mm(dys, s_in, tc)
+            rr = el * (cs * sy).sum(2)
+            dc = el[..., None] * sy + _mm(dg, bs, tc, split_b=False)
+            dlc = rowq - colv * dtl + rr - cf * uu
+            dlc[:, l_ - 1] += torch.exp(last[:, 0]) * dot + (cf * uu).sum(1)
+            run = torch.flip(torch.cumsum(torch.flip(dlc, [1]), 1), [1])
+            da_part[gi] = (run * dtl).sum(1)
+            dx[t0:t0 + l_] = dxc.transpose(0, 1)[:l_]
+            ddt[t0:t0 + l_] = (colv + dec * uu + a[:, None] * run).T[:l_]
+            for k in range(plan.groups):
+                hs = slice(k * HEAD_GROUP, (k + 1) * HEAD_GROUP)
+                parts[0, t0:t0 + l_, k] = db[hs].sum(0)[:l_]
+                parts[1, t0:t0 + l_, k] = dc[hs].sum(0)[:l_]
+    dbm, dcm = parts.sum(2)
+    return (dx.to(x.dtype), dbm.to(bm.dtype), dcm.to(cm.dtype), ddt,
+            da_part.sum(0) * a)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:1], ids=["ragged-P16"])
@@ -208,6 +285,112 @@ def test_kernel_algorithm_matches_plain_backward(shape):
     for name, a, b in zip(NAMES, ours, theirs):
         assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max()), \
             name
+
+
+# (row_start, row_len, TT, H, P, N): zamba2-1.2b's widths (H = P = N = 64)
+# on two 1024-token rows and on ragged rows (an empty one, a one-token one,
+# rows ending mid-chunk, gaps); P = N = 32 with H 6 (a last head group of
+# 2); the reduced configs' widths (H 8, P = N = 16)
+EMULATED_BWD = {
+    "zamba2 widths 2 x 1024": ([0, 1024], [1024, 1024], 2048, 64, 64, 64),
+    "zamba2 widths ragged": ([0, 300, 301, 700, 1800],
+                             [300, 0, 1, 1000, 47], 1900, 64, 64, 64),
+    "P=N=32 H=6 ragged": ([0, 70, 200], [70, 129, 0], 330, 6, 32, 32),
+    "reduced P=N=16 H=8": ([0, 256, 406, 407, 407, 467],
+                           [256, 150, 1, 0, 60, 45], 512, 8, 16, 16),
+}
+# chip_smoke.py's MAMBA_BWD_TOL: bf16 gradients (dx, dB, dC) within 2^-7,
+# fp32 ones (ddt, da_log) within 1e-4 of the largest |value|
+BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("case", list(EMULATED_BWD))
+def test_tensor_core_rounding_fits_card_tolerance(case):
+    """The emulated kernel with every fp32 tensor-core operand as a bf16
+    hi + lo pair (dy, the scores, dG, S_in, dS, cf B, exp(lc) C; x, B and
+    C exact) against the plain backward: each gradient within the card's
+    tolerance (BWD_TOL) of the largest |value|, 0 outside every row. ddt,
+    whose terms cancel, stays within 1e-4 with its products on the tensor
+    cores (measured ~3e-6), so no sum of it moves to the CUDA cores."""
+    shape = EMULATED_BWD[case]
+    args = list(_inputs(shape, 5))
+    args[:3] = [v.to(torch.bfloat16) for v in args[:3]]
+    ours = emulate_kernel(*args, tc=True)
+    want = mamba_chunk_scan_bwd_plain(*args)
+    for name, a, b in zip(NAMES, ours, want):
+        assert a.dtype == b.dtype, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[a.dtype] * b.float().abs().max().item(), \
+            (name, err)
+    inside = np.zeros(shape[2], bool)
+    for s, ln in zip(shape[0], shape[1]):
+        inside[s:s + ln] = True
+    out = torch.from_numpy(~inside)
+    for name, a in zip(NAMES[:4], ours[:4]):
+        assert (a[out] == 0).all(), name
+
+
+@pytest.mark.parametrize("p", [16, 32, 64])
+@pytest.mark.parametrize("tt,h,lens", [
+    (4096, 64, [2048, 2048]),                  # zamba2's training shape
+    (1900, 64, [300, 0, 1, 1000, 47, 0]),      # ragged, rows past the end
+    (512, 8, [256, 150, 1, 0, 60, 45]),        # reduced heads
+    (330, 6, [70, 129, 0]),                    # a last group of 2 heads
+    (128, 5, [0, 0]),                          # no token in any row
+    (1600, 8, [23 * i % 65 for i in range(48)]),   # 48 rows of one chunk
+])
+def test_launch_plan(p, tt, h, lens):
+    """``bwd_plan``'s grids, head groups and scratch, and the work rule on
+    them, as ``bwd_items`` mirrors the kernel's ``find_unit`` in Python
+    (the mirror, not the CUDA code, runs here): launch A gives every (row,
+    unit of
+    STATE_UNIT chunks, head) over a row's chunks but its last one block, a
+    unit's predecessor the smaller ticket; launch B gives every
+    ZERO_TILE-token tile one block and every (row, chunk, head group) one
+    block, a row's chunks in reverse (a chunk's successor the smaller
+    ticket: the order the reverse chain
+    waits in), within grids sized from TT // 64 + R; the rows' chunks
+    interleave level by level (the second row's first unit comes before
+    the first row's second)."""
+    r = len(lens)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    assert starts[-1] + lens[-1] <= tt
+    plan = bwd_plan(tt, r, h, p, p)
+    groups = plan.groups
+    # every head in a group, no group empty; every token in a zeroing tile
+    assert (groups - 1) * HEAD_GROUP < h <= groups * HEAD_GROUP
+    assert (plan.tiles - 1) * ZERO_TILE < tt <= plan.tiles * ZERO_TILE
+    # a state tile and a da_log part per chunk, a dS slot per (row, head),
+    # a dB and a dC part per (token, group)
+    assert plan.states == (plan.chunks, h, p, p)
+    assert plan.carry == (r, h, p, p)
+    assert plan.parts == (2, tt, groups, p)
+    assert plan.da_part == (plan.chunks, h)
+    _, items_a, items_b = bwd_items(lens, tt, h)
+    nch = [-(-v // L) for v in lens]
+    units = [-(-max(0, k - 1) // STATE_UNIT) for k in nch]
+    assert sum(nch) <= plan.chunks and sum(units) * h <= plan.blocks_a
+    got = [i for i in items_a if i is not None]
+    want = {(ri, u, hh) for ri, k in enumerate(units) for u in range(k)
+            for hh in range(h)}
+    assert len(got) == len(set(got)) and set(got) == want
+    ticket = {i: w for w, i in enumerate(items_a) if i is not None}
+    for (ri, c, hh), w in ticket.items():
+        if c > 0:
+            assert ticket[(ri, c - 1, hh)] < w
+    got = [i for i in items_b if i is not None]
+    want = {("chunk", ri, c, k) for ri, n_ in enumerate(nch)
+            for c in range(n_) for k in range(groups)}
+    want |= {("tile", k) for k in range(plan.tiles)}
+    assert len(got) == len(set(got)) and set(got) == want
+    ticket = {i: w for w, i in enumerate(items_b) if i is not None}
+    for (kind, *rest), w in ticket.items():
+        if kind == "chunk" and rest[1] + 1 < nch[rest[0]]:
+            ri, c, k = rest
+            assert ticket[("chunk", ri, c + 1, k)] < w
+    if sum(v > L for v in lens[:2]) == 2:
+        assert ticket[("chunk", 1, nch[1] - 1, 0)] < \
+            ticket[("chunk", 0, nch[0] - 2, 0)]
 
 
 def test_training_entry_gives_the_plain_gradients():
