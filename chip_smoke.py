@@ -1113,8 +1113,9 @@ GRAD_TOL = 1e-2     # dQ/dK/dV: max abs err over the largest |gradient|
 def dense_cases():
     """(name, B, H, KVL, D, T, S, causal, window): granite-3-2b's training
     shape, its window and non-causal variants, internlm2's heads (D 128,
-    G 2), and a ragged case whose T > S + window - 1 tail rows see nothing
-    (their output is mean(V))."""
+    G 2), a ragged case whose T > S + window - 1 tail rows see nothing
+    (their output is mean(V)), danube's heads and whisper-tiny's serving
+    and training calls."""
     return [
         ("granite train T=2048 causal", 2, 32, 8, 64, 2048, 2048, True, 0),
         ("window=512 T=2048", 2, 32, 8, 64, 2048, 2048, True, 512),
@@ -1134,6 +1135,14 @@ def dense_cases():
          1500, False, 0),
         ("whisper encoder serve call BH=48 T=1500 S=1536 non-causal", 8, 6,
          6, 64, 1500, 1536, False, 0),
+        # whisper-tiny's training (phase 5b: 8 rows a micro-batch, 448
+        # decoder tokens): the encoder's call is the serve call above; the
+        # decoder's causal self attention at S = T and its cross attention
+        # over the padded 1536 encoder keys
+        ("whisper decoder self BH=48 T=S=448 causal", 8, 6, 6, 64, 448, 448,
+         True, 0),
+        ("whisper cross BH=48 T=448 S=1536 non-causal", 8, 6, 6, 64, 448,
+         1536, False, 0),
     ]
 
 
@@ -3031,8 +3040,10 @@ def phase_train():
 
 # ---------------------------------------------------------------- phase 5b
 # (arch, depth cut, micro-batches of the 4 x 2048-token step)
-FAMILY_TRAIN = (("zamba2-1.2b", {}, 2), ("qwen2-vl-2b", {}, 2),
-                ("qwen3-moe-235b-a22b", {"num_layers": 1}, 4))
+# (arch, depth cut, micro-batches, rows, tokens a row) of a phase-5b step
+FAMILY_TRAIN = (("zamba2-1.2b", {}, 2, 4, 2048), ("qwen2-vl-2b", {}, 2, 4, 2048),
+                ("qwen3-moe-235b-a22b", {"num_layers": 1}, 4, 4, 2048),
+                ("rwkv6-3b", {}, 4, 4, 2048), ("whisper-tiny", {}, 2, 16, 448))
 IMAGE_AT, IMAGE_GRID = 16, 16     # the VLM rows' image span: 16 x 16 patches
 
 
@@ -3065,35 +3076,57 @@ def _image_batch(cfg, seed, grid=IMAGE_GRID):
     return extra
 
 
+def _frame_batch(cfg, seed):
+    """``Trainer.extra_batch`` for enc-dec: each row's ``encoder_seq`` stub
+    frame embeddings, drawn from ``seed`` and the step's first token."""
+    def extra(tokens):
+        rng = np.random.default_rng([seed, int(tokens[0, 0])])
+        return {"enc_embeds": rng.standard_normal(
+            (tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+            dtype=np.float32)}
+    return extra
+
+
 def _family_counts(cfg):
     """Kernel launches of one micro-batch's forward and backward: the
     scan forward 2 x per Mamba2 layer (recomputation), its backward once;
-    dense forward 2 x per attention call, backward once."""
+    dense forward 2 x per attention call, backward once (enc-dec: the
+    encoder's self attention and each decoder layer's self and cross
+    attention); RWKV6 and the serving kernels none."""
+    n_attn, n_scan = cfg.num_layers, 0
     if cfg.family == "hybrid":
         n_attn, n_scan = cfg.num_layers // cfg.attn_every, cfg.num_layers
-    else:
-        n_attn, n_scan = cfg.num_layers, 0
+    elif cfg.family == "ssm":
+        n_attn = 0
+    elif cfg.family == "encdec":
+        n_attn = cfg.encoder_layers + 2 * cfg.num_layers
     return dict(scan_fwd=2 * n_scan, scan_bwd=n_scan, dense_fwd=2 * n_attn,
-                dense_bwd=n_attn)
+                dense_bwd=n_attn, varlen=0, paged=0)
 
 
 def phase_train_families(device="cuda"):
-    """Training the hybrid, VLM and MoE families. (a) Full width, fp32
-    masters from seed 0, 4 steps of 4 x 2048-token sequences in 2
-    micro-batches: zamba2-1.2b; qwen2-vl-2b with a seeded image span in
-    every row (``_image_batch``); qwen3-moe-235b-a22b at full per-layer
-    width cut to 1 of its 94 layers (a layer's fp32 masters, gradients and
-    AdamW moments are 16 bytes x 2.49 B params = 39.8 GB, the untied
-    embedding and head 16 x 1.24 B = 19.9 GB: 2 layers would not fit 80
-    GB) and to micro-batches of 1 x 2048 tokens (4 a step: the
+    """Training the hybrid, VLM, MoE, RWKV6 and enc-dec families. (a) Full
+    width, fp32 masters from seed 0, AdamW, one untimed step and 4 timed
+    ones of FAMILY_TRAIN's layout: zamba2-1.2b; qwen2-vl-2b with a seeded image
+    span in every row (``_image_batch``); qwen3-moe-235b-a22b at full
+    per-layer width cut to 1 of its 94 layers (a layer's fp32 masters,
+    gradients and AdamW moments are 16 bytes x 2.49 B params = 39.8 GB,
+    the untied embedding and head 16 x 1.24 B = 19.9 GB: 2 layers would
+    not fit 80 GB) and to micro-batches of 1 x 2048 tokens (4 a step: the
     (2048, 151936) fp32 logits and their gradient, and the bf16 copies of
-    the expert masters the products take, fit beside the 59.7 GB). Each:
-    finite losses (the MoE aux loss printed), the scan and
-    dense kernels' launches exactly ``_family_counts`` per micro-batch,
-    ms per step, tokens/s and peak memory. (b) Reduced configs with the
-    same fp32 weights on the card and on the CPU: 3 steps' losses within
-    TRAIN_LOSS_TOL each; the reduced hybrid resumed exactly from a
-    checkpoint (rtol 1e-5, as phase 5). Returns the launch counts."""
+    the expert masters the products take, fit beside the 59.7 GB);
+    rwkv6-3b at full depth in micro-batches of 1 x 2048 tokens (16 bytes
+    x 3.06 B params = 49 GB, beside one layer's recomputed chunk
+    products and the (2048, 65536) fp32 logits); whisper-tiny, 16 rows of
+    448 decoder tokens (its decoder context) over 1500 seeded stub frames
+    a row (``_frame_batch``) in 2 micro-batches. Each: finite losses (the
+    MoE aux loss printed), every counted kernel's launches exactly
+    ``_family_counts`` per micro-batch (RWKV6: none), ms per step,
+    tokens/s (whisper: decoder tokens, and frames/s) and peak memory.
+    (b) Reduced configs with the same fp32 weights on the card and on the
+    CPU: 3 steps' losses within TRAIN_LOSS_TOL each; the reduced hybrid,
+    RWKV6 and enc-dec models resumed exactly from a checkpoint (rtol
+    1e-5, as phase 5). Returns the launch counts."""
     import dataclasses
     import gc
     import shutil
@@ -3102,33 +3135,44 @@ def phase_train_families(device="cuda"):
     import torch
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.kernels.flash_attention import (dense_flash_bwd,
-                                                     dense_flash_fwd)
+                                                     dense_flash_fwd,
+                                                     flash_attention_varlen)
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
                                                 mamba_chunk_scan_varlen)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.models import blocks_attn, build_model
     from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
                                       TrainerConfig, init)
     from repro_torch.training.optimizer import tree_map
 
+    t_phase = time.perf_counter()
     counters = dict(scan_fwd=mamba_chunk_scan_varlen,
                     scan_bwd=mamba_chunk_scan_bwd,
-                    dense_fwd=dense_flash_fwd, dense_bwd=dense_flash_bwd)
+                    dense_fwd=dense_flash_fwd, dense_bwd=dense_flash_bwd,
+                    varlen=flash_attention_varlen,
+                    paged=paged_decode_attention)
     totals = dict.fromkeys(counters, 0)
+
+    def extra_batch(cfg):
+        return {"vlm": lambda: _image_batch(cfg, 5),
+                "encdec": lambda: _frame_batch(cfg, 5)}.get(
+            cfg.family, lambda: None)()
+
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="smoke_fam_", dir=ROOT / "build")
     try:
         # ---- (a) full width
-        steps, seq, batch = 4, 2048, 4
-        for arch, cut, micro in FAMILY_TRAIN:
+        steps = 4
+        for arch, cut, micro, batch, seq in FAMILY_TRAIN:
             gc.collect()
             torch.cuda.empty_cache()
+            t_arch = time.perf_counter()
             cfg = dataclasses.replace(ARCHS[arch], **cut)
-            extra = _image_batch(cfg, 5) if cfg.family == "vlm" else None
             tr = Trainer(build_model(cfg), AdamWConfig(),
                          TrainerConfig(micro_batches=micro,
                                        ckpt_every=1 << 30,
                                        ckpt_dir=f"{ckpt_root}/{arch}"),
-                         extra_batch=extra)
+                         extra_batch=extra_batch(cfg))
             t0 = time.perf_counter()
             params, state = tr.init_state(0, device=device)
             if device == "cuda":
@@ -3185,28 +3229,34 @@ def phase_train_families(device="cuda"):
                             f"{[round(v, 6) for v in vals]}")
             step_ms = 1e3 * float(np.mean(times))
             tok_s = batch * seq / (step_ms / 1e3)
+            rate = f"train_tok_per_s={tok_s:.1f}"
+            if cfg.family == "encdec":
+                rate = (f"train_decoder_tok_per_s={tok_s:.1f} frames_per_s="
+                        f"{batch * cfg.encoder_seq / (step_ms / 1e3):.1f}")
             cut_s = (f" ({cfg.num_layers} of {ARCHS[arch].num_layers} layers)"
                      if cut else "")
-            log(f"[train {arch}] full width{cut_s}: {n_params / 1e9:.3f} B "
+            log(f"[train {arch}] full width{cut_s}, {micro} x {batch // micro}"
+                f" rows of {seq} tokens a step: {n_params / 1e9:.3f} B "
                 f"params fp32, init {init_s:.1f} s; losses "
                 f"{[round(x, 4) for x in warm + hist]} (first untimed)"
                 f"{aux_line}; step_ms={[round(1e3 * t, 1) for t in times]} "
-                f"mean_step_ms={step_ms:.1f} train_tok_per_s={tok_s:.1f} "
+                f"mean_step_ms={step_ms:.1f} {rate} "
                 f"peak_mem_gb={peak / 1e9:.2f} launches {got} (= "
-                f"{_family_counts(cfg)} x {micro} x {steps}) [{card()}]")
+                f"{_family_counts(cfg)} x {micro} x {steps}); "
+                f"{time.perf_counter() - t_arch:.1f} s [{card()}]")
             del params, state, tr
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
 
-        # ---- (b) reduced: card vs CPU, and the hybrid's exact resume
+        # ---- (b) reduced: card vs CPU, and exact resumes
         adamw = AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=200)
-        for arch, _, _ in FAMILY_TRAIN:
+        for arch, _, _, _, _ in FAMILY_TRAIN:
             rcfg = reduced(ARCHS[arch])
             rdata = SyntheticLM(rcfg.vocab_size, seq_len=64, global_batch=4,
                                 mode="markov")
             extra = _image_batch(rcfg, 5, grid=4) \
-                if rcfg.family == "vlm" else None
+                if rcfg.family == "vlm" else extra_batch(rcfg)
 
             def trainer(name, every=1 << 30):
                 return Trainer(build_model(rcfg), adamw,
@@ -3227,22 +3277,23 @@ def phase_train_families(device="cuda"):
                                      f"{h_dev} vs {h_cpu}")
             line = (f"[train {arch}] reduced card vs CPU losses {h_dev} vs "
                     f"{h_cpu} (max diff {diff:.2e}, tol {TRAIN_LOSS_TOL})")
-            if rcfg.family == "hybrid":
-                tr1 = trainer("resume", every=5)
+            if rcfg.family in ("hybrid", "ssm", "encdec"):
+                tr1 = trainer(f"{arch}-resume", every=5)
                 p, s = tr1.init_state(0, device=device)
                 _, _, hist = tr1.run(p, s, rdata, num_steps=7)
-                tr2 = trainer("resume")
+                tr2 = trainer(f"{arch}-resume")
                 p2, s2, _ = tr2.restore(5, device=device)
                 _, _, hist2 = tr2.run(p2, s2, rdata, num_steps=7,
                                       start_step=5)
                 if not np.allclose(hist[-2:], hist2, rtol=1e-5):
-                    raise AssertionError(f"hybrid resume: {hist[-2:]} vs "
+                    raise AssertionError(f"{arch} resume: {hist[-2:]} vs "
                                          f"{hist2}")
                 line += (f"; exact resume steps 5-6 {hist2} vs {hist[-2:]} "
                          f"(rtol 1e-5)")
             log(line)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    log(f"[phase 5b] {time.perf_counter() - t_phase:.1f} s")
     return totals
 
 

@@ -12,7 +12,11 @@ reads (the Llama-3.2-Vision pattern of Jenga §3.2).
 Kernels: the encoder's self attention runs through the dense flash forward
 kernel (non-causal over every frame; the reference attends zero-filled
 frames too, and zero pad keys up to a multiple of 512, ``ENC_KV_BLOCK``;
-``enc_lens`` masks only the cross attention). Packed steps run
+``enc_lens`` masks only the cross attention). Training (``train_loss``)
+runs all three attentions through the dense flash kernels, forward and
+backward: the encoder's and the cross attention (non-causal, K/V
+zero-padded as above, the pads weighed as the reference weighs them)
+and the decoder's causal self attention (S = T). Packed steps run
 both decoder attentions through the varlen kernel (self: old pages ++ the
 fresh chunk; cross: the cross slots with ``q_pos := enc_lens - 1``).
 Padded T == 1 self attention reads its pages in place through the paged
@@ -26,18 +30,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.spec import KVCacheSpec, attention_spec, cross_attention_spec
-from ..kernels.flash_attention import dense_flash_fwd
+from ..kernels.flash_attention import dense_flash_attention, dense_flash_fwd
 from . import attention as A
 from . import blocks_attn as BA
 from .common import dense, layer_norm, set_matmul_precision
 from .lm import DecodeBatch, DecoderLM, draw_normal, unstack
 from .params import MATRICES
 from .rotary import sinusoidal_positions
-from .tp import embed_lookup
+from .tp import embed_lookup, logits_local, sharded_softmax_xent
 
 MAX_DEC_POS = 32768 + 8
 # The reference's encoder attention (``flash_attention_partials``, block
@@ -131,10 +136,9 @@ class EncDecLM(DecoderLM):
         shapes and scales (normal 0.02; ``dec_pos`` 0.01; ``w2``
         0.02/sqrt(2L); layer-norm weights ones, biases zeros), drawn by a
         ``torch.Generator`` on ``device``. Matrices (and ``dec_pos``) are
-        bf16, every other leaf fp32. The draws differ from the reference's
+        bf16 (serving) or, with ``master``, fp32 like every other leaf
+        (training's masters). The draws differ from the reference's
         ``jax.random`` ones."""
-        if master:
-            raise NotImplementedError("enc-dec training is not ported")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -146,8 +150,9 @@ class EncDecLM(DecoderLM):
             if name.endswith(("_b", "bias")) or name in ("b1", "b2"):
                 return torch.zeros(shape, dtype=torch.float32, device=dev)
             scale = {"w2": out_scale, "dec_pos": 0.01}.get(name, 0.02)
-            return draw_normal(shape, scale, torch.bfloat16
-                               if name in MATRICES else torch.float32, gen)
+            bf16 = not master and name in MATRICES
+            return draw_normal(shape, scale, torch.bfloat16 if bf16 else
+                               torch.float32, gen)
 
         def tree(shapes):
             return {n: (tree(s) if isinstance(s, dict) else leaf(n, s))
@@ -155,41 +160,85 @@ class EncDecLM(DecoderLM):
 
         return tree(self.param_shapes())
 
-    def train_loss(self, params, tokens, targets, **_):
-        raise NotImplementedError("enc-dec training is not ported")
+    # --------------------------------------------------------------- train
+    def train_loss(self, params, tokens, targets, *, enc_embeds=None):
+        """Mean next-token cross-entropy of (B, T) decoder ``tokens``
+        against ``targets`` over (B, S, d) stub frame embeddings
+        ``enc_embeds`` (the reference's ``_train_body_ed``): the encoder,
+        each layer recomputed in the backward (``torch.utils.checkpoint``,
+        the reference's ``jax.checkpoint`` of its scan body); the decoder's
+        embedding plus ``dec_pos[:T]`` rounded to bf16; each decoder layer
+        (causal self attention, cross attention over the encoder output,
+        the MLP) recomputed as one; the final LayerNorm and the tied head.
+        The cross attention weighs the encoder's zero pad keys as the
+        reference does (serving masks them through ``enc_lens``)."""
+        if enc_embeds is None:
+            raise ValueError("enc-dec training needs enc_embeds")
+        eps = self.cfg.norm_eps
+        enc_out = self._encode(params, enc_embeds, train=True)
+        t = tokens.shape[1]
+        x = embed_lookup(tokens, params["embed"])
+        x = x + params["dec_pos"][:t].to(x.dtype)[None]
+        for pj in zip(unstack(params["dec_self"]),
+                      unstack(params["dec_cross"]),
+                      unstack(params["dec_mlp"])):
+            x = checkpoint(self._dec_layer, x, enc_out, *pj,
+                           use_reentrant=False)
+        x = layer_norm(x, params["final_ln_w"], params["final_ln_b"], eps)
+        logits = logits_local(x, params["embed"])
+        return sharded_softmax_xent(logits, targets)
+
+    def _dec_layer(self, x, enc_out, ps, pc, pm):
+        x = self._mha(ps, x, causal=True, train=True)
+        x = self._mha(pc, x, enc_out, train=True)
+        return _mlp(pm, x, self.cfg.norm_eps)
 
     # ------------------------------------------------------------- encoder
-    def _mha(self, p, x, eps):
-        """The encoder's self attention: LayerNorm, biased q and v (k has no
-        bias), one non-causal dense flash forward over all frames of every
-        row and the reference's zero pad keys (``ENC_KV_BLOCK``), the o
-        projection and its bias, the residual."""
+    def _mha(self, p, x, kv_src=None, *, causal=False, train=False):
+        """The reference's plain MHA (``EncDecLM._mha``): LayerNorm, biased
+        q and v (k has no bias) with k and v from ``kv_src`` (or the
+        normed ``x``), one dense flash call, the o projection and its
+        bias, the residual. Non-causal calls zero-pad K/V to a multiple
+        of ENC_KV_BLOCK and attend the pads, as the reference does;
+        causal ones run at S = T (causality masks the pads). Serving runs
+        the forward kernel alone, ``train`` the autograd route (forward
+        and backward kernels)."""
         hd = self.cfg.head_dim
         b, t, _ = x.shape
-        xn = layer_norm(x, p["ln_w"], p["ln_b"], eps)
+        xn = layer_norm(x, p["ln_w"], p["ln_b"], self.cfg.norm_eps)
+        kv_n = xn if kv_src is None else kv_src
         q = _heads(dense(xn, p["q"], p["q_bias"]), hd)
-        k = _heads(dense(xn, p["k"]), hd)
-        v = _heads(dense(xn, p["v"], p["v_bias"]), hd)
-        pad = -t % ENC_KV_BLOCK
+        k = _heads(dense(kv_n, p["k"]), hd)
+        v = _heads(dense(kv_n, p["v"], p["v_bias"]), hd)
+        pad = 0 if causal else -k.shape[1] % ENC_KV_BLOCK
         if pad:
             k, v = (F.pad(a, (0, 0, 0, pad)) for a in (k, v))
-        out, _ = dense_flash_fwd(q, k, v, causal=False)
+        if train:
+            out = dense_flash_attention(q, k, v, causal=causal)
+        else:
+            out, _ = dense_flash_fwd(q, k, v, causal=causal)
         out = out.view(b, -1, t, hd).transpose(1, 2).reshape(b, t, -1)
         y = dense(out, p["o"])
         return x + y + p["o_bias"].to(y.dtype)
 
-    def _encode(self, params, enc_embeds):
+    def _enc_layer(self, x, pa, pm, train):
+        return _mlp(pm, self._mha(pa, x, train=train), self.cfg.norm_eps)
+
+    def _encode(self, params, enc_embeds, train=False):
         """Stub frame embeddings (rows, S, d) -> encoder output (rows, S, d)
-        bf16: sinusoidal positions, the encoder layers, the post
-        LayerNorm."""
+        bf16: sinusoidal positions, the encoder layers (``train``: each
+        recomputed in the backward), the post LayerNorm."""
         eps = self.cfg.norm_eps
         x = enc_embeds.to(torch.bfloat16)
         s, d = x.shape[1:]
         x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
         enc = params["enc"]
         for pa, pm in zip(unstack(enc["attn"]), unstack(enc["mlp"])):
-            x = self._mha(pa, x, eps)
-            x = _mlp(pm, x, eps)
+            if train:
+                x = checkpoint(self._enc_layer, x, pa, pm, True,
+                               use_reentrant=False)
+            else:
+                x = self._enc_layer(x, pa, pm, False)
         return layer_norm(x, params["enc_ln_post_w"],
                           params["enc_ln_post_b"], eps)
 

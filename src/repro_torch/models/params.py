@@ -41,6 +41,7 @@ _SSM_TP_AXIS = {n: 1 for n in ("ln_x", "w_r", "w_k", "w_v", "w_g", "w_o",
                                "cm_wk", "cm_wv", "cm_wr")}
 _ENCDEC_TP_AXIS = {n: 1 for n in ("q", "k", "v", "o", "q_bias", "v_bias",
                                   "w1", "b1", "w2")}
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -74,16 +75,27 @@ def expand_tp(name: str, a: np.ndarray, axes=None) -> np.ndarray:
     return a if ax is None else np.expand_dims(a, ax)
 
 
-def subtree_tp_axes(parent: str):
+def subtree_tp_axes(family: str, parent: str):
     """The leaf-name -> tp-axis map of the leaves under the dict key
-    ``parent`` of a hybrid tree (``mamba_main`` / ``mamba_tail``,
-    ``shared_attn``); None (the dense map) for any other key."""
-    if parent in ("mamba_main", "mamba_tail"):
-        return _HYBRID_TP_AXIS["mamba"]
-    return _HYBRID_TP_AXIS.get(parent)
+    ``parent`` of a ``family`` tree: a hybrid's ``mamba_main`` /
+    ``mamba_tail`` and ``shared_attn``, RWKV6's ``layers``, and every
+    enc-dec attention and MLP stack (``enc.attn`` / ``enc.mlp``,
+    ``dec_self``, ``dec_cross``, ``dec_mlp``) have their own; every other
+    leaf takes the dense map."""
+    if family == "hybrid":
+        if parent in ("mamba_main", "mamba_tail"):
+            return _HYBRID_TP_AXIS["mamba"]
+        if parent == "shared_attn":
+            return _HYBRID_TP_AXIS["shared_attn"]
+    if family == "ssm" and parent == "layers":
+        return _SSM_TP_AXIS
+    if family == "encdec" and parent in ("attn", "mlp", "dec_self",
+                                         "dec_cross", "dec_mlp"):
+        return _ENCDEC_TP_AXIS
+    return _TP_AXIS
 
 
-def _leaf(name: str, a, device, master: bool, axes=None) -> torch.Tensor:
+def _leaf(name: str, a, device, master: bool, axes) -> torch.Tensor:
     t = tensor_from_numpy(squeeze_tp(name, a, axes)).to(device)
     if master:
         return t.float()
@@ -99,27 +111,12 @@ def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
     ``conv_w``, the MoE ``router`` and RWKV6's ``w_lora_b`` stay fp32:
     the reference multiplies by them in fp32 (a bf16 router of a
     bf16-param model is widened exactly)."""
-    if cfg.family == "hybrid":
-        out = {}
-        for name, a in tree.items():
-            if isinstance(a, dict):
-                axes = subtree_tp_axes(name)
-                out[name] = {n: _leaf(n, x, device, master, axes)
-                             for n, x in a.items()}
-            else:
-                out[name] = _leaf(name, a, device, master)
-        return out
-    if cfg.family == "encdec":
-        def conv(name, a, axes):
-            if isinstance(a, dict):
-                return {n: conv(n, x, _ENCDEC_TP_AXIS) for n, x in a.items()}
-            return _leaf(name, a, device, master, axes)
-        return {name: conv(name, a, None) for name, a in tree.items()}
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}")
-    axes = _SSM_TP_AXIS if cfg.family == "ssm" else None
-    out = {name: _leaf(name, a, device, master)
-           for name, a in tree.items() if name != "layers"}
-    out["layers"] = {name: _leaf(name, a, device, master, axes)
-                     for name, a in tree["layers"].items()}
-    return out
+
+    def conv(name, a, parent):
+        if isinstance(a, dict):
+            return {n: conv(n, x, name) for n, x in a.items()}
+        return _leaf(name, a, device, master,
+                     subtree_tp_axes(cfg.family, parent))
+    return {name: conv(name, a, "") for name, a in tree.items()}

@@ -3,28 +3,30 @@ attention-free, with a data-dependent decay. One KV type, a single "rwkv"
 state spec (the wkv matrix state and the two token-shift states of every
 layer): no token pages at all, the paper's state-space extreme.
 
-Serving only, in plain torch (the reference has no TPU kernel here):
+Plain torch throughout (the reference has no TPU kernel here). Serving:
 packed steps run ``blocks_seq.rwkv6_packed``, padded T > 1 steps
 ``rwkv6_chunked`` and padded T == 1 steps ``rwkv6_step``. Each layer reads
 its state from the unified buffer and writes it back (fp32 as bf16 pairs);
 prefix checkpoints and restores are copies of whole state pages made by
-the runner's ``apply_copies``.
+the runner's ``apply_copies``. Training (``train_loss``): ``rwkv6_chunked``
+from a zero state, with autograd.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.spec import KVCacheSpec, rwkv_spec
 from . import attention as A
 from . import blocks_seq as BS
-from .common import set_matmul_precision
+from .common import rms_norm, set_matmul_precision
 from .lm import DecodeBatch, DecoderLM, draw_normal, unstack
 from .params import MATRICES
-from .tp import embed_lookup
+from .tp import embed_lookup, logits_local, sharded_softmax_xent
 
 LORA_RANK = 32
 W_BASE = 0.6
@@ -87,10 +89,9 @@ class RWKVLM(DecoderLM):
         0.5; ``w_lora_b`` 0.01; ``w_o`` and ``cm_wv`` 0.02/sqrt(2L);
         norms ones; ``w_base`` 0.6), drawn by a ``torch.Generator`` on
         ``device`` a slice of at most DRAW_CHUNK values at a time.
-        Matrices are bf16, every other leaf fp32. The draws differ from
-        the reference's ``jax.random`` ones."""
-        if master:
-            raise NotImplementedError("RWKV6 training is not ported")
+        Matrices are bf16 (serving) or, with ``master``, fp32 like every
+        other leaf (training's masters). The draws differ from the
+        reference's ``jax.random`` ones."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -105,8 +106,9 @@ class RWKVLM(DecoderLM):
             scale = {"w_o": out_scale, "cm_wv": out_scale, "u": 0.5,
                      "w_lora_b": 0.01}.get(
                 name, 0.5 if "mu_" in name else 0.02)
-            return draw_normal(shape, scale, torch.bfloat16
-                               if name in MATRICES else torch.float32, gen)
+            bf16 = not master and name in MATRICES
+            return draw_normal(shape, scale, torch.bfloat16 if bf16 else
+                               torch.float32, gen)
 
         shapes = self.param_shapes()
         params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}
@@ -115,8 +117,27 @@ class RWKVLM(DecoderLM):
         return params
 
     # --------------------------------------------------------------- train
-    def train_loss(self, params, tokens, targets, **_):
-        raise NotImplementedError("RWKV6 training is not ported")
+    def train_loss(self, params, tokens, targets):
+        """Mean next-token cross-entropy of (B, T) ``tokens`` against
+        ``targets`` in the reference ``_train_body``'s order: the
+        embedding, each layer's time and channel mix (``rwkv6_chunked``
+        from a zero state) recomputed in the backward
+        (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+        of its scan body), the final RMSNorm, the head and the
+        cross-entropy."""
+        cfg = self.cfg
+        x = embed_lookup(tokens, params["embed"])
+        for pj in unstack(params["layers"]):
+            x = checkpoint(self._train_layer, x, pj, use_reentrant=False)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = logits_local(x, self._unembed(params))
+        return sharded_softmax_xent(logits, targets)
+
+    def _train_layer(self, x, pj):
+        cfg = self.cfg
+        x, _ = BS.rwkv6_chunked(pj, x, self.rd, head_size=cfg.rwkv_head_size,
+                                norm_eps=cfg.norm_eps)
+        return x
 
     # --------------------------------------------------------------- serve
     def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,

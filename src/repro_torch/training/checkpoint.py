@@ -5,7 +5,8 @@ Format: one ``.npy`` per leaf plus ``meta.json``, each file named as the
 reference names it (``jax.tree_util.keystr`` of the leaf's path, sanitised:
 ``params_layers_q.npy``, ``opt_.mu_embed.npy``, ``opt_.step.npy``,
 ``params_mamba_main_w_z.npy``) and holding the reference's layout, with its
-size-1 tp axis where the leaf's subtree puts it. So a checkpoint
+size-1 tp axis where the model family's subtree puts it
+(``params.subtree_tp_axes``). So a checkpoint
 written by the reference's ``Trainer`` restores here, and one written here
 restores there. Saves snapshot every leaf to host memory synchronously and
 write the files on a background thread (``wait()`` joins it before the
@@ -42,15 +43,16 @@ def _walk(node, path: str, name: str, parent: str,
         out.append((path, name, parent, node))
 
 
-def _leaf_files(tree) -> List[Tuple[str, str, Any, Any]]:
+def _leaf_files(tree, family: str) -> List[Tuple[str, str, Any, Any]]:
     """(file name, leaf name, tp-axis map, leaf) for every leaf of
-    ``tree``; the map is the leaf's subtree's (a hybrid's ``mamba_main``
-    / ``mamba_tail`` / ``shared_attn`` leaves carry their tp axis
-    elsewhere than the dense tree's)."""
+    ``tree``, a ``family`` model's; the map is the leaf's subtree's (a
+    hybrid's ``mamba_main`` / ``mamba_tail`` / ``shared_attn``, RWKV6's
+    ``layers`` and the enc-dec stacks carry their tp axis elsewhere than
+    the dense tree's)."""
     out: List[Tuple[str, str, str, Any]] = []
     _walk(tree, "", "", "", out)
     return [(re.sub(r"[^A-Za-z0-9_.-]+", "_", path).strip("_") + ".npy",
-             name, subtree_tp_axes(parent), leaf)
+             name, subtree_tp_axes(family, parent), leaf)
             for path, name, parent, leaf in out]
 
 
@@ -71,9 +73,13 @@ def _to_host(name: str, t: torch.Tensor, axes) -> np.ndarray:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    """Checkpoints of a ``family`` model's trees (the family picks each
+    leaf's tp axis on disk)."""
+
+    def __init__(self, directory: str, family: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
+        self.family = family
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
@@ -84,7 +90,7 @@ class Checkpointer:
         # snapshot to host memory synchronously, then write the files on a
         # background thread (async checkpointing)
         host = [(f, _to_host(name, t, axes))
-                for f, name, axes, t in _leaf_files(tree)]
+                for f, name, axes, t in _leaf_files(tree, self.family)]
         meta = {"step": int(step), "extra": extra or {},
                 "leaves": [f for f, _ in host]}
 
@@ -137,7 +143,7 @@ class Checkpointer:
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as fh:
             meta = json.load(fh)
-        leaves = _leaf_files(target_tree)
+        leaves = _leaf_files(target_tree, self.family)
         if [f for f, _, _, _ in leaves] != list(meta["leaves"]):
             raise ValueError(f"{d}: tree structure changed")
         out = []

@@ -15,7 +15,8 @@ axis has size 1 and the optimizer state stays whole.
 
 ``extra_batch`` (the reference's hook): ``tokens -> {name: array}`` of
 extra ``train_loss`` arguments for a step's batch (a VLM's
-``mm_embeds`` / ``mm_mask`` / ``mrope_pos``), split per micro-batch along
+``mm_embeds`` / ``mm_mask`` / ``mrope_pos``, an enc-dec model's
+``enc_embeds``), split per micro-batch along
 the batch axis: axis 1 of ``mrope_pos`` (3, B, T), axis 0 of the others.
 (The reference reshapes axis 0 of every extra, which cannot split a
 (3, B, T) ``mrope_pos``.)
@@ -63,7 +64,8 @@ class Trainer:
         self.adamw = adamw
         self.tcfg = tcfg
         self.extra_batch = extra_batch or (lambda tokens: {})
-        self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
+        self.ckpt = Checkpointer(tcfg.ckpt_dir, model.cfg.family,
+                                 keep=tcfg.keep_ckpts)
         # straggler stats
         self.step_ema: Optional[float] = None
         self.slow_steps = 0
@@ -72,8 +74,7 @@ class Trainer:
     # ------------------------------------------------------------------- init
     def init_state(self, seed: int = 0, device="cuda"):
         """fp32 master params from ``seed`` (the model's ``init(...,
-        master=True)``: the dense, MoE, VLM and hybrid families) and a
-        fresh optimizer state, on ``device``."""
+        master=True)``) and a fresh optimizer state, on ``device``."""
         params = self.model.init(seed, device=resolve_device(device),
                                  master=True)
         return params, opt.init(params)

@@ -406,5 +406,9 @@ def test_build_model_and_init():
     assert bridged["dec_pos"].dtype == torch.bfloat16
     assert bridged["dec_cross"]["v_bias"].dtype == torch.float32
     assert [s.name for s in model.kv_specs()] == ["full_attn", "cross_attn"]
-    with pytest.raises(NotImplementedError):
-        model.train_loss(own, None, None)
+    tok = torch.zeros((1, 8), dtype=torch.int32)     # training is ported
+    with pytest.raises(ValueError):                  # and needs frames
+        model.train_loss(own, tok, tok)
+    loss = model.train_loss(own, tok, tok, enc_embeds=torch.zeros(
+        (1, cfg.encoder_seq, cfg.d_model)))
+    assert loss.shape == () and bool(torch.isfinite(loss))

@@ -160,18 +160,25 @@ def test_main_path_feeds_the_kernel_valid_inputs(monkeypatch):
 def test_later_slices_raise():
     for mode in ("padded", "serial"):        # ported: they construct
         assert port_engine(batching_mode=mode).cfg.batching_mode == mode
-    # budget autotuning is ported: it constructs; hybrid training is
-    # ported (fp32 masters); RWKV6 and enc-dec training are not
+    # budget autotuning is ported: it constructs; training is ported for
+    # every family (fp32 masters, a scalar loss)
     assert port_engine(autotune_budgets=True).autotuner is not None
     hybrid = build_model(reduced(ARCHS["zamba2-1.2b"]))
     masters = hybrid.init(0, "cpu", master=True)
     assert masters["mamba_main"]["w_z"].dtype == torch.float32
-    for arch in ("rwkv6-3b", "whisper-tiny"):
+    tok = torch.zeros((1, 8), dtype=torch.int32)
+    for arch, leaf in (("rwkv6-3b", ("layers", "w_r")),
+                       ("whisper-tiny", ("enc", "mlp", "w1"))):
         later = build_model(reduced(ARCHS[arch]))
-        with pytest.raises(NotImplementedError):
-            later.init(0, "cpu", master=True)
-        with pytest.raises(NotImplementedError):
-            later.train_loss({}, None, None)
+        masters = later.init(0, "cpu", master=True)
+        w = masters
+        for key in leaf:
+            w = w[key]
+        assert w.dtype == torch.float32
+        kw = {} if arch == "rwkv6-3b" else dict(enc_embeds=torch.zeros(
+            (1, later.cfg.encoder_seq, later.cfg.d_model)))
+        loss = later.train_loss(masters, tok, tok, **kw)
+        assert loss.shape == () and bool(torch.isfinite(loss))
     eng = port_engine()
     # seeded temperature/top-k sampling is ported: it serves
     eng.submit(Request(rid="t", prompt=[1, 2, 3],

@@ -496,10 +496,16 @@ def test_build_model_and_later_slices():
         assert [k for k, _ in a] == [k for k, _ in b]
         for (k, x), (_, y) in zip(a, b):
             assert x.shape == y.shape and x.dtype == y.dtype, (arch, k)
-        with pytest.raises(NotImplementedError):     # a later slice
-            later.train_loss(None, None, None)
-    # the hybrid trains (test_torch_train_hybrid.py holds it to JAX)
+    # every family trains (test_torch_train_hybrid.py and
+    # test_torch_train_rwkv_encdec.py hold them to JAX)
     tok = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    for arch in ("rwkv6-3b", "whisper-tiny"):
+        later = build_model(reduced(ARCHS[arch]))
+        kw = {} if arch == "rwkv6-3b" else dict(enc_embeds=torch.zeros(
+            (2, later.cfg.encoder_seq, later.cfg.d_model)))
+        loss = later.train_loss(later.init(0, "cpu", master=True), tok, tok,
+                                **kw)
+        assert loss.dtype == torch.float32 and torch.isfinite(loss)
     loss = model.train_loss(model.init(0, "cpu", master=True), tok, tok)
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
     # the port's seeded init has the bridged tree's shapes and dtypes
