@@ -64,7 +64,7 @@ and ddt 0 outside rows, its time per call and each of its two launches'
 device time beside the plain version's and the bound, every instance's
 ptxas line and HGMMA count. Phase 5b trains full-width zamba2-1.2b,
 qwen2-vl-2b (a seeded image span in every row) and qwen3-moe-235b-a22b
-at full per-layer width (1 of 94 layers) 4 steps each from fp32 masters,
+at full per-layer width (1 of 94 layers) 2 timed steps each from fp32 masters,
 with exact scan and dense launch counts per micro-batch, ms per step,
 tokens/s and peak memory, then their reduced configs card vs CPU and the
 reduced hybrid's exact resume.
@@ -115,8 +115,9 @@ the CUDA launches and time of one fused tail over 8 sampled rows.
 
 Phase 6, the rest of the dense family at full width (random bf16 weights
 from seed 0, drawn on the card a layer at a time), each after the earlier
-phases' memory is released: h2o-danube-3-4b (24 layers, d 3840, 32 / 8
-heads of 120, window 4096 on every second layer) with phase 3's first 6
+phases' memory is released: h2o-danube-3-4b (cut to 12 of its 24 layers
+for time; d 3840, 32 / 8 heads of 120, window 4096 on every second
+layer) with phase 3's first 6
 prompts and 2 of 5,000-6,000 tokens, packed at depths 1 and 4, at budget
 256, padded and serial, its SWA pages of the longest prompt at the end of
 its prefill at most ceil(4096 / 16) + 1 while its full pages hold the
@@ -156,8 +157,9 @@ seeded packed leg; every leg runs the encoder once per distinct clip
 (``encoder_runs`` 5) and launches the dense forward 4 times in each
 dispatch that carries frames, the varlen kernel 8 times (self and cross
 attention) in each packed dispatch and the paged kernel 4 times in each
-padded T == 1 dispatch. Then rwkv6-3b at full width and depth (32
-layers, d 2560, 40 heads of 64; plain torch, no attention kernel),
+padded T == 1 dispatch. Then rwkv6-3b at full width, cut to 8 of its 32
+layers for time (d 2560, 40 heads of 64; plain torch, no attention
+kernel),
 packed at depths 1 and 4 (bitwise equal), budget 256, padded and serial,
 with state checkpoint copies and no leaked page, and the CUDA launches
 of one layer and of one packed mixed step (torch.profiler). Then both
@@ -170,7 +172,7 @@ decode stream, the paged phase its G 1 heads and phase 2b its encoder
 Phase 9, speculative decoding, the data-parallel fleet and budget
 autotuning on full-width granite-3-2b (random bf16 weights from seed 0),
 after the earlier phases' memory is released. Spec legs: k 3 on phase 3's
-first 4 prompts, 32 new tokens each, one request at a time, with draft
+first 2 prompts, 32 new tokens each, one request at a time, with draft
 (a) the config cut to 4 layers with its own weights (seed 1; a smaller
 page, mostly rejecting, so rounds roll pages back) and draft (b) the
 target's config and weights under the ``draft_`` prefix (mostly
@@ -192,12 +194,43 @@ every dispatch and 0 used units on every shard. Then one engine packed
 at depth 2 with ``autotune_budgets``: seed budget 288 (the H100's
 roofline), its adjustments printed, fork-aware equal to solo.
 
+Phase 10, Jenga against the PagedAttention baseline
+(``memory_mode="paged-baseline"``) at full width, on the weights of
+phases 6-8: h2o-danube-3-4b with phase 6's prompts (two of 5,000-6,000
+tokens) and qwen2-vl-2b with phase 7's stub images run packed at depth 4
+in both modes at their phase's pool (the baseline's peak used units above
+Jenga's for danube, equal for qwen2-vl-2b, whose one KV type the baseline
+treats as Jenga does), then packed at depth 4 and padded in both modes
+under a pool of Jenga's peak plus 2%: Jenga holds all 8 requests with no
+defer or preemption, the baseline defers or preempts (danube);
+whisper-tiny with phase 8's clips packed at depth 1 and padded in both
+modes at its phase's pool, its two text-only rows holding cross pages
+under the baseline only. Every leg drains within a step cap with 0 leaked
+pages, the baseline's outputs fork-aware equal to Jenga's within twice
+the phase's noise floor; peak used units, the most requests running at
+once, defers, preemptions and tokens/s are printed per leg.
+
+Phase 11, the one-card fit planner (``repro_torch.launch.dryrun``):
+every (arch x shape) predicted (weights, pool and activation terms,
+whether it fits the card, its largest fitting depth, its roofline
+terms), then granite-3-2b's ``prefill_32k`` (one packed dispatch of 2 x
+32,768 tokens) and ``decode_32k`` (one padded T == 1 dispatch over 8 x
+32,768 tokens) and zamba2-1.2b's ``train_4k`` (one ``Trainer`` step of 16
+x 4096 tokens) run on the card, each peak within FIT_TOL of its
+prediction. Every phase 5b training leg (rwkv6-3b now at 8 of its 32
+layers) and every phase 6-8 serving model is also held to the planner's
+prediction for its depth, batch and pool (the peak counted from before
+its weights are drawn), and every depth cut of phases 5b-8 to the
+planner's largest fitting depth. ``[time]`` lines give each phase's
+seconds and the whole run's.
+
 The last two lines of standard output are the kernels' JSON record and the
 ``{"ok": true, ...}`` line. Exits non-zero, printing no result, without a
 CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
@@ -1355,7 +1388,7 @@ def _prompts(n, vocab, seed=0):
 
 def _drain(model, params, cfg_kw, prompts, new_tokens, device,
            count_copies=False, no_sync=False, sampling=None, on_step=None,
-           mm_items=None, enc_items=None, counts=None):
+           mm_items=None, enc_items=None, counts=None, max_steps=10_000):
     """Drain ``prompts`` through a new ``Engine``. Returns the engine, the
     wall seconds, and the number of its T == 1 padded dispatches (the
     ones that go through the paged decode kernel); with ``count_copies``
@@ -1365,7 +1398,8 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
     seeded draw); ``on_step(eng)`` runs after every engine step;
     ``mm_items`` / ``enc_items``: each prompt's ``MMItem``s (stub image
     or audio frame embeddings); ``counts`` (a dict) gets the number of
-    dispatches that run the encoder under "enc"."""
+    dispatches that run the encoder under "enc"; ``max_steps`` caps the
+    engine's steps (the caller checks that every request finished)."""
     import torch
     from repro_torch.serving import Engine, EngineConfig, Request, \
         SamplingParams
@@ -1405,7 +1439,7 @@ def _drain(model, params, cfg_kw, prompts, new_tokens, device,
     if device != "cpu":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_until_done()
+    eng.run_until_done(max_steps=max_steps)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1449,7 +1483,8 @@ def _fork_aware_equal(ref, other, label, tol=TIE_FORK_TOL):
 
 def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
                 on_step=None, sampling=None, mm_items=None, on_leg=None,
-                enc_items=None, attn_layers=None, copies=None):
+                enc_items=None, attn_layers=None, copies=None,
+                max_steps=10_000, leg_stats=None):
     """Drain ``prompts`` through one ``Engine`` per leg (name, batching
     mode, pipeline depth, config) of full-width ``cfg``: every request
     finishes, no page is left referenced, and each kernel is launched once
@@ -1466,7 +1501,10 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
     ``on_leg(eng, name, depth)`` runs after each leg's checks, before its
     engine is released; ``mm_items`` and ``enc_items`` go to ``_drain``;
     ``copies`` (a dict) gets each leg's state-page copy kinds by (name,
-    depth). Returns (outputs by (name, depth), depth-1 records, launch totals)."""
+    depth); ``max_steps`` caps each leg's engine steps (a leg that does
+    not drain within it fails); ``leg_stats`` (a dict) gets each leg's wall
+    seconds and output tokens by (name, depth). Returns (outputs by (name,
+    depth), depth-1 records, launch totals)."""
     import gc
     import types
 
@@ -1487,7 +1525,7 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
         eng, wall, decode, *kinds = _drain(
             model, params, dict(base, batching_mode=mode, **kw), prompts,
             new_tokens, "cuda", sampling=sampling, mm_items=mm_items,
-            enc_items=enc_items, counts=counts,
+            enc_items=enc_items, counts=counts, max_steps=max_steps,
             count_copies=copies is not None,
             on_step=None if on_step is None else
             (lambda e, n=name, d=depth: on_step(e, n, d)))
@@ -1531,6 +1569,8 @@ def _serve_legs(tag, cfg, model, params, base, legs, prompts, new_tokens,
                                       sample_log=eng.sample_log)
         outs[name, depth] = {r.rid: list(r.output) for r in eng.finished}
         n_out = sum(len(o) for o in outs[name, depth].values())
+        if leg_stats is not None:
+            leg_stats[name, depth] = dict(wall_s=wall, tokens=n_out)
         steps = eng.step_count
         log(f"[{tag}] mode={name} depth={depth} steps={steps} dispatches="
             f"{eng.runner.dispatch_count} decode_dispatches={decode} "
@@ -1958,8 +1998,9 @@ def _leg_set(depths=(1,), padded=True, serial=False):
 
 
 def phase_danube():
-    """h2o-danube-3-4b at full width (head dim 120 through the D 128
-    kernel instances; window 4096 on every second layer): the 6 first
+    """h2o-danube-3-4b at full width, 12 of its 24 layers (head dim 120
+    through the D 128 kernel instances; window 4096 on every second
+    layer; the planner holds the cut to its fitting depth): the 6 first
     prompts of phase 3 and 2 prompts of 5,000-6,000 tokens, 32 new tokens
     each, packed at depths 1 and 4, packed-b256, padded and serial. At the
     end of the longest prompt's prefill its SWA type holds at most its
@@ -1969,7 +2010,7 @@ def phase_danube():
 
     from repro_torch.core.request import SequenceState
 
-    cfg, model, params = _full_width("h2o-danube-3-4b")
+    cfg, model, params = _full_width("h2o-danube-3-4b", num_layers=12)
     base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
                 chunk_size=256, max_running=8)
     rng = np.random.default_rng(0)
@@ -2011,6 +2052,11 @@ def phase_danube():
     log(f"[danube] outputs bitwise equal across packed depths 1, 4; noise "
         f"floor {noise:.4f}, fork tolerance {tol:.4f}; (forks, first-token "
         f"diff) vs packed: {forks}; 0 leaked pages")
+    more = _baseline_legs("danube", cfg, model, params, base, prompts, 32,
+                          tol)
+    for k in launches:
+        launches[k] += more[k]
+    _serve_fit(model, base, prompts, 32)
     return launches
 
 
@@ -2027,6 +2073,7 @@ def phase_internlm2():
     noise, tol, forks = _forks_within_noise("internlm2", ref, ("padded",))
     log(f"[internlm2] noise floor {noise:.4f}, fork tolerance {tol:.4f}; "
         f"(forks, first-token diff) vs packed: {forks}; 0 leaked pages")
+    _serve_fit(model, base, prompts, 32)
     return launches
 
 
@@ -2062,6 +2109,7 @@ def phase_qwen():
         f"(forks, first-token diff) vs packed: {forks}; 0 leaked pages; "
         f"peak allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
         f"GiB")
+    _serve_fit(model, base, prompts, 16)
     return launches
 
 
@@ -2207,6 +2255,7 @@ def _moe_model(arch, layers):
         f"leaked pages; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"card=[{card()}]")
+    _serve_fit(model, base, prompts, 32)
     return launches
 
 
@@ -2276,6 +2325,13 @@ def _vlm():
         f"vs packed: {forks}; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"card=[{card()}]")
+    # the reference keeps no image pages (one full-attention KV type), so
+    # its baseline allocates what Jenga does
+    more = _baseline_legs("vlm", cfg, model, params, base, prompts, 32, tol,
+                          expect="equal", mm_items=mm)
+    for k in launches:
+        launches[k] += more[k]
+    _serve_fit(model, base, prompts, 32)
     return launches
 
 
@@ -2356,6 +2412,16 @@ def _whisper():
         f"vs packed: {forks}; 0 leaked pages; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"card=[{card()}]")
+    # depth 1: the reference's whisper engine preempts without end at
+    # depth 4 on small pools; the phase's pool, the clips' rows and the
+    # peak may tie (the baseline widens only rows without a clip)
+    more = _baseline_legs("whisper", cfg, model, params, base, prompts, 32,
+                          tol, depth=1, pressure=False, expect="at least",
+                          enc_items=enc, text_only=("r6", "r7"),
+                          attn_layers=kw["attn_layers"])
+    for k in launches:
+        launches[k] += more[k]
+    _serve_fit(model, base, prompts, 32, enc_rows=base["max_running"])
     return launches
 
 
@@ -2429,8 +2495,9 @@ def _rwkv_launches(model, params, base, prompts):
 
 
 def _rwkv():
-    """rwkv6-3b at full width (32 layers, d 2560, 40 heads of 64, ff 8960,
-    vocab 65536, untied): phase 3's 8 prompts, packed at depths 1 and 4
+    """rwkv6-3b at full width, 8 of its 32 layers (d 2560, 40 heads of 64,
+    ff 8960, vocab 65536, untied): phase 3's 8 prompts, packed at depths
+    1 and 4
     (bitwise equal), packed-b256, padded and serial (fork-aware within
     twice the noise floor), every leg drained with no leaked page and
     state checkpoint copies made (prompts past 512 tokens). The path runs
@@ -2441,7 +2508,7 @@ def _rwkv():
 
     import torch
 
-    cfg, model, params = _full_width("rwkv6-3b")
+    cfg, model, params = _full_width("rwkv6-3b", num_layers=8)
     base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
                 chunk_size=256, max_running=8)
     prompts = _prompts(8, cfg.vocab_size)
@@ -2469,6 +2536,7 @@ def _rwkv():
         f"{forks}; 0 leaked pages; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"card=[{card()}]")
+    _serve_fit(model, base, prompts, 32)
     del params
     return launches
 
@@ -2558,7 +2626,7 @@ def _plain_one_at_a_time(model, params, base, prompts, new_tokens, device):
 
 
 def _spec_legs(cfg, params, device, tol):
-    """Speculative decoding at k 3 on 4 of phase 3's prompts, 32 new
+    """Speculative decoding at k 3 on 2 of phase 3's prompts, 32 new
     tokens each, one request at a time, against the plain greedy engine
     of the target with the same chunk size on the same traffic, fork-aware
     within ``tol`` (twice the noise floor of ``_fleet_legs``). Draft (a):
@@ -2572,7 +2640,7 @@ def _spec_legs(cfg, params, device, tol):
     from repro_torch.models import build_model
     from repro_torch.serving import SpecDecodeConfig, SpecDecodeEngine
 
-    prompts = _prompts(8, cfg.vocab_size)[:4]
+    prompts = _prompts(8, cfg.vocab_size)[:2]
     new_tokens, chunk = 32, 256
     plain_cfg = dict(kv_pool_bytes=POOL_BYTES, max_num_batched_tokens=512,
                      chunk_size=chunk, max_running=8,
@@ -3039,11 +3107,13 @@ def phase_train():
 
 
 # ---------------------------------------------------------------- phase 5b
-# (arch, depth cut, micro-batches of the 4 x 2048-token step)
-# (arch, depth cut, micro-batches, rows, tokens a row) of a phase-5b step
+# (arch, depth cut, micro-batches, rows, tokens a row) of a phase-5b step;
+# rwkv6-3b is cut to 8 of its 32 layers for time (its full-depth fit is the
+# planner's to predict)
 FAMILY_TRAIN = (("zamba2-1.2b", {}, 2, 4, 2048), ("qwen2-vl-2b", {}, 2, 4, 2048),
                 ("qwen3-moe-235b-a22b", {"num_layers": 1}, 4, 4, 2048),
-                ("rwkv6-3b", {}, 4, 4, 2048), ("whisper-tiny", {}, 2, 16, 448))
+                ("rwkv6-3b", {"num_layers": 8}, 4, 4, 2048),
+                ("whisper-tiny", {}, 2, 16, 448))
 IMAGE_AT, IMAGE_GRID = 16, 16     # the VLM rows' image span: 16 x 16 patches
 
 
@@ -3104,9 +3174,22 @@ def _family_counts(cfg):
                 dense_bwd=n_attn, varlen=0, paged=0)
 
 
+def _train_fit(model, arch, batch, seq, micro, peak):
+    """The planner against a phase-5b leg's peak (since before its init),
+    and a leg cut in depth against its largest fitting depth."""
+    from repro_torch.launch import dryrun
+
+    def terms(m):
+        return dryrun.train_terms(m, batch, seq, micro)
+
+    _fit(f"train {arch} at {model.cfg.num_layers} layers, {micro} x "
+         f"{batch // micro} x {seq}", terms(model), peak)
+    _cut_fits(f"train {arch}", model.cfg, terms)
+
+
 def phase_train_families(device="cuda"):
     """Training the hybrid, VLM, MoE, RWKV6 and enc-dec families. (a) Full
-    width, fp32 masters from seed 0, AdamW, one untimed step and 4 timed
+    width, fp32 masters from seed 0, AdamW, one untimed step and 2 timed
     ones of FAMILY_TRAIN's layout: zamba2-1.2b; qwen2-vl-2b with a seeded image
     span in every row (``_image_batch``); qwen3-moe-235b-a22b at full
     per-layer width cut to 1 of its 94 layers (a layer's fp32 masters,
@@ -3115,14 +3198,16 @@ def phase_train_families(device="cuda"):
     not fit 80 GB) and to micro-batches of 1 x 2048 tokens (4 a step: the
     (2048, 151936) fp32 logits and their gradient, and the bf16 copies of
     the expert masters the products take, fit beside the 59.7 GB);
-    rwkv6-3b at full depth in micro-batches of 1 x 2048 tokens (16 bytes
-    x 3.06 B params = 49 GB, beside one layer's recomputed chunk
-    products and the (2048, 65536) fp32 logits); whisper-tiny, 16 rows of
+    rwkv6-3b at 8 of its 32 layers in micro-batches of 1 x 2048 tokens;
+    whisper-tiny, 16 rows of
     448 decoder tokens (its decoder context) over 1500 seeded stub frames
     a row (``_frame_batch``) in 2 micro-batches. Each: finite losses (the
     MoE aux loss printed), every counted kernel's launches exactly
     ``_family_counts`` per micro-batch (RWKV6: none), ms per step,
-    tokens/s (whisper: decoder tokens, and frames/s) and peak memory.
+    tokens/s (whisper: decoder tokens, and frames/s) and the peak memory
+    since before the leg's init, within FIT_TOL of the fit planner's
+    prediction for the same depth, batch and micro-batches; a leg cut in
+    depth within the planner's largest fitting depth.
     (b) Reduced configs with the same fp32 weights on the card and on the
     CPU: 3 steps' losses within TRAIN_LOSS_TOL each; the reduced hybrid,
     RWKV6 and enc-dec models resumed exactly from a checkpoint (rtol
@@ -3162,10 +3247,12 @@ def phase_train_families(device="cuda"):
     ckpt_root = tempfile.mkdtemp(prefix="smoke_fam_", dir=ROOT / "build")
     try:
         # ---- (a) full width
-        steps = 4
+        steps = 2
         for arch, cut, micro, batch, seq in FAMILY_TRAIN:
             gc.collect()
-            torch.cuda.empty_cache()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
             t_arch = time.perf_counter()
             cfg = dataclasses.replace(ARCHS[arch], **cut)
             tr = Trainer(build_model(cfg), AdamWConfig(),
@@ -3193,8 +3280,6 @@ def phase_train_families(device="cuda"):
             try:
                 params, state, warm = tr.run(params, state, data,
                                              num_steps=1)
-                if device == "cuda":
-                    torch.cuda.reset_peak_memory_stats()
                 times = []
                 for fn in counters.values():
                     fn.launches = 0
@@ -3244,6 +3329,8 @@ def phase_train_families(device="cuda"):
                 f"peak_mem_gb={peak / 1e9:.2f} launches {got} (= "
                 f"{_family_counts(cfg)} x {micro} x {steps}); "
                 f"{time.perf_counter() - t_arch:.1f} s [{card()}]")
+            if device == "cuda":
+                _train_fit(tr.model, arch, batch, seq, micro, peak)
             del params, state, tr
         gc.collect()
         if device == "cuda":
@@ -3297,27 +3384,354 @@ def phase_train_families(device="cuda"):
     return totals
 
 
+# ---------------------------------------------------------------- phase 10
+BASELINE_MAX_STEPS = 1000   # a baseline-phase leg that does not drain fails
+
+
+def _baseline_legs(tag, cfg, model, params, base, prompts, new_tokens, tol,
+                   depth=4, pressure=True, expect="above", mm_items=None,
+                   enc_items=None, attn_layers=None, text_only=()):
+    """Phase 10 for one full-width model, on its phase's weights: Jenga
+    against the PagedAttention baseline (``memory_mode="paged-baseline"``,
+    the paper's Figs. 13/14 comparison), packed at ``depth`` and padded,
+    once in each mode under one pool, each leg capped at BASELINE_MAX_STEPS
+    steps. With ``pressure``, both modes first run packed at the phase's
+    own pool, where nothing defers: their peak used units are what each
+    needs, and the baseline's must be above Jenga's (``expect`` "above")
+    or equal to it ("equal": a model whose KV types the baseline treats
+    as Jenga does). The pool of the four legs is then Jenga's peak plus
+    2%, in whole large pages: Jenga must hold every request at once with
+    no defer and no preemption, and the baseline, which needs more, must
+    defer or preempt in the packed leg ("above"; padded at depth 1 holds
+    no speculative pages and needs less). Without ``pressure`` the legs run at the
+    phase's pool and the baseline's peak is at least Jenga's. Every leg
+    drains with 0 leaked pages and the phase's launch counts; the
+    baseline's greedy outputs are fork-aware equal to Jenga's in the same
+    mode within ``tol`` (twice the phase's noise floor; bitwise for
+    "equal"); with ``text_only`` (enc-dec), those rows hold cross pages
+    under the baseline only. Logs per leg the peak used units, the most
+    requests running at once, defers, preemptions and output tokens/s.
+    Returns the kernel launch totals."""
+    seen, stats = {}, {}
+    launches = {"varlen": 0, "paged": 0, "dense": 0}
+    modes = ("jenga", "paged-baseline")
+    rec = dict(record_sample_logits=True)
+    packed = dict(rec, async_scheduling=depth > 1, pipeline_depth=depth)
+    with _allocation_peaks() as peaks:
+
+        def on_step(eng, name, d):
+            sched = eng.scheduler
+            st = seen.setdefault((name, d), dict(running=0, cross=0))
+            st["peak"] = peaks[eng.mgr]
+            st["running"] = max(st["running"], len(sched.running))
+            st["defers"], st["preempts"] = (sched.defer_count,
+                                            sched.preemption_count)
+            for r in sched.running:
+                if r.rid in text_only:
+                    st["cross"] = max(st["cross"], sum(
+                        len(t) for n, t in r.seq.page_tables.items()
+                        if n.endswith("cross_attn")))
+
+        kw = dict(mm_items=mm_items, enc_items=enc_items,
+                  attn_layers=attn_layers, on_step=on_step,
+                  max_steps=BASELINE_MAX_STEPS, leg_stats=stats)
+        pool = base["kv_pool_bytes"]
+        if pressure:
+            large = []
+            _, _, more = _serve_legs(
+                f"{tag} baseline-phase demand", cfg, model, params, base,
+                [(f"{m}-demand", "packed", depth, dict(packed, memory_mode=m))
+                 for m in modes], prompts, new_tokens,
+                on_leg=lambda e, n, d: large.append(
+                    e.mgr.geometry.large_page_units), **kw)
+            for k in launches:
+                launches[k] += more[k]
+            pj, pb = (seen[f"{m}-demand", depth]["peak"] for m in modes)
+            units = -(-int(1.02 * pj) // large[0]) * large[0]
+            if (expect == "above") != (pb > pj) or \
+                    (expect == "equal") != (pb == pj) or \
+                    (expect == "above" and units >= pb):
+                raise AssertionError(f"{tag}: peak used units at the "
+                                     f"phase's pool: Jenga {pj}, baseline "
+                                     f"{pb}, expected {expect}; pool {units}")
+            pool = units * 2
+        legs = [(f"{m}{sfx}", layout, d,
+                 dict(cfg_kw, memory_mode=m, kv_pool_bytes=pool))
+                for m in modes
+                for sfx, layout, d, cfg_kw in (
+                    ("", "packed", depth, packed),
+                    ("-padded", "padded", 1,
+                     dict(rec, async_scheduling=False)))]
+        outs, ref, more = _serve_legs(f"{tag} baseline-phase", cfg, model,
+                                      params, base, legs, prompts,
+                                      new_tokens, **kw)
+    for k in launches:
+        launches[k] += more[k]
+    forks = {}
+    for sfx, d in (("", depth), ("-padded", 1)):
+        j, b = (f"{m}{sfx}" for m in modes)
+        rj, rb = ((n if d == 1 else f"{n} depth {d}") for n in (j, b))
+        diff = _first_row_diff(ref[rj], ref[rb])
+        if diff > tol:
+            raise AssertionError(f"{tag} {rb}: first-token logits differ "
+                                 f"from {rj} by {diff} > {tol}")
+        forks[rb] = (_fork_aware_equal(ref[rj], ref[rb], f"{tag} {rb}",
+                                       tol), round(diff, 4))
+        sj, sb = seen[j, d], seen[b, d]
+        if pressure and (sj["defers"] or sj["preempts"] or
+                         sj["running"] != len(prompts)):
+            raise AssertionError(f"{tag} {rj}: Jenga did not hold every "
+                                 f"request at once: {sj}")
+        # the pool is set by the packed leg: padded at depth 1 holds no
+        # speculative pages and may fit the baseline
+        bad = {"above": pressure and not sfx and
+               not sb["defers"] + sb["preempts"],
+               "equal": sb != sj or outs[b, d] != outs[j, d],
+               "at least": sb["peak"] < sj["peak"]}[expect]
+        if bad:
+            raise AssertionError(f"{tag} {rb}: {sb} against Jenga's {sj} "
+                                 f"(expected {expect})")
+        if text_only and not sj["cross"] == 0 < sb["cross"]:
+            raise AssertionError(f"{tag} {rb}: cross pages on the text-only "
+                                 f"rows {sb['cross']}, Jenga's "
+                                 f"{sj['cross']}")
+    for (name, d), st in sorted(seen.items()):
+        gib = (base["kv_pool_bytes"] if "demand" in name else pool) / 2 ** 30
+        log(f"[{tag} baseline-phase] {name} depth={d} pool={gib:.3f} GiB: "
+            f"peak_used_units={st['peak']} max_running={st['running']} "
+            f"defers={st['defers']} preemptions={st['preempts']}"
+            + (f" text_only_cross_pages={st['cross']}" if text_only else "")
+            + f" output_tok_per_s="
+            f"{stats[name, d]['tokens'] / stats[name, d]['wall_s']:.1f} "
+            f"card=[{card()}]")
+    log(f"[{tag} baseline-phase] baseline vs Jenga (forks, first-token "
+        f"diff) within {tol:.4f}: {forks}; 0 leaked pages")
+    return launches
+
+
+@contextlib.contextmanager
+def _allocation_peaks():
+    """Yields {manager: the most used units right after any of its batch
+    allocations}: the peak within a step, before an in-flight step
+    completes and frees pages (``JengaKVCacheManager.allocate_for_batch``
+    wrapped while the block runs)."""
+    from repro_torch.core.manager import JengaKVCacheManager
+    allocate = JengaKVCacheManager.allocate_for_batch
+    peaks = {}
+
+    def recording(mgr, *a, **k):
+        ok = allocate(mgr, *a, **k)
+        peaks[mgr] = max(peaks.get(mgr, 0), mgr.memory_stats().used_units)
+        return ok
+
+    JengaKVCacheManager.allocate_for_batch = recording
+    try:
+        yield peaks
+    finally:
+        JengaKVCacheManager.allocate_for_batch = allocate
+
+
+# ----------------------------------------------------------- planner fits
+FIT_TOL = 0.15      # |predicted / measured - 1| of a peak (the planner)
+FITS = []           # (label, predicted bytes, measured bytes)
+
+
+def _fit(label, terms, measured):
+    """Hold the planner's predicted peak (``dryrun.peak`` of ``terms``,
+    plus the batch) against a measured ``max_memory_allocated``."""
+    from repro_torch.launch import dryrun
+    pred = dryrun.peak(terms) + terms.get("batch", 0)
+    err = pred / measured - 1
+    FITS.append((label, pred, measured))
+    parts = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in
+                      [("weights", terms["weights"]), ("pool", terms["pool"])]
+                      + sorted(terms["detail"].items()))
+    log(f"[planner] {label}: predicted {pred / 1e9:.2f} GB ({parts}) "
+        f"measured {measured / 1e9:.2f} GB: error {err:+.3f} (bound "
+        f"{FIT_TOL}) card=[{card()}]")
+    if abs(err) > FIT_TOL:
+        raise AssertionError(f"planner {label}: predicted {pred} bytes, "
+                             f"measured {measured}")
+
+
+def _serve_fit(model, base, prompts, new_tokens, enc_rows=0):
+    """The planner against a serving phase's peak allocated bytes since
+    ``_full_width`` reset the count: its bf16 weights, its pool and the
+    largest step any of its legs dispatches (padded T > 1: rows x chunk,
+    both to powers of two; packed: the budget). A model served cut in
+    depth must be within the planner's largest fitting depth at the same
+    batch and pool."""
+    import torch
+    from repro_torch.launch import dryrun
+    cfg = model.cfg
+    rows = base["max_running"]
+    step = max(base["max_num_batched_tokens"],
+               (1 << (rows - 1).bit_length()) *
+               (1 << (base["chunk_size"] - 1).bit_length()))
+    ctx = rows * (max(map(len, prompts)) + new_tokens)
+
+    def terms(m):
+        return dryrun.serve_terms(m, dryrun.pool_bytes(
+            m, base["kv_pool_bytes"]), step, rows, ctx, enc_rows)
+
+    _fit(f"serve {cfg.name} at {cfg.num_layers} layers", terms(model),
+         torch.cuda.max_memory_allocated())
+    _cut_fits(f"serve {cfg.name}", cfg, terms)
+
+
+def _cut_fits(label, cfg, terms):
+    """A model cut in depth must be within the planner's largest fitting
+    depth for the same run (``terms``: a model -> its predicted terms)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    full = ARCHS[cfg.name]
+    if cfg.num_layers == full.num_layers:
+        return
+    depth = dryrun.largest_depth(full, lambda c: dryrun.peak(
+        terms(build_model(c))) <= dryrun.FIT_BYTES)
+    log(f"[planner] {label}: cut to {cfg.num_layers} of {full.num_layers} "
+        f"layers; the planner's largest fitting depth for the same batch "
+        f"and pool is {depth}")
+    if cfg.num_layers > depth:
+        raise AssertionError(f"{label}: cut {cfg.num_layers} > the "
+                             f"planner's {depth}")
+
+
+# ---------------------------------------------------------------- phase 11
+# (arch, shape) the planner measures on the card, and the kernels each runs
+PLANNER_CELLS = (("granite-3-2b", "prefill_32k"),
+                 ("granite-3-2b", "decode_32k"),
+                 ("zamba2-1.2b", "train_4k"))
+
+
+def phase_planner():
+    """Phase 11: the one-card fit planner (``repro_torch.launch.dryrun``).
+    Predicts every (arch x shape) of ``shapes_for`` (weights, pool and
+    activation terms at full depth, whether it fits, its largest fitting
+    depth, the analytic roofline terms), then runs PLANNER_CELLS on the
+    card at the smaller of their full and largest fitting depth
+    (``dryrun.measure``: a prefill cell as one packed dispatch of the
+    card's 2 x 32,768 tokens, a decode cell as one padded T == 1 dispatch
+    over 8 x 32,768 tokens of context, a train cell as one ``Trainer``
+    step of 16 x 4096 tokens), each peak within FIT_TOL of its prediction,
+    finite outputs, and each cell's kernels launched exactly as its path
+    takes them (prefill: varlen once a layer; decode: paged once a layer;
+    train: ``_family_counts`` a micro-batch). Returns the launch totals."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ARCHS, SHAPES_BY_NAME, shapes_for
+    from repro_torch.kernels.flash_attention import (dense_flash_bwd,
+                                                     dense_flash_fwd,
+                                                     flash_attention_varlen)
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
+                                                mamba_chunk_scan_varlen)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.launch import dryrun
+
+    _, total = torch.cuda.mem_get_info()
+    log(f"[planner] the card reports {total / 2 ** 30:.2f} GiB "
+        f"({total / 1e9:.2f} GB); the planner's card "
+        f"{dryrun.CARD_BYTES / 2 ** 30:.2f} GiB less a "
+        f"{dryrun.RESERVE / 2 ** 30:.0f} GiB reserve: cells fit below "
+        f"{dryrun.FIT_BYTES / 1e9:.2f} GB")
+    if abs(total - dryrun.CARD_BYTES) > 0.01 * dryrun.CARD_BYTES:
+        raise AssertionError(f"the card has {total} bytes, the planner "
+                             f"assumes {dryrun.CARD_BYTES}")
+    recs = {}
+    for arch in sorted(ARCHS):
+        for shape in shapes_for(ARCHS[arch]):
+            r = recs[arch, shape.name] = dryrun.plan(arch, shape.name)
+            t_c, t_m = (r["roofline"][k] for k in ("t_compute_s",
+                                                   "t_memory_s"))
+            log(f"[planner] {arch} {shape.name}: {r['rows']} x "
+                f"{r['tokens']} tokens; predicted peak "
+                f"{r['peak_bytes'] / 1e9:.2f} GB at {r['full_depth']} "
+                f"layers (weights {r['terms']['weights'] / 1e9:.2f}, pool "
+                f"{r['terms']['pool'] / 1e9:.2f}, activations "
+                f"{r['terms']['activations'] / 1e9:.2f}); fits="
+                f"{r['fits']} largest_depth={r['max_depth']}; compute "
+                f"{t_c:.3e} s, memory {t_m:.3e} s")
+    counters = dict(varlen=flash_attention_varlen,
+                    paged=paged_decode_attention,
+                    scan_fwd=mamba_chunk_scan_varlen,
+                    scan_bwd=mamba_chunk_scan_bwd,
+                    dense_fwd=dense_flash_fwd, dense_bwd=dense_flash_bwd)
+    totals = dict.fromkeys(counters, 0)
+    for arch, shape in PLANNER_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = recs[arch, shape]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        m = dryrun.measure(rec)
+        got = {k: fn.launches for k, fn in counters.items()}
+        cfg = dryrun.at_depth(ARCHS[arch], rec["max_depth"])
+        if shape.startswith("train"):
+            want = {k: v * rec["micro_batches"]
+                    for k, v in _family_counts(cfg).items()}
+        else:
+            kind = "varlen" if shape.startswith("prefill") else "paged"
+            want = dict.fromkeys(counters, 0)
+            want[kind] = cfg.num_layers
+        if got != want:
+            raise AssertionError(f"planner {arch} {shape}: launches {got}, "
+                                 f"expected {want}")
+        if not m["finite"]:
+            raise AssertionError(f"planner {arch} {shape}: not finite {m}")
+        for k, n in got.items():
+            totals[k] += n
+        terms, _ = dryrun.cell_terms(cfg, SHAPES_BY_NAME[shape])
+        log(f"[planner] measured {arch} {shape} at {rec['max_depth']} layers: "
+            f"{m['ms']:.1f} ms (CUDA events, first call), launches {got}, "
+            f"{time.perf_counter() - t0:.1f} s with init")
+        _fit(f"cell {arch} {shape}", terms, m["peak_bytes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    smi = phase_env()
-    kres = phase_kernels()
-    pres = phase_paged_kernel()
-    mres = phase_mamba_kernel()
-    bres = phase_mamba_bwd_kernel()
-    dres = phase_dense_kernel()
-    launches = phase_engine()
-    phase_small_reference("granite-3-2b")
-    hybrid, _ = phase_hybrid_engine()
-    phase_small_reference("zamba2-1.2b")
-    train = phase_train()
-    fam = phase_train_families()
+    t_run = time.perf_counter()
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__}{args or ''}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        return out
+
+    smi = timed(phase_env)
+    kres = timed(phase_kernels)
+    pres = timed(phase_paged_kernel)
+    mres = timed(phase_mamba_kernel)
+    bres = timed(phase_mamba_bwd_kernel)
+    dres = timed(phase_dense_kernel)
+    launches = timed(phase_engine)
+    timed(phase_small_reference, "granite-3-2b")
+    hybrid, _ = timed(phase_hybrid_engine)
+    timed(phase_small_reference, "zamba2-1.2b")
+    train = timed(phase_train)
+    fam = timed(phase_train_families)
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
                   phase_encdec_rwkv, phase_spec_fleet):
-        for k, n in phase().items():
+        for k, n in timed(phase).items():
             launches[k] += n
+    plan = timed(phase_planner)
+    launches["varlen"] += plan["varlen"]
+    launches["paged"] += plan["paged"]
+    for k in ("scan_fwd", "scan_bwd", "dense_fwd", "dense_bwd"):
+        fam[k] += plan[k]
+    log(f"[planner] {len(FITS)} predicted peaks within {FIT_TOL} of the "
+        f"measured: largest error "
+        f"{max(abs(p / m - 1) for _, p, m in FITS):.3f}")
+    log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
     mixed, decode, dense = kres[0], pres[0], dres[0]
     dense_src = "src/repro_torch/kernels/flash_attention/csrc/dense_flash.cu"
     dense_tpu = "src/repro/kernels/flash_attention/kernel.py:21"

@@ -1,5 +1,5 @@
-"""Launch-side analysis the port needs: the H100's roofline constants and
-the analytic parameter count (``roofline``)."""
-from .roofline import HBM_BW, PEAK_FLOPS, count_params
-
-__all__ = ["HBM_BW", "PEAK_FLOPS", "count_params"]
+"""Launch-side analysis for one card: its share of the reference's
+production mesh (``mesh``), one card's cells (``input_specs``), the H100
+roofline and parameter count (``roofline``) and the fit planner
+(``dryrun``). Nothing is imported here, so ``python -m`` runs each module
+as ``__main__`` once."""

@@ -1,0 +1,426 @@
+"""The one-card fit planner (the port's ``repro/launch/dryrun.py``).
+
+The reference compiles each (arch x shape) cell for a 16 x 16 TPU mesh and
+reads XLA's memory and cost analyses. Torch has no such analysis, so the
+port predicts one card's peak bytes from the model's own parameter shapes
+and the card's share of the cell (``mesh.card_share``), term by term:
+
+* **weights**: every leaf of ``model.param_shapes()`` at the dtype its
+  ``init`` gives it (serving: bf16 matrices, fp32 norms, biases and
+  vectors; training: fp32 masters, their gradients and two AdamW moments,
+  16 bytes a parameter);
+* **pool**: the unified buffer, ``input_specs.buffer_units_for`` of the
+  card's rows and tokens plus the scratch page (serving only);
+* **activations**, as the port computes them:
+  - serving: the fp32 copy of the vocabulary table the head multiplies
+    with (``models.tp.logits_local``), one layer's transient working set
+    at the step's tokens (``_layer_bytes``), the K/V of the step's
+    context gathered for one cycle of layers, the logits rows, and for
+    enc-dec the encoder's layer and the padded cross attention's scores;
+  - training, the larger of two moments of a micro-batch's backward:
+    (a) at the head: the checkpointed input of every cycle, three
+    (tokens, vocab) fp32 logits-sized tensors and the table's fp32 copy
+    and gradient; (b) at the last layer's backward: every per-layer
+    gradient of the stacked leaves (held by their ``unbind`` until the
+    first layer's gradient exists), plus the larger of one stacked leaf's
+    gradient being stacked and one cycle's recomputation (its bf16 weight
+    copies and working set). Activations are recomputed a cycle of the
+    layer pattern at a time (``torch.utils.checkpoint``; ``period``) and
+    the batch is split into micro-batches
+    (``input_specs.default_micro_batches``, at most one row each).
+
+A cell fits when its peak is at most ``CARD_BYTES - RESERVE``. Its largest
+fitting depth is the deepest cut, in whole cycles of the model's layer
+pattern, that fits. Each record also carries the cell's analytic roofline
+terms (``roofline.analytic_terms`` on the H100's constants). ``--measure``
+runs a cell on the card at the smaller of
+its full and its largest fitting depth: a prefill cell as one packed
+dispatch of the card's tokens (the varlen kernel), a decode cell as one
+padded T == 1 dispatch (the paged kernel), a train cell as one ``Trainer``
+step, with ``torch.cuda.max_memory_allocated`` and the CUDA-event time
+beside the prediction.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
+      --shape decode_32k --measure          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import tempfile
+import time
+from typing import Dict, Iterator, Tuple
+
+from ..configs import ARCHS, SHAPES_BY_NAME, shapes_for
+from ..core.spec import BYTES_PER_UNIT, lcm, make_geometry
+from ..models.params import MATRICES
+from .input_specs import (default_micro_batches, serve_cell, train_cell)
+from .mesh import card_share
+from .roofline import HBM_BW, PEAK_FLOPS, analytic_terms
+
+# The card: one NVIDIA H100 80GB HBM3 reports 79.18 GiB to torch
+# (``torch.cuda.mem_get_info``); the reserve covers the CUDA context,
+# cuBLAS workspaces and the caching allocator's rounding.
+CARD_BYTES = int(79.18 * 2 ** 30)
+RESERVE = 2 << 30
+FIT_BYTES = CARD_BYTES - RESERVE
+RWKV_CHUNK = 64     # models.blocks_seq.RWKV_CHUNK
+
+
+# --------------------------------------------------------------- weights
+def _leaves(tree, stacked=False) -> Iterator[Tuple[str, tuple, bool]]:
+    """(name, shape, stacked) of every leaf; a leaf under a subtree other
+    than ``shared_attn`` is a per-layer stack (``models.lm.unstack``)."""
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, name != "shared_attn")
+        else:
+            yield name, tuple(v), stacked
+
+
+def weight_bytes(model, master: bool = False) -> int:
+    """The bytes of ``model.init(..., master=master)``."""
+    return sum(math.prod(s) * (4 if master or n not in MATRICES else 2)
+               for n, s, _ in _leaves(model.param_shapes()))
+
+
+def param_counts(model) -> Dict[str, int]:
+    """Parameters in all, in per-layer stacks, and in the largest stack."""
+    shapes = list(_leaves(model.param_shapes()))
+    stacks = [math.prod(s) for _, s, st in shapes if st]
+    return dict(total=sum(math.prod(s) for _, s, _ in shapes),
+                stacked=sum(stacks), largest_stack=max(stacks, default=0))
+
+
+def pool_bytes(model, kv_pool_bytes: int) -> int:
+    """The unified buffer an ``Engine`` allocates for ``kv_pool_bytes``:
+    the geometry's whole large pages plus the scratch page."""
+    specs = model.kv_specs()
+    geo = make_geometry(specs, total_memory_bytes=kv_pool_bytes, mode="lcm")
+    big = lcm([s.page_units for s in specs])
+    return (geo.total_units + big) * BYTES_PER_UNIT
+
+
+# ----------------------------------------------------------- activations
+def _layer_bytes(model, n: int, train: bool = False) -> int:
+    """One layer's transient working set over ``n`` tokens (the largest
+    of its norm, attention and MLP or mixer phases, beside the residual
+    stream), as the port's blocks compute it: activations bf16, norms and
+    the MLP's SiLU product in fp32 (``blocks_attn.mlp_block``). Training:
+    one checkpointed cycle of layers (``period``) recomputed in the
+    backward, each with its bf16 weight copies (``common.dense`` rounds
+    the fp32 masters in every call) and twice its working set (the saved
+    activations and their gradients). The hybrid's cycle is
+    ``attn_every`` Mamba2 layers and one pass of the shared attention and
+    MLP block."""
+    cfg = model.cfg
+    d = cfg.d_model
+    qd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    norm = 12 * n * d
+    attn = 4 * n * (qd + kvd)
+    layer = sum(math.prod(s[1:]) for _, s, st in
+                _leaves(model.param_shapes()) if st) // max(1, cfg.num_layers)
+    if cfg.family == "ssm":
+        # RWKV6: r, k, v, g, w fp32 and the wkv output; the chunk's decay
+        # tensors (B, 64, 64, H, hs) fp32: three of one chunk serving,
+        # two of every chunk kept for the backward when training
+        mix = 24 * n * d + 10 * n * cfg.d_ff
+        dec = RWKV_CHUNK * d * 4 * (2 * n if train else 3 * RWKV_CHUNK)
+        work = max(norm, mix) + dec
+    elif cfg.family == "hybrid":
+        # Mamba2: in_proj (z, x, B, C, dt) bf16, the conv and the scan's
+        # inputs and output fp32 (``mamba2_dims``); the shared block: its
+        # attention and SwiGLU MLP
+        di = cfg.mamba_expand * d
+        width = 2 * di + 2 * cfg.mamba_d_state + di // cfg.mamba_headdim
+        mamba = max(norm, n * (2 * width + 4 * (di + 2 * cfg.mamba_d_state)
+                               + 12 * di)) + 4 * n * d
+        shared = max(norm, attn, 16 * n * cfg.d_ff) + 4 * n * d
+        if not train:
+            return max(mamba, shared)
+        block = sum(math.prod(s) for _, s, st in
+                    _leaves(model.param_shapes()) if not st and len(s) > 1
+                    and s[0] != model.v_pad)
+        return cfg.attn_every * (2 * layer + 2 * mamba) + \
+            2 * block + 2 * shared
+    elif cfg.num_experts:
+        # MoE: router logits fp32, the capacity slots' inputs bf16, g and
+        # u fp32 products, their SiLU product, outputs fp32
+        e, k = cfg.num_experts, cfg.experts_per_token
+        cap = int(max(1, round(n * k / e * cfg.capacity_factor)))
+        moe = 4 * n * e + e * cap * (16 * cfg.moe_d_ff + 8 * d) \
+            + 8 * n * k * d
+        work = max(norm, attn, moe)
+    else:
+        # dense, VLM and enc-dec decoder layers (enc-dec: GELU MLP, no gate)
+        work = max(norm, attn, 16 * n * cfg.d_ff)
+    work += 4 * n * d
+    if not train:
+        return work
+    return period(cfg) * (2 * layer + 2 * work)
+
+
+def serve_terms(model, pool: int, step_tokens: int, rows: int,
+                ctx_tokens: int = 0, enc_rows: int = 0) -> Dict[str, int]:
+    """Predicted peak bytes of a serving run: bf16 weights, the buffer
+    (``pool``: ``pool_bytes``), and the activations of its largest step
+    (``step_tokens`` tokens, ``rows`` logits rows, ``ctx_tokens`` slots of
+    K/V gathered per layer of a cycle, ``enc_rows`` encoder rows)."""
+    cfg = model.cfg
+    v, d = model.v_pad, cfg.d_model
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    # a decoder gathers a cycle's pages before any is written
+    gathers = len(cfg.attn_pattern) if cfg.family in ("dense", "moe",
+                                                      "vlm") else 1
+    act = {
+        "head": 4 * v * d + 12 * rows * v,
+        "layer": _layer_bytes(model, step_tokens),
+        "context": 4 * kvd * (ctx_tokens + step_tokens) * gathers,
+    }
+    if cfg.family == "encdec":
+        # padded cross attention in plain torch: the step's scores over
+        # every gathered encoder slot, fp32, four of them at once
+        enc = -(-cfg.encoder_seq // cfg.tokens_per_page) * cfg.tokens_per_page
+        act["cross"] = 16 * step_tokens * cfg.num_heads * enc
+        if enc_rows:
+            act["encoder"] = _layer_bytes(model, enc_rows * cfg.encoder_seq)
+    return dict(weights=weight_bytes(model), pool=pool,
+                activations=sum(act.values()), detail=act)
+
+
+def train_terms(model, rows: int, seq: int, micro: int) -> Dict[str, int]:
+    """Predicted peak bytes of a ``Trainer`` step of ``rows`` x ``seq``
+    tokens in ``micro`` micro-batches (see the module docstring)."""
+    cfg = model.cfg
+    n = rows // micro * seq
+    v, d = model.v_pad, cfg.d_model
+    pc = param_counts(model)
+    ckpt = 2 * n * d * -(-cfg.num_layers // period(cfg))
+    if cfg.family == "encdec":
+        ckpt += 2 * (rows // micro) * cfg.encoder_seq * d * \
+            cfg.encoder_layers
+    head = 12 * n * v + 8 * v * d + ckpt
+    backward = 4 * pc["stacked"] + max(4 * pc["largest_stack"],
+                                       _layer_bytes(model, n, train=True))
+    act = {"head": head, "last_layer": backward}
+    return dict(weights=16 * pc["total"], pool=0,
+                activations=max(act.values()), detail=act)
+
+
+def peak(terms) -> int:
+    return terms["weights"] + terms["pool"] + terms["activations"]
+
+
+# ------------------------------------------------------------ the cells
+def period(cfg) -> int:
+    """Layers in one cycle of the model's layer pattern."""
+    if cfg.family == "hybrid":
+        return cfg.attn_every
+    if cfg.family in ("dense", "moe", "vlm"):
+        return len(cfg.attn_pattern)
+    return 1
+
+
+def at_depth(cfg, layers: int):
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def cell_terms(cfg, shape):
+    """(terms, cell) of one card's share of ``shape`` for ``cfg``."""
+    from ..models import build_model
+    model = build_model(cfg)
+    share = card_share(shape)
+    if shape.kind == "train":
+        micro = min(default_micro_batches(cfg), share.rows)
+        cell = train_cell(cfg, shape, micro)
+        terms = train_terms(model, share.rows, share.tokens, micro)
+    else:
+        cell = serve_cell(model, cfg, shape)
+        step = share.rows * (share.tokens if shape.kind == "prefill" else 1)
+        terms = serve_terms(model, cell.pool_bytes, step, share.rows,
+                            enc_rows=share.rows)
+    terms["batch"] = cell.batch_bytes
+    return terms, cell
+
+
+def largest_depth(cfg, fits) -> int:
+    """The deepest whole-cycle cut of ``cfg`` (its full depth included)
+    for which ``fits(cut_cfg)``; 0 when not even one cycle fits."""
+    step = period(cfg)
+    depths = sorted({*range(step, cfg.num_layers + 1, step),
+                     cfg.num_layers})
+    lo, hi = 0, len(depths) - 1
+    best = 0
+    while lo <= hi:                 # the peak grows with depth
+        mid = (lo + hi) // 2
+        if fits(at_depth(cfg, depths[mid])):
+            best, lo = depths[mid], mid + 1
+        else:
+            hi = mid - 1
+    return best
+
+
+def plan(arch: str, shape_name: str) -> dict:
+    """One record of the planner: predicted terms at full depth, whether
+    the cell fits one card, its largest fitting depth and its share."""
+    cfg, shape = ARCHS[arch], SHAPES_BY_NAME[shape_name]
+
+    def cell_peak(c):
+        t, _ = cell_terms(c, shape)
+        return peak(t) + t["batch"]
+
+    terms, cell = cell_terms(cfg, shape)
+    total = peak(terms) + terms["batch"]
+    depth = largest_depth(cfg, lambda c: cell_peak(c) <= FIT_BYTES)
+    share = card_share(shape)
+    flops, nbytes = analytic_terms(cfg, shape)
+    return dict(arch=arch, shape=shape_name, kind=shape.kind,
+                full_depth=cfg.num_layers, max_depth=depth,
+                fits=total <= FIT_BYTES,
+                peak_bytes=total, fit_bytes=FIT_BYTES, terms=terms,
+                rows=share.rows, tokens=share.tokens, sp=share.sp,
+                micro_batches=cell.notes.get("micro_batches"),
+                buffer_units=cell.buffer_units,
+                batch={k: [list(s), dt] for k, (s, dt) in cell.arrays.items()},
+                roofline=dict(flops=flops, bytes=nbytes,
+                              t_compute_s=flops / PEAK_FLOPS,
+                              t_memory_s=nbytes / HBM_BW))
+
+
+# ---------------------------------------------------------- on the card
+def _timed(device, fn):
+    """(fn(), the CUDA-event ms of its work on the card; None elsewhere)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_cell(cfg, kind: str, rows: int, tokens: int, micro: int, pool: int,
+             device) -> dict:
+    """Run one cell once with seeded random weights on ``device``: a
+    prefill as one packed dispatch of ``rows`` x ``tokens`` tokens, a
+    decode as one padded T == 1 dispatch of ``rows`` rows over ``tokens``
+    of context (their pages left as the zeroed buffer gives them), a train
+    cell as one ``Trainer`` step of ``rows`` x ``tokens`` tokens in
+    ``micro`` micro-batches. ``pool``: the unified buffer's units (serve
+    cells). Returns whether the outputs are finite, the loss or the
+    logits' shape, and on the card the CUDA-event ms of the dispatch or
+    step (``ms``; the weights are drawn before it)."""
+    import numpy as np
+
+    from ..models import build_model
+    model = build_model(cfg)
+    if kind == "train":
+        from ..training import (AdamWConfig, SyntheticLM, Trainer,
+                                TrainerConfig)
+        with tempfile.TemporaryDirectory() as ckpt:    # never written
+            tr = Trainer(model, AdamWConfig(), TrainerConfig(
+                micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt))
+            params, state = tr.init_state(0, device=device)
+            data = SyntheticLM(cfg.vocab_size, seq_len=tokens,
+                               global_batch=rows, mode="markov")
+            (_, _, hist), ms = _timed(device, lambda: tr.run(
+                params, state, data, num_steps=1))
+        return dict(loss=hist[0], finite=bool(np.isfinite(hist).all()),
+                    ms=ms)
+    from ..core.request import SequenceState
+    from ..serving import Engine, EngineConfig, Request
+    params = model.init(seed=0, device=device)
+    big = lcm([s.page_units for s in model.kv_specs()])
+    eng = Engine(model, EngineConfig(
+        kv_pool_bytes=(pool - big) * BYTES_PER_UNIT, max_running=rows),
+        params=params, device=device)
+    prefill = kind == "prefill"
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(rows):
+        prompt = rng.integers(0, cfg.vocab_size, tokens).tolist()
+        req = Request(rid=f"r{i}", prompt=prompt)
+        req.seq = SequenceState(rid=req.rid, tokens=list(prompt))
+        if not (eng.mgr.begin_request(req.seq)[0] and
+                eng.mgr.allocate_for_tokens(req.seq, tokens)):
+            raise RuntimeError("the cell's pool does not hold its rows")
+        if not prefill:
+            eng.mgr.advance(req.seq, tokens - 1)
+        items.append((req, tokens if prefill else 1))
+    logits, ms = _timed(device, lambda: eng.runner.run_plan(
+        params, items, packed=prefill))
+    return dict(logits_shape=list(logits.shape), ms=ms,
+                finite=bool(np.isfinite(logits[:, :cfg.vocab_size]).all()))
+
+
+def measure(rec: dict, device: str = "cuda") -> dict:
+    """``run_cell`` of ``rec`` on the card at its largest fitting depth
+    (its full depth when it fits), with
+    its peak allocated bytes (weights, pool and the run) and the
+    prediction at that depth."""
+    import torch
+
+    from .. import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("--measure runs on the card: no CUDA device")
+    if rec["max_depth"] == 0:
+        raise ValueError(f"{rec['arch']} {rec['shape']}: no depth fits")
+    cfg = at_depth(ARCHS[rec["arch"]], rec["max_depth"])
+    terms, cell = cell_terms(cfg, SHAPES_BY_NAME[rec["shape"]])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_cell(cfg, rec["kind"], rec["rows"], rec["tokens"],
+                   rec["micro_batches"], cell.buffer_units, dev)
+    out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+               predicted_bytes=peak(terms) + terms["batch"],
+               device=torch.cuda.get_device_name(0))
+    return out
+
+
+# ------------------------------------------------------------------ main
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--measure", action="store_true",
+                    help="also run each cell once on the card")
+    ap.add_argument("--out", default="build/dryrun")
+    args = ap.parse_args(argv)
+    if args.all:
+        cells = [(a, s.name) for a in sorted(ARCHS)
+                 for s in shapes_for(ARCHS[a])]
+    elif args.arch and args.shape:
+        cells = [(args.arch, args.shape)]
+    else:
+        ap.error("give --all, or --arch and --shape")
+    os.makedirs(args.out, exist_ok=True)
+    for arch, shape in cells:
+        t0 = time.perf_counter()
+        rec = plan(arch, shape)
+        if args.measure:
+            rec["measured"] = measure(rec)
+        with open(os.path.join(args.out, f"{arch}__{shape}.json"), "w") \
+                as fh:
+            json.dump(rec, fh, indent=1)
+        print(f"[plan] {arch} {shape}: peak {rec['peak_bytes'] / 1e9:.2f} "
+              f"GB at {rec['full_depth']} layers, fits={rec['fits']}, "
+              f"largest depth {rec['max_depth']} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -526,6 +526,10 @@ class ModelRunner:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _upload_ids(self, ids: Sequence[int]) -> torch.Tensor:
+        """Host page ids -> an int64 device tensor (``_upload``)."""
+        return self._upload(np.fromiter(ids, np.int64, len(ids)))
+
     def _to_batch(self, arrs: Dict[str, object]) -> DecodeBatch:
         """Upload a batch: the fields of each dtype go up in ONE copy of
         one flat array, then are viewed back into their fields on device —
@@ -833,6 +837,7 @@ class ModelRunner:
         """Phase 3: block on a dispatched step's logits; one row per
         segment, in plan order."""
         h = handle.logits if isinstance(handle, StepHandle) else handle
+        # jengalint: allow[host-sync] fetch phase: this IS the intended blocking point
         out = h[:n].float().cpu().numpy()
         self.bytes_fetched += out.nbytes
         return out
@@ -843,6 +848,7 @@ class ModelRunner:
         per segment instead of the full vocab row."""
         assert handle.tokens is not None, "dispatch had no sampling tail"
         n = handle.n if n is None else n
+        # jengalint: allow[host-sync] fetch phase: 4-byte/segment token fetch is the design
         out = handle.tokens[:n].cpu().numpy().astype(np.int32)
         self.bytes_fetched += out.nbytes
         return out
@@ -878,10 +884,8 @@ class ModelRunner:
                 for op in group:
                     self.copy_page(name, op.src_page, op.dst_page)
                 continue
-            srcs = self._upload(np.array([op.src_page for op in group],
-                                         np.int64))
-            dsts = self._upload(np.array([op.dst_page for op in group],
-                                         np.int64))
+            srcs = self._upload_ids([op.src_page for op in group])
+            dsts = self._upload_ids([op.dst_page for op in group])
             rows.index_copy_(0, dsts, rows.index_select(0, srcs))
 
     def zero_pages(self, pages: Sequence[Tuple[str, int]]) -> None:
@@ -904,7 +908,7 @@ class ModelRunner:
                 for eid in eids:
                     self._zero_range(eid * size, size)
                 continue
-            rows.index_fill_(0, self._upload(np.array(eids, np.int64)), 0)
+            rows.index_fill_(0, self._upload_ids(eids), 0)
 
     def _zero_range(self, off: int, size: int) -> None:
         self.buffer[off:off + size].zero_()
@@ -941,8 +945,8 @@ class ModelRunner:
                 for src, dst in group:   # misaligned pool: per-page copy
                     self._adopt_one(src_runner, name, src, dst)
                 continue
-            srcs = self._upload(np.array([p[0] for p in group], np.int64))
-            dsts = self._upload(np.array([p[1] for p in group], np.int64))
+            srcs = self._upload_ids([p[0] for p in group])
+            dsts = self._upload_ids([p[1] for p in group])
             d_rows.index_copy_(0, dsts, s_rows.index_select(0, srcs))
 
     def _adopt_one(self, src_runner: "ModelRunner", type_name: str,

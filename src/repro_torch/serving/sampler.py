@@ -47,6 +47,7 @@ _U_MIN, _U_MAX = 1e-7, 1.0 - 1e-7
 
 def greedy_token(logits) -> int:
     """Host greedy pick: lowest token id within TIE_EPS of the row max."""
+    # jengalint: allow[host-sync] fetch phase: row was already fetched by runner.fetch
     logits = np.asarray(logits, np.float32)
     return int(np.flatnonzero(logits >= logits.max() - TIE_EPS)[0])
 
@@ -144,6 +145,7 @@ def host_sample(row, temperature, top_k, rh, pos, seed, device) -> int:
     engine's): the card's log/exp differ from the CPU's by ulps, which can
     move a band edge, so the host path must draw where the fused tail
     does."""
+    # jengalint: allow[host-sync] fetch phase: the row was already fetched by runner.fetch
     x = torch.as_tensor(np.asarray(row, np.float32))[None].to(device)
     i32 = dict(dtype=torch.int32, device=device)
     key = derive_key(torch.tensor([seed], **i32),

@@ -192,6 +192,7 @@ class SpecDecodeEngine:
         toks = torch.cat([h.tokens[:1] for h in d_handles + v_handles])
         self.d_runner.bytes_fetched += 4 * len(d_handles)
         self.t_runner.bytes_fetched += 4 * len(v_handles)
+        # jengalint: allow[host-sync] fetch phase: the round's one host sync, 4 bytes a token
         return toks.cpu().tolist()
 
     # ------------------------------------------------------------ generate

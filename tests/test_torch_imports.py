@@ -1,4 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+``examples/torch``, not ``scripts/run_lint_torch.py`` and not
 ``chip_smoke.py`` imports JAX or the JAX package (the machine with the card
 has no JAX). Relative imports stay inside the port."""
 import ast
@@ -12,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        sorted((ROOT / "examples" / "torch").glob("*.py")) + \
+        [ROOT / "scripts" / "run_lint_torch.py", ROOT / "chip_smoke.py"]
 
 
 def _imported(tree):
@@ -36,4 +38,7 @@ def test_scan_sees_the_port():
     names = {p.name for p in _files()}
     assert {"engine.py", "runner.py", "kernel.py", "lm.py",
             "spec_decode.py", "router.py", "dp_engine.py", "autotune.py",
-            "roofline.py", "chip_smoke.py"} <= names
+            "roofline.py", "dryrun.py", "jengalint.py", "quickstart.py",
+            "train_hybrid.py", "serve_heterogeneous.py",
+            "spec_decode_demo.py", "run_lint_torch.py",
+            "chip_smoke.py"} <= names
