@@ -53,6 +53,19 @@ Phases, each of which raises on failure:
    (device time by kernel group); reduced granite card vs CPU losses,
    exact resume from a checkpoint and the NaN watchdog.
 
+Phase 5c, training across cards (the dense family on a ``(data,
+model)`` mesh over NCCL, ``repro_torch.launch.mesh``): (i) full-width
+granite-3-2b at full depth through the mesh path at a 1 x 1 mesh, on
+phase 5's batch and weights: its loss and every leaf's gradient norm
+equal to the single-card path's bit for bit, exact dense launch counts, 2
+timed steps beside phase 5's and the peak held to the planner; (ii)
+where 2 or more cards are visible, a 2 x 1 (2 x 2 with 4 cards) mesh with
+FSDP and ZeRO-1 at MESH_CUT layers, one process a card: the first-step
+loss and leaf gradient norms against a 1 x 1 run of the same depth within
+MESH_TOLS, each card's step time, its peak against the planner's per-card
+prediction and the bytes its collectives move a step. With one card the
+phase prints that leg (ii) was skipped and why.
+
 Training the hybrid, VLM and MoE families (since the scan's backward
 kernel): phase 2c also holds the scan's backward kernel
 (``mamba_chunk_scan_bwd``, csrc/mamba_scan_bwd.cu) against its plain
@@ -3106,6 +3119,270 @@ def phase_train():
                 tok_s=tok_s, peak=peak)
 
 
+# ---------------------------------------------------------------- phase 5c
+MESH_CUT = 16       # leg (ii)'s depth: its 1 x 1 run fits one card
+# (relative loss, relative gradient-norm) bars of leg (ii) against its
+# 1 x 1 run, by whether the mesh splits the model: the CPU test's bars
+# (tests/test_torch_mesh_train.py: loss 1e-4 / 2e-4 absolute at a loss of
+# ~5.5) taken relative to the loss
+MESH_TOLS = {False: (2e-5, 8.3e-3), True: (4e-5, 1e-2)}
+
+
+def _leaf_norms(grads, shards, dist):
+    """Each leaf's gradient norm over its global leaf: the sum of squares
+    of this rank's part, summed over the mesh axes the leaf is split on."""
+    out = {}
+
+    def walk(g, sh, prefix):
+        for k in sorted(g):
+            if isinstance(g[k], dict):
+                walk(g[k], sh[k], f"{prefix}{k}.")
+                continue
+            sq = g[k].float().square().sum()
+            if sh[k].tp_axis is not None:
+                sq = dist.all_reduce(sq, "model")
+            if sh[k].data_dim is not None:
+                sq = dist.all_reduce(sq, "data")
+            out[prefix + k] = float(sq.sqrt())
+    walk(grads, shards, "")
+    return out
+
+
+def _mesh_rank(dist, dev, cfg, micro, seq, batch):
+    """Leg (ii) on one card: ``cfg`` (granite-3-2b cut in depth) on its
+    rank of the mesh, weights from seed 0 (the one-card draw's slices):
+    the first step's loss and leaf gradient norms, then 3 Trainer steps
+    (ZeRO-1), with the card's peak, the planner's prediction for it and
+    the bytes its collectives moved a step."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.tp import Dist
+    from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
+                                      TrainerConfig)
+    cuda = dev.type == "cuda"
+    model = DecoderLM(cfg, dist)
+    with tempfile.TemporaryDirectory() as ckpt:      # never written
+        tr = Trainer(model, AdamWConfig(), TrainerConfig(
+            micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        params, state = tr.init_state(0, device=dev)
+        data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           mode="markov")
+        tok, tgt = (torch.from_numpy(a).to(dev) for a in data.batch_at(0))
+        loss, grads = tr.loss_and_grads(params, tok, tgt)
+        norms = _leaf_norms(grads, model.shards(), dist)
+        tr._release(params)
+        del grads
+        before = dict(dist.comm_bytes)
+        times = []
+        _, _, hist = tr.run(params, state, data, num_steps=3, log_every=1,
+                            on_metrics=lambda s, m: times.append(
+                                m["sec_per_step"]))
+    comm = {k: (dist.comm_bytes[k] - before[k]) / 3 for k in before}
+    terms = dryrun.train_terms(DecoderLM(cfg, Dist(
+        dp=dist.dp, tp=dist.tp, fsdp=dist.fsdp)), batch // dist.dp, seq,
+        micro)
+    return dict(loss=float(loss), norms=norms, hist=hist,
+                step_ms=[1e3 * t for t in times],
+                peak=torch.cuda.max_memory_allocated(dev) if cuda else None,
+                terms=terms, comm=comm,
+                card=torch.cuda.get_device_name(dev) if cuda else "cpu")
+
+
+def _mesh_batch(cfg, device):
+    """Phase 5's batch (the CPU dry run: 32-token rows): (micro, seq,
+    batch, data, tokens, targets) of step 0."""
+    import torch
+    from repro_torch.training import SyntheticLM
+    micro, seq, batch = 2, 2048 if device == "cuda" else 32, 4
+    data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
+                       mode="markov")
+    tok, tgt = (torch.from_numpy(a).to(device) for a in data.batch_at(0))
+    return micro, seq, batch, data, tok, tgt
+
+
+def _mesh_trainer(model, micro, ckpt):
+    from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
+    return Trainer(model, AdamWConfig(), TrainerConfig(
+        micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt))
+
+
+def _mesh_leg_one(phase5_step_ms, device, cfg):
+    """Leg (i): ``cfg`` at full depth on a 1 x 1 mesh of this process
+    (NCCL on the card) against the single-card path on the same weights
+    and batch. Returns the dense (fwd, bwd) launches of its 2 steps."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as td
+    from repro_torch.kernels.flash_attention import (dense_flash_bwd,
+                                                     dense_flash_fwd)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dist
+    from repro_torch.models import DecoderLM
+
+    cuda = device == "cuda"
+    micro, seq, batch, data, tok, tgt = _mesh_batch(cfg, device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_mesh_", dir=ROOT / "build")
+    backend = "nccl" if cuda else "gloo"
+    td.init_process_group(backend, init_method=f"file://{tmp}/store",
+                          rank=0, world_size=1)
+    try:
+        dist = make_dist((1, 1))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        mesh = _mesh_trainer(DecoderLM(cfg, dist), micro, tmp)
+        params, state = mesh.init_state(0, device=device)
+        found = {}
+        for tag, tr in (("single", _mesh_trainer(DecoderLM(cfg), micro,
+                                                 tmp)), ("mesh", mesh)):
+            dense_flash_fwd.launches = dense_flash_bwd.launches = 0
+            loss, grads = tr.loss_and_grads(params, tok, tgt)
+            found[tag] = (loss.item(), _leaf_norms(
+                grads, mesh.model.shards(), dist),
+                (dense_flash_fwd.launches, dense_flash_bwd.launches))
+            tr._release(params)
+            del grads
+        if found["single"] != found["mesh"]:
+            raise AssertionError(f"1 x 1 mesh {found['mesh'][:1]} differs "
+                                 f"from the single-card path "
+                                 f"{found['single'][:1]}")
+        dense_flash_fwd.launches = dense_flash_bwd.launches = 0
+        times = []
+        params, state, hist = mesh.run(
+            params, state, data, num_steps=3, start_step=1, log_every=1,
+            on_metrics=lambda s, m: times.append(m["sec_per_step"]))
+        launches = (dense_flash_fwd.launches, dense_flash_bwd.launches)
+        want = (2 * cfg.num_layers * micro * 2, cfg.num_layers * micro * 2)
+        if launches != want or not np.isfinite(hist).all():
+            raise AssertionError(f"1 x 1 mesh steps: launches {launches} "
+                                 f"(expected {want}), losses {hist}")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        step_ms = 1e3 * float(np.mean(times))
+        loss0, norms = found["mesh"][:2]
+        log(f"[mesh train] (i) 1 x 1 {backend} mesh, {cfg.name} "
+            f"({cfg.num_layers} layers), phase 5's batch and weights: loss "
+            f"{loss0!r} and all {len(norms)} leaf gradient norms equal the "
+            f"single-card path's bit for bit (embed {norms['embed']!r}); "
+            f"steps 1-2 losses {[round(x, 4) for x in hist]} "
+            f"step_ms={[round(1e3 * t, 1) for t in times]} "
+            f"mean_step_ms={step_ms:.1f} (phase 5: {phase5_step_ms:.1f}) "
+            f"peak_mem_gb={peak / 1e9:.2f} dense_fwd_launches={launches[0]}"
+            f" dense_bwd_launches={launches[1]}")
+        if cuda:
+            _fit(f"train {cfg.name} on a 1 x 1 mesh, {micro} x "
+                 f"{batch // micro} x {seq}", dryrun.train_terms(
+                     mesh.model, batch, seq, micro), peak)
+        del params, state, mesh
+    finally:
+        td.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_leg_across(device, cfg, cards):
+    """Leg (ii): a 2 x 1 (2 x 2 with 4 cards) mesh with FSDP and ZeRO-1,
+    one process a card, against the single-card path at the same depth;
+    skipped, and said so, with fewer than 2 cards."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.launch.mesh import run_mesh
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.tp import Dist
+
+    cuda = device == "cuda"
+    if cards < 2:
+        log(f"[mesh train] (ii) skipped: {cards} card visible "
+            f"(torch.cuda.device_count()); the 2 x 1 FSDP + ZeRO-1 leg "
+            f"needs 2 cards and the 2 x 2 leg 4")
+        return
+    shape = (2, 2) if cards >= 4 else (2, 1)
+    cut = dataclasses.replace(cfg, num_layers=min(MESH_CUT, cfg.num_layers))
+    micro, seq, batch, _, tok, tgt = _mesh_batch(cut, device)
+    with tempfile.TemporaryDirectory() as ckpt:       # never written
+        ref = _mesh_trainer(DecoderLM(cut), micro, ckpt)
+        params = ref.model.init(0, device=device, master=True)
+        loss, grads = ref.loss_and_grads(params, tok, tgt)
+        ref_loss = loss.item()
+        ref_norms = _leaf_norms(grads, DecoderLM(cut, Dist()).shards(),
+                                Dist())
+    del params, grads, ref, loss
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    backend = "nccl" if cuda else "gloo"
+    t0 = time.perf_counter()
+    ranks = run_mesh(_mesh_rank, shape, args=(cut, micro, seq, batch),
+                     fsdp=True, backend=backend, device=device, timeout=300,
+                     deadline=900)
+    wall = time.perf_counter() - t0
+    loss_tol, grad_tol = MESH_TOLS[shape[1] > 1]
+    r0 = ranks[0]
+    worst = max(abs(r0["norms"][k] / v - 1) for k, v in ref_norms.items())
+    log(f"[mesh train] (ii) {shape[0]} x {shape[1]} {backend} mesh, FSDP "
+        f"+ ZeRO-1, {cfg.name} at {cut.num_layers} layers, one "
+        f"process a card ({wall:.1f} s with start-up): first-step loss "
+        f"{r0['loss']!r} against the 1 x 1 run's {ref_loss!r} (relative "
+        f"diff {r0['loss'] / ref_loss - 1:+.2e}, bar {loss_tol}); leaf "
+        f"gradient "
+        f"norms within {worst:.2e} relative (bar {grad_tol}); steps 0-2 "
+        f"losses {[round(x, 4) for x in r0['hist']]}")
+    for rank, r in enumerate(ranks):
+        mb = {k: v / 1e6 for k, v in r["comm"].items()}
+        log(f"[mesh train] (ii) rank {rank} [{r['card']}]: step_ms="
+            f"{[round(t, 1) for t in r['step_ms']]} bytes sent a step: "
+            f"all-gather {mb['all_gather']:.1f} MB, reduce-scatter "
+            f"{mb['reduce_scatter']:.1f} MB, all-reduce "
+            f"{mb['all_reduce']:.1f} MB")
+        if cuda:
+            _fit(f"train {cfg.name} at {cut.num_layers} layers, rank "
+                 f"{rank} of a {shape[0]} x {shape[1]} FSDP mesh",
+                 r["terms"], r["peak"])
+    if abs(r0["loss"] / ref_loss - 1) > loss_tol or worst > grad_tol or \
+            any(r["hist"] != r0["hist"] for r in ranks):
+        raise AssertionError(f"mesh leg (ii): loss {r0['loss']} vs "
+                             f"{ref_loss}, norms {worst}")
+
+
+def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None):
+    """Phase 5c, training across cards: granite-3-2b at full width through
+    the mesh path (``DecoderLM(cfg, dist)``, ``repro_torch.launch.mesh``)
+    on NCCL. (i) A 1 x 1 mesh at full depth on phase 5's batch and
+    weights: the loss and every leaf's gradient norm equal phase 5's
+    single-card path bit for bit, the dense kernels launched 2 x 40 x
+    micro (forward) and 40 x micro (backward) times a step, 2 timed steps
+    beside phase 5's, the peak held to the planner. (ii) With 2 or more
+    cards: a 2 x 1 (2 x 2 with 4 cards) mesh with FSDP and ZeRO-1 at
+    MESH_CUT layers, one process a card: its first-step loss and leaf
+    gradient norms against a 1 x 1 run of the same depth within
+    MESH_TOLS, each card's step time, peak against the planner's per-card
+    prediction, and bytes gathered and reduced a step. With one card leg
+    (ii) is skipped and says so. Returns the dense launches of leg (i).
+
+    A CPU dry run (plain kernels, gloo, no memory checks) takes a reduced
+    ``cfg`` and a pretended count of ``cards``."""
+    import torch
+    from repro_torch.configs import ARCHS
+    cfg = cfg or ARCHS["granite-3-2b"]
+    launches = _mesh_leg_one(phase5_step_ms, device, cfg)
+    _mesh_leg_across(device, cfg, torch.cuda.device_count()
+                     if cards is None else cards)
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5b
 # (arch, depth cut, micro-batches, rows, tokens a row) of a phase-5b step;
 # rwkv6-3b is cut to 8 of its 32 layers for time (its full-depth fit is the
@@ -3718,6 +3995,7 @@ def main() -> int:
     hybrid, _ = timed(phase_hybrid_engine)
     timed(phase_small_reference, "zamba2-1.2b")
     train = timed(phase_train)
+    mesh_fwd, mesh_bwd = timed(phase_mesh_train, train["step_ms"])
     fam = timed(phase_train_families)
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
                   phase_encdec_rwkv, phase_spec_fleet):
@@ -3791,7 +4069,7 @@ def main() -> int:
         "route": "cuda",
         "source": dense_src,
         "replaces": dense_tpu,
-        "launches": train["fwd_launches"] + launches["dense"] +
+        "launches": train["fwd_launches"] + mesh_fwd + launches["dense"] +
         fam["dense_fwd"],
         "max_abs_err": max(r["err"] for r in dres),
         "ms": dense["ms"],
@@ -3804,7 +4082,7 @@ def main() -> int:
         "route": "cuda",
         "source": dense_src,
         "replaces": dense_tpu,
-        "launches": train["bwd_launches"] + fam["dense_bwd"],
+        "launches": train["bwd_launches"] + mesh_bwd + fam["dense_bwd"],
         "max_abs_err": max(r["grad_err"] for r in dres),
         "ms": dense["bwd_ms"],
         "plain_ms": dense["plain_bwd_ms"],

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Where a training step on a mesh of cards spends its time.
+
+    python3 scripts/trace_mesh_train.py [--mesh 2x2] [--no-fsdp] [--layers N]
+
+Runs ``chip_smoke.py`` phase 5c's leg (ii) configuration (granite-3-2b at
+full width, cut to ``--layers``, weights from seed 0, ZeRO-1, phase 5's
+batch of 4 x 2048 tokens in 2 micro-batches) on a ``(data, model)`` mesh
+of the visible cards, one process a card over NCCL (2 x 2 and 2 x 1 split
+the batch; a 4 x 1 mesh needs a batch of 8). First each rank times
+the collectives at the sizes one step issues (CUDA events, the median of
+10 after 3 warm-ups): an all-reduce over "model" of one layer's bf16
+activations, an all-gather over "data" of one layer's FSDP shard and a
+reduce-scatter over "data" of its gradient, and a 256 MB all-reduce over
+every rank; then it traces its third Trainer step with ``torch.profiler``:
+wall ms, device kernel ms and busy share, and device ms by kernel group
+(NCCL collectives, GEMMs, the dense flash kernels, elementwise and
+copies). Each card's name and power limit are printed beside them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import pathlib
+import sys
+import tempfile
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+GROUPS = (("NCCL collectives", ("nccl",)),
+          ("dense_flash", ("dense_fwd", "dense_dkv", "dense_dq",
+                           "dense_delta")),
+          ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+          ("elementwise and copies", ("elementwise", "copy")),
+          ("reductions", ("reduce",)))
+
+
+def _time_ms(fn, iters=10, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def _collectives(dist, dev, cfg):
+    """(label, input MB, ms) of the step's collectives at their sizes."""
+    import torch
+    from repro_torch.models.tp import replica_info
+    d, hd = cfg.d_model, cfg.head_dim
+    ri = replica_info(cfg.num_heads, cfg.num_kv_heads, dist.tp)
+    layer = (2 * d * ri["q_local"] * hd + 2 * d * ri["kv_local"] * hd
+             + 3 * d * cfg.d_ff // dist.tp)
+    act = torch.randn(2048, d, device=dev).to(torch.bfloat16)
+    shard = torch.randn(layer // dist.dp, device=dev).to(torch.bfloat16)
+    grad = torch.randn(dist.dp, layer // dist.dp,
+                       device=dev).to(torch.bfloat16)
+    big = torch.randn(1 << 27, device=dev).to(torch.bfloat16)
+    cases = [("all-reduce over model, one layer's activations", act,
+              dist.tp, lambda: dist.all_reduce(act, "model")),
+             ("all-gather over data, one layer's FSDP shard", shard,
+              dist.dp, lambda: dist.all_gather(shard, "data")),
+             ("reduce-scatter over data, one layer's gradient", grad,
+              dist.dp, lambda: dist.reduce_scatter(grad, "data")),
+             ("all-reduce over every rank, 256 MB", big, dist.size,
+              lambda: dist.all_reduce(big, "all"))]
+    # an axis of one rank issues no collective: nothing to time
+    return [(label, x.numel() * x.element_size() / 1e6, _time_ms(fn))
+            for label, x, n, fn in cases if n > 1]
+
+
+def _rank(dist, dev, cfg):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from repro_torch.models import DecoderLM
+    colls = _collectives(dist, dev, cfg)
+    micro, _, _, data, _, _ = chip_smoke._mesh_batch(cfg, "cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        tr = chip_smoke._mesh_trainer(DecoderLM(cfg, dist), micro, ckpt)
+        params, state = tr.init_state(0, device=dev)
+        times = []
+        params, state, _ = tr.run(params, state, data, num_steps=2,
+                                  log_every=1, on_metrics=lambda s, m:
+                                  times.append(1e3 * m["sec_per_step"]))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, hist = tr.run(params, state, data, num_steps=3,
+                                         start_step=2)
+            torch.cuda.synchronize(dev)
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if chip_smoke._dev_us(e) > 0 and
+               str(getattr(e, "device_type", "")).endswith("CUDA")]
+    groups = {}
+    for e in kernels:
+        key = e.key.lower()
+        name = next((g for g, words in GROUPS
+                     if any(w in key for w in words)), "other")
+        ms, n = groups.get(name, (0.0, 0))
+        groups[name] = (ms + chip_smoke._dev_us(e) / 1e3, n + e.count)
+    return dict(colls=colls, wall=wall, steps=times, groups=groups,
+                loss=hist[-1],
+                finite=bool(np.isfinite(hist).all()),
+                card=torch.cuda.get_device_name(dev))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mesh", default="2x2")
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import run_mesh
+    if not torch.cuda.is_available():
+        print("trace_mesh_train: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    layers = args.layers or chip_smoke.MESH_CUT
+    cfg = dataclasses.replace(ARCHS["granite-3-2b"], num_layers=layers)
+    print(f"cards: {chip_smoke.card()}")
+    ranks = run_mesh(_rank, shape, args=(cfg,), fsdp=not args.no_fsdp,
+                     backend="nccl", device="cuda", timeout=300,
+                     deadline=900)
+    for rank, r in enumerate(ranks):
+        for label, mb, ms in r["colls"]:
+            print(f"[collective] rank {rank} {label}: {mb:.1f} MB in "
+                  f"{ms:.3f} ms ({mb / ms:.1f} GB/s of input)")
+        dev = sum(ms for ms, _ in r["groups"].values())
+        print(f"[trace] rank {rank} [{r['card']}] {shape[0]} x {shape[1]}"
+              f"{'' if args.no_fsdp else ' FSDP'} at {layers} layers: "
+              f"untraced steps {[round(t, 1) for t in r['steps']]} ms; "
+              f"traced step wall {r['wall']:.1f} ms, "
+              f"device kernels {dev:.1f} ms (busy share "
+              f"{dev / r['wall']:.3f}), loss {r['loss']:.4f}")
+        for name, (ms, n) in sorted(r["groups"].items(),
+                                    key=lambda x: -x[1][0]):
+            print(f"[trace]   {name}: {ms:.1f} ms over {n} launches "
+                  f"({ms / dev:.3f} of device time)")
+    return 0 if all(r["finite"] for r in ranks) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,6 +29,17 @@ and the card's share of the cell (``mesh.card_share``), term by term:
     the batch is split into micro-batches
     (``input_specs.default_micro_batches``, at most one row each).
 
+On a ``(data, model)`` mesh of cards (``--mesh DxM``, dense family,
+training cells) each data rank takes one data shard of the production
+mesh, as one card does, and the terms are one rank's: its fp32 params
+(every tensor-parallel leaf / tp; under ``--fsdp`` the stacked layer
+leaves / dp too), their fp32 gradients and the two fp32 moments (ZeRO-1
+slices / dp), exactly the tensors the rank holds (``mesh_train_bytes``);
+the activations take the rank's heads, ``d_ff`` columns and vocabulary
+rows, and under FSDP the recomputed cycle holds its layers' bf16 weights
+gathered whole. ``--cards N`` lists, for every training cell of the
+dense family, the meshes of N cards whose per-card peak fits.
+
 A cell fits when its peak is at most ``CARD_BYTES - RESERVE``. Its largest
 fitting depth is the deepest cut, in whole cycles of the model's layer
 pattern, that fits. Each record also carries the cell's analytic roofline
@@ -42,6 +53,9 @@ beside the prediction.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
+      --shape train_4k --mesh 2x2 --fsdp
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --cards 4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
       --shape decode_32k --measure          # on the card
   PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR]
@@ -90,6 +104,46 @@ def weight_bytes(model, master: bool = False) -> int:
                for n, s, _ in _leaves(model.param_shapes()))
 
 
+def mesh_train_bytes(model, zero1: bool = True) -> Dict[str, int]:
+    """One rank's training state in bytes: its fp32 params (its slices of
+    the expanded layout, ``model.param_shapes()``), their fp32 gradients,
+    and the two fp32 AdamW moments (its ZeRO-1 slices when ``zero1``):
+    the sizes of the tensors ``Trainer.init_state`` gives it."""
+    from ..training.optimizer import zero1_shards
+    local = [math.prod(s) for _, s, _ in _leaves(model.param_shapes())]
+    dist = getattr(model, "dist", None)
+    if dist is None or not hasattr(model, "shards"):
+        return dict(params=4 * sum(local), grads=4 * sum(local),
+                    moments=8 * sum(local))
+    shards = model.shards()
+    state = zero1_shards(shards, model.global_shapes(), dist.dp) \
+        if zero1 else shards
+    moments = 0
+    for n, ps, ss in zip(local, _flat(shards), _flat(state)):
+        moments += 8 * (n // dist.dp if ss.data_dim != ps.data_dim else n)
+    return dict(params=4 * sum(local), grads=4 * sum(local), moments=moments)
+
+
+def _flat(tree):
+    """Leaves of a nested dict in ``_leaves``'s order."""
+    for v in tree.values():
+        yield from _flat(v) if isinstance(v, dict) else (v,)
+
+
+def _gathered_layer_params(model) -> int:
+    """Parameters of one layer as its products use them: this rank's
+    tensor-parallel slices, FSDP shards gathered whole."""
+    dist = getattr(model, "dist", None)
+    shapes = model.param_shapes()
+    if dist is None or not getattr(model, "fsdp", False):
+        return sum(math.prod(s[1:]) for _, s, st in _leaves(shapes)
+                   if st) // max(1, model.cfg.num_layers)
+    shards = model.shards()["layers"]
+    return sum(math.prod(s[1:]) * (dist.dp if shards[n].data_dim is not
+                                   None else 1)
+               for n, s in shapes["layers"].items())
+
+
 def param_counts(model) -> Dict[str, int]:
     """Parameters in all, in per-layer stacks, and in the largest stack."""
     shapes = list(_leaves(model.param_shapes()))
@@ -121,12 +175,13 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
     MLP block."""
     cfg = model.cfg
     d = cfg.d_model
-    qd = cfg.num_heads * cfg.head_dim
-    kvd = cfg.num_kv_heads * cfg.head_dim
+    ri = getattr(model, "ri", None)      # a mesh rank's heads (DecoderLM)
+    tp = model.dist.tp if ri is not None else 1
+    qd = (ri["q_local"] if ri else cfg.num_heads) * cfg.head_dim
+    kvd = (ri["kv_local"] if ri else cfg.num_kv_heads) * cfg.head_dim
     norm = 12 * n * d
     attn = 4 * n * (qd + kvd)
-    layer = sum(math.prod(s[1:]) for _, s, st in
-                _leaves(model.param_shapes()) if st) // max(1, cfg.num_layers)
+    layer = _gathered_layer_params(model)
     if cfg.family == "ssm":
         # RWKV6: r, k, v, g, w fp32 and the wkv output; the chunk's decay
         # tensors (B, 64, 64, H, hs) fp32: three of one chunk serving,
@@ -160,7 +215,7 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
         work = max(norm, attn, moe)
     else:
         # dense, VLM and enc-dec decoder layers (enc-dec: GELU MLP, no gate)
-        work = max(norm, attn, 16 * n * cfg.d_ff)
+        work = max(norm, attn, 16 * n * cfg.d_ff // tp)
     work += 4 * n * d
     if not train:
         return work
@@ -195,12 +250,15 @@ def serve_terms(model, pool: int, step_tokens: int, rows: int,
                 activations=sum(act.values()), detail=act)
 
 
-def train_terms(model, rows: int, seq: int, micro: int) -> Dict[str, int]:
+def train_terms(model, rows: int, seq: int, micro: int,
+                zero1: bool = True) -> Dict[str, int]:
     """Predicted peak bytes of a ``Trainer`` step of ``rows`` x ``seq``
-    tokens in ``micro`` micro-batches (see the module docstring)."""
+    tokens in ``micro`` micro-batches on one card, or on one rank of the
+    model's mesh with ``rows`` rows of its own (see the module
+    docstring)."""
     cfg = model.cfg
     n = rows // micro * seq
-    v, d = model.v_pad, cfg.d_model
+    v, d = getattr(model, "v_local", model.v_pad), cfg.d_model
     pc = param_counts(model)
     ckpt = 2 * n * d * -(-cfg.num_layers // period(cfg))
     if cfg.family == "encdec":
@@ -210,8 +268,9 @@ def train_terms(model, rows: int, seq: int, micro: int) -> Dict[str, int]:
     backward = 4 * pc["stacked"] + max(4 * pc["largest_stack"],
                                        _layer_bytes(model, n, train=True))
     act = {"head": head, "last_layer": backward}
-    return dict(weights=16 * pc["total"], pool=0,
-                activations=max(act.values()), detail=act)
+    state = mesh_train_bytes(model, zero1)
+    return dict(weights=sum(state.values()), pool=0,
+                activations=max(act.values()), detail=dict(act, **state))
 
 
 def peak(terms) -> int:
@@ -232,15 +291,31 @@ def at_depth(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
-def cell_terms(cfg, shape):
-    """(terms, cell) of one card's share of ``shape`` for ``cfg``."""
+def mesh_model(cfg, mesh=(1, 1), fsdp: bool = False):
+    """``cfg``'s model on one card, or one rank's of a ``(data, model)``
+    ``mesh`` (a ``Dist`` without process groups: shapes only)."""
     from ..models import build_model
-    model = build_model(cfg)
+    if tuple(mesh) == (1, 1):
+        return build_model(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
+                                  "trains on one card")
+    from ..models import DecoderLM
+    from ..models.tp import Dist
+    return DecoderLM(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp))
+
+
+def cell_terms(cfg, shape, mesh=(1, 1), fsdp: bool = False):
+    """(terms, cell) of one card's share of ``shape`` for ``cfg``, on one
+    card or on one rank of a training ``mesh``."""
+    model = mesh_model(cfg, mesh, fsdp)
     share = card_share(shape)
     if shape.kind == "train":
         micro = min(default_micro_batches(cfg), share.rows)
         cell = train_cell(cfg, shape, micro)
         terms = train_terms(model, share.rows, share.tokens, micro)
+    elif tuple(mesh) != (1, 1):
+        raise NotImplementedError("serving runs on one card")
     else:
         cell = serve_cell(model, cfg, shape)
         step = share.rows * (share.tokens if shape.kind == "prefill" else 1)
@@ -267,21 +342,24 @@ def largest_depth(cfg, fits) -> int:
     return best
 
 
-def plan(arch: str, shape_name: str) -> dict:
+def plan(arch: str, shape_name: str, mesh=(1, 1),
+         fsdp: bool = False) -> dict:
     """One record of the planner: predicted terms at full depth, whether
-    the cell fits one card, its largest fitting depth and its share."""
+    the cell fits one card (one card of ``mesh``), its largest fitting
+    depth and its share."""
     cfg, shape = ARCHS[arch], SHAPES_BY_NAME[shape_name]
 
     def cell_peak(c):
-        t, _ = cell_terms(c, shape)
+        t, _ = cell_terms(c, shape, mesh, fsdp)
         return peak(t) + t["batch"]
 
-    terms, cell = cell_terms(cfg, shape)
+    terms, cell = cell_terms(cfg, shape, mesh, fsdp)
     total = peak(terms) + terms["batch"]
     depth = largest_depth(cfg, lambda c: cell_peak(c) <= FIT_BYTES)
     share = card_share(shape)
     flops, nbytes = analytic_terms(cfg, shape)
     return dict(arch=arch, shape=shape_name, kind=shape.kind,
+                mesh=list(mesh), fsdp=fsdp,
                 full_depth=cfg.num_layers, max_depth=depth,
                 fits=total <= FIT_BYTES,
                 peak_bytes=total, fit_bytes=FIT_BYTES, terms=terms,
@@ -390,6 +468,48 @@ def measure(rec: dict, device: str = "cuda") -> dict:
 
 
 # ------------------------------------------------------------------ main
+def _mesh_arg(text: str):
+    dp, tp = (int(x) for x in text.lower().split("x"))
+    return dp, tp
+
+
+def meshes_of(cards: int):
+    """Every (data, model) mesh of ``cards`` cards, with and without
+    FSDP (which needs more than one data rank)."""
+    out = []
+    for tp in range(1, cards + 1):
+        if cards % tp == 0:
+            dp = cards // tp
+            out += [((dp, tp), False)] + ([((dp, tp), True)] if dp > 1
+                                          else [])
+    return out
+
+
+def fit_cards(cards: int) -> list:
+    """For every training cell of the dense family: each mesh of
+    ``cards`` cards, its per-card peak at full depth and whether it
+    fits."""
+    rows = []
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch]
+        if cfg.family != "dense":
+            continue
+        for shape in shapes_for(cfg):
+            if shape.kind != "train":
+                continue
+            for mesh, fsdp in meshes_of(cards):
+                try:
+                    terms, _ = cell_terms(cfg, shape, mesh, fsdp)
+                except ValueError:          # heads do not split over tp
+                    continue
+                total = peak(terms) + terms["batch"]
+                rows.append(dict(arch=arch, shape=shape.name,
+                                 mesh=list(mesh), fsdp=fsdp,
+                                 peak_bytes=total,
+                                 fits=total <= FIT_BYTES))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -397,25 +517,57 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--measure", action="store_true",
                     help="also run each cell once on the card")
+    ap.add_argument("--mesh", type=_mesh_arg, default=(1, 1),
+                    help="DxM: one card of a (data, model) training mesh")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --mesh: shard layer weights over data")
+    ap.add_argument("--cards", type=int,
+                    help="list the meshes of N cards each dense training "
+                         "cell fits at full depth")
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    if args.cards:
+        rows = fit_cards(args.cards)
+        with open(os.path.join(args.out, f"fit_{args.cards}_cards.json"),
+                  "w") as fh:
+            json.dump(rows, fh, indent=1)
+        for r in rows:
+            print(f"[fit {args.cards} cards] {r['arch']} {r['shape']} mesh "
+                  f"{r['mesh'][0]}x{r['mesh'][1]}"
+                  f"{' fsdp' if r['fsdp'] else ''}: per-card peak "
+                  f"{r['peak_bytes'] / 1e9:.2f} GB, fits={r['fits']}",
+                  flush=True)
+        return 0
+    mesh = tuple(args.mesh)
     if args.all:
         cells = [(a, s.name) for a in sorted(ARCHS)
-                 for s in shapes_for(ARCHS[a])]
+                 for s in shapes_for(ARCHS[a])
+                 if mesh == (1, 1) or (s.kind == "train"
+                                       and ARCHS[a].family == "dense")]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:
-        ap.error("give --all, or --arch and --shape")
-    os.makedirs(args.out, exist_ok=True)
+        ap.error("give --all, --cards, or --arch and --shape")
+    if args.measure and mesh != (1, 1):
+        ap.error("--measure runs one card (chip_smoke.py measures a mesh)")
+    tag = "" if mesh == (1, 1) else \
+        f"__{mesh[0]}x{mesh[1]}{'_fsdp' if args.fsdp else ''}"
     for arch, shape in cells:
         t0 = time.perf_counter()
-        rec = plan(arch, shape)
+        rec = plan(arch, shape, mesh, args.fsdp)
         if args.measure:
             rec["measured"] = measure(rec)
-        with open(os.path.join(args.out, f"{arch}__{shape}.json"), "w") \
-                as fh:
+        with open(os.path.join(args.out, f"{arch}__{shape}{tag}.json"),
+                  "w") as fh:
             json.dump(rec, fh, indent=1)
-        print(f"[plan] {arch} {shape}: peak {rec['peak_bytes'] / 1e9:.2f} "
+        state = rec["terms"]["detail"]
+        extra = "" if mesh == (1, 1) or "params" not in state else (
+            f" per card: params {state['params'] / 1e9:.3f} GB, grads "
+            f"{state['grads'] / 1e9:.3f} GB, moments "
+            f"{state['moments'] / 1e9:.3f} GB;")
+        print(f"[plan] {arch} {shape}{tag}:{extra} peak "
+              f"{rec['peak_bytes'] / 1e9:.2f} "
               f"GB at {rec['full_depth']} layers, fits={rec['fits']}, "
               f"largest depth {rec['max_depth']} "
               f"({time.perf_counter() - t0:.2f} s)", flush=True)

@@ -8,7 +8,9 @@ serve cell's batch is the reference's padded ``DecodeBatch`` with the
 (data, model) dims dropped, and its pool is the unified buffer that holds
 exactly the card's KV footprint (rounded to the LCM geometry, plus the
 scratch page). ``buffer_units_for``, ``default_micro_batches`` and
-``wants_fsdp`` are copied from the reference unchanged.
+``wants_fsdp`` are copied from the reference unchanged. On a training
+mesh of cards (``dryrun --mesh``) every data rank takes the rows one card
+takes, so a train cell's batch is the same per card.
 """
 from __future__ import annotations
 

@@ -1,11 +1,20 @@
-"""What one card takes of the reference's production mesh.
+"""Meshes: the ``(data, model)`` process groups of a training run, a
+helper that runs a function on every rank of one, and what one card takes
+of the reference's production mesh.
 
-The reference runs every (arch x shape) cell on a 16 x 16 TPU mesh of axes
-("data", "model") (``repro/launch/mesh.py``). The port has no mesh: it runs
-on one card, and that card takes ONE data shard of the production mesh,
-with the 16 tensor-parallel shards folded onto it (tp = 1). So it holds
-every weight and ``global_batch / 16`` of the cell's sequences, each at
-its full length.
+Training across cards. ``make_dist`` turns an initialised
+``torch.distributed`` world into this rank's ``models.tp.Dist`` on a
+``(data, model)`` mesh, with one process group per axis; ``run_mesh``
+starts one process per rank (rank ``r`` on ``cuda:r``, or on the CPU when
+asked) and returns their results. NCCL is the backend on the cards,
+``gloo`` in the CPU tests.
+
+The fit planner. The reference runs every (arch x shape) cell on a
+16 x 16 TPU mesh of axes ("data", "model") (``repro/launch/mesh.py``).
+``card_share`` gives what ONE card of a port run takes of a cell: one data
+shard of the production mesh, with the 16 tensor-parallel shards folded
+onto it (tp = 1, or the run's own tp on a mesh of cards). So it holds
+``global_batch / 16`` of the cell's sequences, each at its full length.
 
 A decode cell with ``global_batch < 32`` is sequence-parallel in the
 reference (``sp``): its few sequences are split over the 16 data shards.
@@ -15,6 +24,16 @@ own: the card holds every sequence of the cell, whole.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import multiprocessing
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+import warnings
+from typing import Any, Callable, List, Sequence, Tuple
 
 PRODUCTION_MESH = {"data": 16, "model": 16}
 
@@ -40,3 +59,121 @@ def card_share(shape) -> CardShare:
         raise ValueError(f"{shape.name}: global batch {shape.global_batch} "
                          f"does not split over {dp} data shards")
     return CardShare(shape.global_batch // dp, shape.seq_len, False, dp)
+
+
+# ------------------------------------------------------------ training mesh
+def make_dist(shape: Tuple[int, int], *, fsdp: bool = False,
+              backend: str = None, timeout: float = 60.0):
+    """This rank's ``Dist`` on a ``(data, model)`` mesh of ``shape`` over
+    the initialised default process group (global rank ``r`` sits at
+    ``divmod(r, model)``, the reference's device order). Every rank
+    creates every group, in the same order, on ``backend`` (the world's
+    by default), with ``timeout`` seconds for each of its collectives."""
+    import torch.distributed as td
+
+    from ..models.tp import Dist
+    dp, tp = shape
+    world, rank = td.get_world_size(), td.get_rank()
+    if dp * tp != world:
+        raise ValueError(f"a {dp} x {tp} mesh needs {dp * tp} ranks, the "
+                         f"world has {world}")
+    wait = datetime.timedelta(seconds=timeout)
+    data_rank, model_rank = divmod(rank, tp)
+    dp_groups = [td.new_group([d * tp + m for d in range(dp)], timeout=wait,
+                              backend=backend) for m in range(tp)]
+    tp_groups = [td.new_group([d * tp + m for m in range(tp)], timeout=wait,
+                              backend=backend) for d in range(dp)]
+    return Dist(dp=dp, tp=tp, data_rank=data_rank, model_rank=model_rank,
+                fsdp=fsdp, dp_group=dp_groups[model_rank],
+                tp_group=tp_groups[data_rank], group=td.group.WORLD)
+
+
+def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
+               args, results):
+    """One rank of ``run_mesh``: join the world, build the Dist, run
+    ``fn`` and report its result or its traceback."""
+    import torch
+    import torch.distributed as td
+    try:
+        torch.set_num_threads(1)
+        warnings.filterwarnings("ignore", category=FutureWarning,
+                                module="torch.distributed")
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(rank)
+            dev = torch.device("cuda", rank)
+        td.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank,
+            world_size=shape[0] * shape[1],
+            timeout=datetime.timedelta(seconds=timeout))
+        try:
+            dist = make_dist(shape, fsdp=fsdp, timeout=timeout)
+            results.put((rank, True, fn(dist, dev, *args)))
+        finally:
+            td.destroy_process_group()
+    except BaseException:       # reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
+             fsdp: bool = False, backend: str = "nccl", device: str = "cuda",
+             timeout: float = 60.0, deadline: float = 600.0) -> List[Any]:
+    """Run ``fn(dist, device, *args)`` on every rank of a ``shape``
+    ``(data, model)`` mesh, one spawned process per rank, and return the
+    results in rank order. ``fn`` and ``args`` are pickled (``fn`` by its
+    import path) and the results must be picklable: return numpy arrays,
+    not tensors. ``device`` "cuda" puts rank ``r`` on ``cuda:r``; "cpu"
+    runs every rank on the CPU (with ``backend="gloo"``).
+
+    The ranks meet through a file store in a fresh temporary directory
+    (no port to collide with another run); every collective of theirs
+    times out after ``timeout`` seconds. When a rank raises or dies, or
+    when ``deadline`` seconds pass, the other ranks are killed and the
+    call raises with the rank's traceback."""
+    import torch
+    if device == "cuda" and torch.cuda.device_count() < shape[0] * shape[1]:
+        raise RuntimeError(f"a {shape[0]} x {shape[1]} mesh needs "
+                           f"{shape[0] * shape[1]} cards, "
+                           f"{torch.cuda.device_count()} are visible")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    n = shape[0] * shape[1]
+    procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+        fn, shape, r, os.path.join(tmp, "store"), backend, device, fsdp,
+        timeout, tuple(args), results)) for r in range(n)]
+    out: List[Any] = [None] * n
+    try:
+        for p in procs:
+            p.start()
+        end = time.monotonic() + deadline
+        done = 0
+        while done < n:
+            try:
+                rank, ok, val = results.get(timeout=0.2)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"mesh rank {dead[0]} died with exit "
+                                       f"code {procs[dead[0]].exitcode}")
+                if time.monotonic() > end:
+                    raise TimeoutError(f"a {shape[0]} x {shape[1]} mesh run "
+                                       f"passed its {deadline} s deadline")
+                continue
+            if not ok:
+                raise RuntimeError(f"mesh rank {rank} failed:\n{val}")
+            out[rank] = val
+            done += 1
+        for p in procs:
+            p.join(timeout=max(1.0, end - time.monotonic()))
+    finally:
+        started = [p for p in procs if p.pid is not None]
+        for p in started:
+            if p.is_alive():
+                p.kill()
+        for p in started:
+            p.join(timeout=10)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out

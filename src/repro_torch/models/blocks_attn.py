@@ -1,10 +1,11 @@
 """Transformer blocks (``repro/models/blocks_attn.py``): the QKV
 projection, the serve path's attention phases (gather, compute, write),
-training's self-attention, the SwiGLU MLP and the capacity MoE, on one
-device.
+training's self-attention, the SwiGLU MLP and the capacity MoE.
 
 Training attention (``attn_train``) runs through the dense flash kernel,
-forward and backward, in one call per layer.
+forward and backward, in one call per layer. Training's attention and MLP
+take this rank's heads and ``d_ff`` columns of a ``(data, model)`` mesh
+and end in ``psum_tp``, as the reference's do; serving runs on one device.
 
 Packed self-attention always runs through the varlen flash kernel in one
 call over [old page slots ++ fresh chunk K/V] (the reference's
@@ -30,6 +31,7 @@ from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
 from .rotary import rotate
+from .tp import psum_tp
 
 # Block-size caps for the segment-block-sparse packed attention schedule
 # (sparse_blocks scales them down for small streams).
@@ -279,10 +281,12 @@ def decode_attention(q, k, v, buf, view_shape, layer, *, rows, tables,
 
 
 def attn_train(p, x, *, kv_local, head_dim, rope, window=0, causal=True,
-               norm_eps=1e-5):
+               norm_eps=1e-5, dist=None):
     """Full/SWA self-attention for training (no cache): RMSNorm, the QKV
     projection with rope at positions ``arange(T)`` (``rope``: their
-    ``rotary.rope_tables``), attention, the o-projection and the residual.
+    ``rotary.rope_tables``), attention, the o-projection summed over the
+    model axis of ``dist`` (this rank's heads: ``kv_local`` K/V heads and
+    their padded q groups), and the residual.
 
     The reference scans 1024-row q chunks so that jnp's score tensor stays
     bounded; the flash kernel never materialises scores, so one call over
@@ -299,17 +303,18 @@ def attn_train(p, x, *, kv_local, head_dim, rope, window=0, causal=True,
     vh = v.permute(0, 2, 1, 3).contiguous().view(-1, t, head_dim)
     out = dense_flash_attention(qh, kh, vh, causal=causal, window=window)
     out = out.view(b, kv_local * g, t, head_dim).transpose(1, 2)
-    return x + dense(out.reshape(b, t, -1), p["o"])
+    return x + psum_tp(dense(out.reshape(b, t, -1), p["o"]), dist)
 
 
-def mlp_block(p, x, norm_eps=1e-5):
+def mlp_block(p, x, norm_eps=1e-5, dist=None):
     """SwiGLU MLP: silu in fp32, times u in fp32, then cast (as the
-    reference)."""
+    reference); this rank's ``d_ff`` columns, summed over the model axis
+    of ``dist``."""
     xn = rms_norm(x, p["mlp_norm"], norm_eps)
     g = dense(xn, p["gate"])
     u = dense(xn, p["up"])
     h = (F.silu(g.float()) * u.float()).to(x.dtype)
-    return x + dense(h, p["down"])
+    return x + psum_tp(dense(h, p["down"]), dist)
 
 
 def _bmm_f32(a, b):

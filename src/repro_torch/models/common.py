@@ -2,6 +2,9 @@
 the reference's rounding points (``repro/models/common.py``)."""
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
 
@@ -64,3 +67,24 @@ def dense(x: torch.Tensor, w: torch.Tensor,
         return torch.matmul(x, w)
     y = torch.matmul(x.float(), w.float()) + _as(b, torch.float32)
     return y.to(x.dtype)
+
+
+def gqa_tp_layout(num_heads: int, num_kv_heads: int, tp: int
+                  ) -> Tuple[int, int, int, int]:
+    """Head layout for tensor parallelism over ``tp`` shards (a copy of
+    the reference's). Returns (q_pad, q_local, kv_tp, kv_local): the K/V
+    heads are really split ``kv_tp = gcd(kv_heads, tp)`` ways, each shard
+    stores ``kv_local`` of them (replicated ``tp // kv_tp`` times), and
+    the q heads are padded to ``q_pad`` (each K/V group to a multiple of
+    the replicas), ``q_local`` a shard."""
+    kv_tp = math.gcd(num_kv_heads, tp)
+    kv_local = num_kv_heads // kv_tp
+    repl = tp // kv_tp
+    group = num_heads // num_kv_heads
+    group_pad = -(-group // repl) * repl
+    q_pad = num_kv_heads * group_pad
+    q_local = q_pad // tp
+    if q_pad % tp:
+        raise ValueError(f"{num_heads} / {num_kv_heads} heads do not split "
+                         f"over tp {tp}")
+    return q_pad, q_local, kv_tp, kv_local

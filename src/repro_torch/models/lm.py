@@ -1,5 +1,11 @@
 """Decoder-only LM: the training loss and the packed and padded serve
-steps of the dense, MoE and VLM-backbone families (``repro/models/lm.py``)."""
+steps of the dense, MoE and VLM-backbone families (``repro/models/lm.py``).
+
+The dense family trains on a ``(data, model)`` mesh (``models.tp.Dist``):
+each rank holds its slice of the reference's expanded parameters, FSDP
+gathers a layer's shards inside its checkpointed cycle, and the loss is
+summed over the data axis. Serving, and training the MoE and VLM members,
+run on one device."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +22,11 @@ from ..kernels.paged_attention import paged_decode_plan
 from . import attention as A
 from . import blocks_attn as BA
 from .common import rms_norm, set_matmul_precision
-from .params import MATRICES
+from .params import MATRICES, leaf_shard, local_part
 from .rotary import mrope_tables, rope_tables
-from .tp import embed_lookup, logits_local, mask_pad_vocab, \
-    sharded_softmax_xent
+from .tp import (Dist, embed_lookup, gather_data, logits_local,
+                 mask_pad_vocab, psum_dp, replica_info, replicated_loss,
+                 sharded_softmax_xent)
 
 # values a weight leaf is drawn in at a time (``DecoderLM.init``): 1 GiB
 # of fp32
@@ -82,10 +89,14 @@ def unstack(tree: Dict[str, torch.Tensor]):
 
 
 class DecoderLM:
-    """Decoder on one device: dense, MoE (``moe_block`` in place of the
-    MLP) and the VLM backbone (precomputed image embeddings spliced in,
-    M-RoPE). Parameters are a plain dict mirroring the reference tree with
-    the tp dim dropped (see ``models.params``).
+    """Decoder: dense, MoE (``moe_block`` in place of the MLP) and the VLM
+    backbone (precomputed image embeddings spliced in, M-RoPE).
+    Parameters are a plain dict mirroring the reference tree, each leaf
+    this rank's slice of the expanded layout (``models.params``; on one
+    device the tp dim is dropped and nothing is split).
+
+    ``dist``: the rank's place on a ``(data, model)`` mesh (one device by
+    default). A mesh larger than one device trains the dense family only.
 
     ``moe_drops``: set it to a list to have every MoE serve step append
     its count of dropped (token, k) copies, summed over the layers, as a
@@ -93,17 +104,28 @@ class DecoderLM:
 
     moe_drops = None
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dist: Optional[Dist] = None):
         cfg.validate()
         if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: DecoderLM serves the dense, moe and "
                 "vlm families")
+        dist = dist or Dist()
+        if dist.size > 1 and cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} runs on one device: only the dense "
+                "family trains on a mesh")
         set_matmul_precision()
         self.is_moe = cfg.num_experts > 0
         self.cfg = cfg
-        self.kv_local = cfg.num_kv_heads
-        self.v_pad = cfg.vocab_size
+        self.dist = dist
+        self.ri = replica_info(cfg.num_heads, cfg.num_kv_heads, dist.tp)
+        self.kv_local = self.ri["kv_local"]
+        self.v_local = -(-cfg.vocab_size // dist.tp)
+        self.v_pad = self.v_local * dist.tp
+        # FSDP: stacked layer weights sharded over "data" (the reference
+        # shards only when the data axis has more than one rank)
+        self.fsdp = dist.fsdp and dist.dp > 1
         self.period = len(cfg.attn_pattern)
         assert cfg.num_layers % self.period == 0, (cfg.num_layers, self.period)
         self.cycles = cfg.num_layers // self.period
@@ -115,6 +137,7 @@ class DecoderLM:
         for k in self.period_kinds:
             self.rank_in_period.append(seen[k])
             seen[k] += 1
+        self._layer_shards = self.shards()["layers"]
 
     # ----------------------------------------------------------- kv specs
     kv_prefix = ""
@@ -151,27 +174,61 @@ class DecoderLM:
         return out
 
     # --------------------------------------------------------------- init
-    def param_shapes(self) -> Dict[str, Any]:
-        """Shapes of the reference template with the tp dim dropped."""
-        cfg = self.cfg
+    def global_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template at the mesh's tp: each
+        tensor-parallel leaf with its tp axis (``tp``, ...) or (L, ``tp``,
+        ...), the q heads padded per ``gqa_tp_layout``, the vocabulary
+        padded to ``v_pad`` rows. Keys in the order ``init`` draws them."""
+        cfg, tp, ri = self.cfg, self.dist.tp, self.ri
         d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
-        qd, kvd = cfg.num_heads * hd, self.kv_local * hd
-        layers = {"attn_norm": (L, d), "q": (L, d, qd), "k": (L, d, kvd),
-                  "v": (L, d, kvd), "o": (L, qd, d), "mlp_norm": (L, d)}
+        qd, kvd = ri["q_local"] * hd, ri["kv_local"] * hd
+        layers = {"attn_norm": (L, d), "q": (L, tp, d, qd),
+                  "k": (L, tp, d, kvd), "v": (L, tp, d, kvd),
+                  "o": (L, tp, qd, d), "mlp_norm": (L, d)}
         if self.is_moe:
             e, ffe = cfg.num_experts, cfg.moe_d_ff
             layers.update(router=(L, d, e), moe_gate=(L, e, d, ffe),
                           moe_up=(L, e, d, ffe), moe_down=(L, e, ffe, d))
         else:
-            layers.update(gate=(L, d, cfg.d_ff), up=(L, d, cfg.d_ff),
-                          down=(L, cfg.d_ff, d))
+            ffl = cfg.d_ff // tp
+            layers.update(gate=(L, tp, d, ffl), up=(L, tp, d, ffl),
+                          down=(L, tp, ffl, d))
         if cfg.qkv_bias:
-            layers.update(q_bias=(L, qd), k_bias=(L, kvd), v_bias=(L, kvd))
-        tree = {"embed": (self.v_pad, d), "final_norm": (d,),
+            layers.update(q_bias=(L, tp, qd), k_bias=(L, tp, kvd),
+                          v_bias=(L, tp, kvd))
+        tree = {"embed": (tp, self.v_local, d), "final_norm": (d,),
                 "layers": layers}
         if not cfg.tie_embeddings:
-            tree["unembed"] = (self.v_pad, d)
+            tree["unembed"] = (tp, self.v_local, d)
         return tree
+
+    def shards(self) -> Dict[str, Any]:
+        """Each leaf's ``Shard``: its tp axis, and its FSDP data dim."""
+        fam = self.cfg.family
+
+        def go(tree, parent):
+            return {n: go(v, n) if isinstance(v, dict) else
+                    leaf_shard(fam, parent, n, v, self.dist)
+                    for n, v in tree.items()}
+        return go(self.global_shapes(), "")
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """Shapes of this rank's leaves: the global shapes with the tp
+        axis dropped and the FSDP dim split over the data axis."""
+        dp = self.dist.dp
+
+        def local(shape, shard):
+            shape = list(shape)
+            if shard.tp_axis is not None:
+                del shape[shard.tp_axis]
+            if shard.data_dim is not None:
+                shape[shard.data_dim] //= dp
+            return tuple(shape)
+
+        def go(tree, shards):
+            return {n: go(v, shards[n]) if isinstance(v, dict) else
+                    local(v, shards[n]) for n, v in tree.items()}
+        return go(self.global_shapes(), self.shards())
 
     def init(self, seed: int = 0, device="cuda",
              master: bool = False) -> Dict[str, Any]:
@@ -189,7 +246,12 @@ class DecoderLM:
         needs the whole leaf in fp32: qwen2.5-32b's 65.5 GB of bf16
         weights are drawn on one 80 GB card. An expert leaf, whose layer
         is larger than that (qwen3-moe: 0.8 G values), is drawn in
-        slices of experts."""
+        slices of experts.
+
+        On a mesh every rank draws the one-device model's leaves from
+        ``seed`` one at a time and keeps its slice of each in the
+        expanded layout (``_expand``), so the model computes the same
+        function on every mesh."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -205,11 +267,65 @@ class DecoderLM:
             return draw_normal(shape, scale, torch.bfloat16 if bf16 else
                                torch.float32, gen)
 
-        shapes = self.param_shapes()
-        params = {n: leaf(n, s) for n, s in shapes.items() if n != "layers"}
-        params["layers"] = {n: leaf(n, s)
+        def mine(name, shape, shard):
+            if self.dist.size == 1:
+                return leaf(name, shape)
+            whole = self._expand(name, leaf(name, shape))
+            return local_part(whole, shard, self.dist).contiguous()
+
+        # the one-device model's leaves, in the order they are drawn
+        shapes = DecoderLM(self.cfg).param_shapes()
+        shards = self.shards()
+        params = {n: mine(n, s, shards[n]) for n, s in shapes.items()
+                  if n != "layers"}
+        params["layers"] = {n: mine(n, s, shards["layers"][n])
                             for n, s in shapes["layers"].items()}
         return params
+
+    def _expand(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """The one-device leaf ``w`` in the expanded layout at the mesh's
+        tp, computing the same function: the vocabulary padded with zero
+        rows, each rank's q heads (a K/V group's heads padded with zero
+        heads to a multiple of its replicas) and their o rows, its K/V
+        heads (copied to every replica), its ``d_ff`` columns and down
+        rows. Leaves without a tp axis are returned as they are."""
+        ri, tp = self.ri, self.dist.tp
+        hd, kv = self.cfg.head_dim, self.cfg.num_kv_heads
+        repl, kv_tp, kvl = ri["repl"], ri["kv_tp"], ri["kv_local"]
+        group = self.cfg.num_heads // kv
+        gpad = ri["q_pad"] // kv
+
+        def heads(a, grouped):
+            # (..., H*hd or KV*hd) -> (..., tp, the rank's heads * hd)
+            lead = a.shape[:-1]
+            if grouped:
+                a = a.reshape(*lead, kv, group, hd)
+                if gpad > group:
+                    a = torch.cat([a, a.new_zeros(*lead, kv, gpad - group,
+                                                  hd)], dim=-2)
+                a = a.reshape(*lead, kv_tp, kvl, repl, gpad // repl, hd)
+                a = a.movedim(-3, -4)     # (.., kv_tp, repl, kvl, gpp, hd)
+            else:
+                a = a.reshape(*lead, kv_tp, 1, kvl, hd)
+                a = a.expand(*lead, kv_tp, repl, kvl, hd)
+            return a.reshape(*lead, tp, -1)
+
+        if name in ("embed", "unembed"):
+            pad = self.v_pad - w.shape[0]
+            if pad:
+                w = torch.cat([w, w.new_zeros(pad, w.shape[1])])
+            return w.reshape(tp, self.v_local, w.shape[1])
+        if name == "o":                 # (L, H*hd, d) -> (L, tp, .., d)
+            return heads(w.movedim(1, -1), True).movedim(-2, 1).movedim(
+                -1, 2)
+        if name in ("q", "q_bias", "k", "v", "k_bias", "v_bias"):
+            return heads(w, name.startswith("q")).movedim(-2, 1)
+        if name in ("gate", "up", "down"):
+            axis = 1 if name == "down" else 2
+            shape = list(w.shape)
+            shape[axis:axis + 1] = [tp, shape[axis] // tp]
+            return w.reshape(shape).movedim(axis, 1)
+        return w
 
     def _unembed(self, params):
         return params.get("unembed", params["embed"])
@@ -230,7 +346,11 @@ class DecoderLM:
         ``mrope_pos`` (3, B, T)) splices the image embeddings in where
         ``mm_mask`` is set and rotates by M-RoPE at ``mrope_pos``; without
         it a VLM trains on text with RoPE at ``arange(T)``, as the
-        reference does."""
+        reference does.
+
+        On a mesh, ``tokens`` and ``targets`` are this data rank's rows
+        and the loss is the mean over every data rank's (the reference's
+        ``psum_dp(loss) / dp``), the same on every rank."""
         mm = (mm_embeds, mm_mask, mrope_pos)
         if any(v is not None for v in mm):
             if self.cfg.family != "vlm":
@@ -245,7 +365,7 @@ class DecoderLM:
                     mm_mask=None, mrope_pos=None):
         cfg = self.cfg
         t = tokens.shape[1]
-        x = embed_lookup(tokens, params["embed"])
+        x = embed_lookup(tokens, params["embed"], self.dist)
         if mm_embeds is not None:
             x = torch.where(mm_mask[..., None], mm_embeds.to(x.dtype), x)
             rope = mrope_tables(mrope_pos, cfg.head_dim, cfg.rope_theta)
@@ -262,21 +382,43 @@ class DecoderLM:
                                 use_reentrant=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_local(x, self._unembed(params))
-        loss = sharded_softmax_xent(logits, targets)
+        dist = self.dist
+        loss = sharded_softmax_xent(logits, targets, dist=dist)
+        if dist.dp > 1:
+            loss = psum_dp(loss, dist) / dist.dp
         if aux is not None:
             loss = loss + aux / max(1, self.cycles)
-        return loss
+        return replicated_loss(loss, dist)
+
+    def _fsdp_gather(self, pj):
+        """FSDP: one layer's weight shards gathered whole over "data",
+        each cast to bf16 first as the reference does (the products round
+        weights to bf16 anyway), so the transpose reduce-scatters bf16
+        gradients."""
+        if not self.fsdp:
+            return pj
+        out = dict(pj)
+        for name, w in pj.items():
+            dim = self._layer_shards[name].data_dim
+            if dim is not None:
+                out[name] = gather_data(w.to(torch.bfloat16), dim - 1,
+                                        self.dist)
+        return out
 
     def _train_cycle(self, x, rope, pjs, aux=None):
         """One cycle of the pattern: each layer's attention (its kind's
         window) and MLP, or MoE with its aux loss added to ``aux`` (None
-        for a dense model). Returns (x, aux)."""
+        for a dense model). Returns (x, aux). Under FSDP each layer's
+        shards are gathered here, inside the checkpointed cycle, so the
+        backward's recomputation gathers them again (as ``jax.checkpoint``
+        recomputes the reference's gather)."""
         cfg = self.cfg
         for pj, kind in zip(pjs, self.period_kinds):
+            pj = self._fsdp_gather(pj)
             x = BA.attn_train(
                 pj, x, kv_local=self.kv_local, head_dim=cfg.head_dim,
                 rope=rope, window=cfg.sliding_window if kind == "swa" else 0,
-                norm_eps=cfg.norm_eps)
+                norm_eps=cfg.norm_eps, dist=self.dist)
             if self.is_moe:
                 x, a = BA.moe_block(
                     pj, x, num_experts=cfg.num_experts,
@@ -285,7 +427,7 @@ class DecoderLM:
                     norm_eps=cfg.norm_eps, aux_weight=cfg.router_aux_weight)
                 aux = aux + a
             else:
-                x = BA.mlp_block(pj, x, cfg.norm_eps)
+                x = BA.mlp_block(pj, x, cfg.norm_eps, dist=self.dist)
         return x, aux
 
     # --------------------------------------------------------------- serve
@@ -324,6 +466,11 @@ class DecoderLM:
         of the step — rope tables, page indices, slot positions, the varlen
         call's metadata, write rows, per-layer parameter views — is computed
         once per step: the port runs eagerly, and each op costs a launch."""
+        if self.dist.size > 1:
+            raise NotImplementedError(
+                "serve_step runs on one device (the reference serves on a "
+                "(1, 1) buffer too); this model was built for a "
+                f"{self.dist.dp} x {self.dist.tp} mesh")
         if batch.seg_ids is None:
             return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg

@@ -1,20 +1,28 @@
 """The weight bridge: the reference's parameter pytree (numpy leaves) to the
-port's parameter dict.
+port's parameter dict, and back.
 
-The port's parameters mirror the reference tree with its size-1 tp dim
-dropped (``DecoderLM._squeeze_params``) and the (L, ...) layer stacking
-kept. For serving, matrices are stored bf16 — ``dense`` rounds them to
-bf16 before the product anyway, so this loses nothing — while norm weights
-and biases stay fp32, since they enter fp32 arithmetic. Training keeps the
-reference's fp32 masters instead (``master=True``, the counterpart of the
-reference's ``model.param_dtype`` override).
+The reference stores each tensor-parallel leaf in its *expanded layout*,
+with a ``tp`` axis (``repro/models/tp.py``). The port's parameters mirror
+the reference tree, each rank holding its slice of every leaf: index
+``model_rank`` of the tp axis (which its tensor drops), and, for a layer
+leaf that FSDP shards, its part of the first dim after the tp axis that
+the data axis divides (the reference's rule in ``DecoderLM.template``).
+The (L, ...) layer stacking is kept. On one device the tp axis has size 1
+and nothing is split. For serving, matrices are stored bf16 (``dense``
+rounds them to bf16 before the product anyway, so this loses nothing)
+while norm weights and biases stay fp32, since they enter fp32
+arithmetic. Training keeps the reference's fp32 masters instead
+(``master=True``, the counterpart of the reference's
+``model.param_dtype`` override).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from .tp import Dist, Shard
 
 # leaf name -> its size-1 tp axis in the reference's expanded layout (the
 # MoE leaves, router and moe_*, have none: the reference shards experts
@@ -55,26 +63,6 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def squeeze_tp(name: str, a, axes=None) -> np.ndarray:
-    """A reference leaf (numpy) with its size-1 tp axis dropped (``axes``:
-    the leaf-name -> tp-axis map of its subtree, the dense one by
-    default)."""
-    a = np.asarray(a)
-    ax = (_TP_AXIS if axes is None else axes).get(name)
-    if ax is not None:
-        if a.shape[ax] != 1:
-            raise ValueError(f"{name}: tp dim {a.shape[ax]} != 1 "
-                             "(the port runs on one device)")
-        a = np.squeeze(a, axis=ax)
-    return a
-
-
-def expand_tp(name: str, a: np.ndarray, axes=None) -> np.ndarray:
-    """The inverse of ``squeeze_tp``: the reference's expanded layout."""
-    ax = (_TP_AXIS if axes is None else axes).get(name)
-    return a if ax is None else np.expand_dims(a, ax)
-
-
 def subtree_tp_axes(family: str, parent: str):
     """The leaf-name -> tp-axis map of the leaves under the dict key
     ``parent`` of a ``family`` tree: a hybrid's ``mamba_main`` /
@@ -95,21 +83,89 @@ def subtree_tp_axes(family: str, parent: str):
     return _TP_AXIS
 
 
-def _leaf(name: str, a, device, master: bool, axes) -> torch.Tensor:
-    t = tensor_from_numpy(squeeze_tp(name, a, axes)).to(device)
+def fsdp_dim(global_shape, data: int) -> Optional[int]:
+    """The reference's FSDP rule for a stacked layer leaf (L, tp, ...):
+    the first dim after the tp dim that the data axis divides, as a dim of
+    the rank's (L, ...) tensor (the tp dim dropped); None when there is
+    none."""
+    if len(global_shape) < 3:
+        return None
+    for i in range(2, len(global_shape)):
+        if global_shape[i] % data == 0 and global_shape[i] >= data:
+            return i - 1
+    return None
+
+
+def leaf_shard(family: str, parent: str, name: str, global_shape=None,
+               dist: Optional[Dist] = None) -> Shard:
+    """The ``Shard`` of leaf ``name`` under the dict key ``parent`` of a
+    ``family`` tree whose global (expanded) shape is ``global_shape``: its
+    tp axis from ``subtree_tp_axes``, and under FSDP (``dist.fsdp`` with
+    more than one data rank) the data dim of a decoder's stacked layer
+    leaf whose tp axis is its second (``fsdp_dim``)."""
+    tp_axis = subtree_tp_axes(family, parent).get(name)
+    data_dim = None
+    if (dist is not None and dist.fsdp and dist.dp > 1
+            and family in ("dense", "moe", "vlm") and parent == "layers"
+            and tp_axis == 1):
+        data_dim = fsdp_dim(global_shape, dist.dp)
+    return Shard(tp_axis, data_dim)
+
+
+def local_part(a, shard: Shard, dist: Optional[Dist] = None):
+    """This rank's part of the global leaf ``a`` (numpy or torch): index
+    ``model_rank`` of ``shard.tp_axis``, then ``data_rank``'s slice of
+    ``shard.data_dim``."""
+    dist = dist or Dist()
+    if shard.tp_axis is not None:
+        n = a.shape[shard.tp_axis]
+        if n != dist.tp:
+            raise ValueError(f"tp dim {n} != the mesh's tp {dist.tp}")
+        a = (a.select(shard.tp_axis, dist.model_rank)
+             if isinstance(a, torch.Tensor)
+             else np.take(a, dist.model_rank, axis=shard.tp_axis))
+    if shard.data_dim is not None:
+        n = a.shape[shard.data_dim] // dist.dp
+        if isinstance(a, torch.Tensor):
+            a = a.narrow(shard.data_dim, dist.data_rank * n, n)
+        else:
+            a = np.take(a, range(dist.data_rank * n, (dist.data_rank + 1)
+                                 * n), axis=shard.data_dim)
+    return a
+
+
+def gather_global(t: torch.Tensor, shard: Shard,
+                  dist: Optional[Dist] = None) -> torch.Tensor:
+    """The inverse of ``local_part``: the global leaf from every rank's
+    part (a collective: every rank of the mesh calls it, leaf by leaf in
+    the same order, and every rank gets the whole leaf)."""
+    dist = dist or Dist()
+    if shard.data_dim is not None:
+        parts = dist.all_gather(t, "data")
+        t = torch.cat(list(parts), dim=shard.data_dim)
+    if shard.tp_axis is not None:
+        t = dist.all_gather(t, "model").movedim(0, shard.tp_axis)
+    return t
+
+
+def _leaf(name: str, a, device, master: bool, shard: Shard,
+          dist) -> torch.Tensor:
+    t = tensor_from_numpy(local_part(np.asarray(a), shard, dist)).to(device)
     if master:
         return t.float()
     return t.to(torch.bfloat16 if name in MATRICES else torch.float32)
 
 
-def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
+def params_from_numpy(tree: Dict, cfg, device, master: bool = False,
+                      dist: Optional[Dist] = None) -> Dict:
     """Convert the reference's param tree (leaves as numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) of any family's ``cfg``. With
-    ``master`` every leaf stays fp32 (training's masters); otherwise
-    matrices (and the enc-dec ``dec_pos`` table, which the reference
-    rounds to bf16 before use) become bf16 (serving). The hybrid's
-    ``conv_w``, the MoE ``router`` and RWKV6's ``w_lora_b`` stay fp32:
-    the reference multiplies by them in fp32 (a bf16 router of a
+    ``jax.tree.map(np.asarray, params)``, drawn at the mesh's tp) of any
+    family's ``cfg`` into this rank's part of it (``dist``; one device by
+    default). With ``master`` every leaf stays fp32 (training's masters);
+    otherwise matrices (and the enc-dec ``dec_pos`` table, which the
+    reference rounds to bf16 before use) become bf16 (serving). The
+    hybrid's ``conv_w``, the MoE ``router`` and RWKV6's ``w_lora_b`` stay
+    fp32: the reference multiplies by them in fp32 (a bf16 router of a
     bf16-param model is widened exactly)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}")
@@ -117,6 +173,25 @@ def params_from_numpy(tree: Dict, cfg, device, master: bool = False) -> Dict:
     def conv(name, a, parent):
         if isinstance(a, dict):
             return {n: conv(n, x, name) for n, x in a.items()}
+        a = np.asarray(a)
         return _leaf(name, a, device, master,
-                     subtree_tp_axes(cfg.family, parent))
+                     leaf_shard(cfg.family, parent, name, a.shape, dist),
+                     dist)
     return {name: conv(name, a, "") for name, a in tree.items()}
+
+
+def gather_tree(tree: Dict, shards: Dict, dist: Optional[Dist] = None
+                ) -> Dict:
+    """The global tree (numpy leaves, the reference's layout) of every
+    rank's ``tree`` (this rank's tensors) under ``shards`` (a tree of
+    ``Shard`` like it, ``DecoderLM.shards()``): a collective, leaf by
+    leaf in sorted key order."""
+    out = {}
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            out[key] = gather_tree(val, shards[key], dist)
+        else:
+            g = gather_global(val.detach(), shards[key], dist)
+            out[key] = g.cpu().numpy()
+    return out

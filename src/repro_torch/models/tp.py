@@ -1,56 +1,290 @@
-"""Single-device twins of the reference's vocab-parallel heads
-(``repro/models/tp.py``): the port runs on one card, so the tp axis has
-size 1 and every vocab shard is the whole table."""
+"""The reference's tensor-parallel primitives (``repro/models/tp.py``) on
+``torch.distributed``.
+
+The reference runs a training step as one ``shard_map`` over a
+``("data", "model")`` mesh. The port runs one process per rank of the same
+mesh, and ``Dist`` holds what the reference's ``Dist`` and
+``jax.lax.axis_index`` give a shard: the rank's coordinates, the sizes of
+both axes, ``fsdp`` and one process group per axis. Global rank
+``r = data_rank * tp + model_rank``, the device order of the reference's
+``make_mesh_auto((dp, tp), ("data", "model"))``.
+
+Parameters live in the reference's *expanded layout*: every tensor-parallel
+leaf has a ``tp`` axis, and rank ``m`` of the model axis holds slice ``m``
+of it (``models.params``), including the padded GQA heads and the K/V
+replicas of ``gqa_tp_layout``.
+
+Gradients. ``jax.value_and_grad`` of the reference's ``shard_map`` body
+transposes each ``psum`` into a ``psum`` of the cotangents, and seeds each
+of the mesh's N devices with 1/N of the replicated loss's cotangent; every
+input cotangent is then summed over the axes its spec leaves out. The port
+follows the same rules, so that each partial sum is rounded where the
+reference rounds it: ``psum_tp`` and ``psum_dp`` all-reduce forward and
+backward, ``replicated_loss`` scales the cotangent by 1/N, and the trainer
+sums each leaf's gradient over the axes it is replicated on. The result is
+the gradient of the global loss, on any mesh (held against JAX on 2- and
+4-process CPU meshes in ``tests/test_torch_mesh_train.py``).
+
+A ``Dist`` of size 1 issues no collective, so at a 1 x 1 mesh every
+function here computes what the single-card code computes, bit for bit.
+"""
 from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional
 
 import torch
 
+from .common import gqa_tp_layout
 
-def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """tokens: (...,) int; table: (V, d). Returns (..., d) bf16; ids outside
+
+def _comm_counts() -> Dict[str, int]:
+    return {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """One rank of a ``(data, model)`` mesh. ``dp_group`` holds the ranks
+    that share this rank's ``model_rank``, ``tp_group`` those that share
+    its ``data_rank``, ``group`` every rank. ``comm_bytes`` counts the
+    bytes each kind of collective of this rank sent into the group (its
+    input's size), for the step's communication volume."""
+
+    dp: int = 1
+    tp: int = 1
+    data_rank: int = 0
+    model_rank: int = 0
+    fsdp: bool = False
+    dp_group: Any = None
+    tp_group: Any = None
+    group: Any = None
+    comm_bytes: Dict[str, int] = dataclasses.field(
+        default_factory=_comm_counts, compare=False)
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def rank(self) -> int:
+        return self.data_rank * self.tp + self.model_rank
+
+    def _group(self, axis: str):
+        return {"data": (self.dp_group, self.dp), "model":
+                (self.tp_group, self.tp), "all": (self.group, self.size)}[axis]
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``x`` over ``axis`` ("data", "model" or "all") in
+        ``x``'s dtype, as a new tensor (``x`` itself when the axis has one
+        rank)."""
+        group, n = self._group(axis)
+        if n == 1:
+            return x
+        y = x.contiguous().clone()
+        torch.distributed.all_reduce(y, group=group)
+        self.comm_bytes["all_reduce"] += y.numel() * y.element_size()
+        return y
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """(n, *x.shape): every rank's ``x`` of ``axis``, in rank order."""
+        group, n = self._group(axis)
+        if n == 1:
+            return x[None]
+        x = x.contiguous()
+        flat = x.reshape(-1)
+        out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.distributed.all_gather_into_tensor(out, flat, group=group)
+        self.comm_bytes["all_gather"] += x.numel() * x.element_size()
+        return out.view(n, *x.shape)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x: (n, *shape); this rank's slice of the sum over ``axis``."""
+        group, n = self._group(axis)
+        if n == 1:
+            return x[0]
+        x = x.contiguous()
+        out = torch.empty(x[0].numel(), dtype=x.dtype, device=x.device)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.distributed.reduce_scatter_tensor(out, x.reshape(-1),
+                                                    group=group)
+        self.comm_bytes["reduce_scatter"] += x.numel() * x.element_size()
+        return out.view(x.shape[1:])
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            torch.distributed.barrier(group=self.group)
+
+
+def single_device_dist() -> Dist:
+    return Dist()
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where a rank's tensor sits in its global leaf (the reference's
+    expanded layout): ``tp_axis`` is the global leaf's tensor-parallel
+    axis, which the rank's tensor drops (None: the leaf has none and is
+    the same on every rank of the model axis); ``data_dim`` is the rank's
+    dim split evenly over the data axis (None: the rank holds it whole)."""
+
+    tp_axis: Optional[int] = None
+    data_dim: Optional[int] = None
+
+
+def replica_info(num_heads: int, num_kv_heads: int, tp: int):
+    q_pad, q_local, kv_tp, kv_local = gqa_tp_layout(num_heads, num_kv_heads,
+                                                    tp)
+    repl = tp // kv_tp
+    return dict(q_pad=q_pad, q_local=q_local, kv_tp=kv_tp,
+                kv_local=kv_local, repl=repl)
+
+
+# ----------------------------------------------- collectives with gradients
+class _Psum(torch.autograd.Function):
+    """Sum over a mesh axis; its transpose is the same sum of the
+    cotangents (the reference's ``psum`` under ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, x, dist: Dist, axis: str):
+        ctx.dist, ctx.axis = dist, axis
+        return dist.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.all_reduce(g, ctx.axis), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the cotangent times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _GatherData(torch.autograd.Function):
+    """FSDP: the whole weight from the data axis's shards of ``dim``; its
+    transpose sums the cotangents over the data axis and keeps this rank's
+    shard (a reduce-scatter in the cotangent's dtype)."""
+
+    @staticmethod
+    def forward(ctx, w, dist: Dist, dim: int):
+        ctx.dist, ctx.dim = dist, dim
+        parts = dist.all_gather(w, "data")          # (dp, *w.shape)
+        shape = list(w.shape)
+        shape[dim] *= dist.dp
+        return parts.movedim(0, dim).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, dim = ctx.dist, ctx.dim
+        shape = list(g.shape)
+        shape[dim:dim + 1] = [dist.dp, shape[dim] // dist.dp]
+        parts = g.reshape(shape).movedim(dim, 0)
+        return dist.reduce_scatter(parts, "data"), None, None
+
+
+def psum_tp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
+    if dist is None or dist.tp == 1:
+        return x
+    return _Psum.apply(x, dist, "model")
+
+
+def psum_dp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
+    if dist is None or dist.dp == 1:
+        return x
+    return _Psum.apply(x, dist, "data")
+
+
+def replicated_loss(loss: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
+    """The loss every rank holds, as the reference's ``out_specs=P()``:
+    each rank's backward starts from 1/N of the cotangent, which the
+    transposed sums above add up again."""
+    if dist is None or dist.size == 1:
+        return loss
+    return _ScaleGrad.apply(loss, 1.0 / dist.size)
+
+
+def gather_data(w: torch.Tensor, dim: int, dist: Dist) -> torch.Tensor:
+    """An FSDP weight shard gathered whole along ``dim`` over "data"."""
+    return _GatherData.apply(w, dist, dim)
+
+
+# ------------------------------------------------ vocab-parallel heads
+def _vocab_offset(v_local: int, dist: Optional[Dist]) -> int:
+    return 0 if dist is None else dist.model_rank * v_local
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor,
+                 dist: Optional[Dist] = None) -> torch.Tensor:
+    """tokens: (...,) int; table: this rank's (V_local, d) rows of the
+    vocab. Returns (..., d) bf16, summed over the model axis; ids outside
     the table embed as zeros."""
     v = table.shape[0]
-    ok = (tokens >= 0) & (tokens < v)
-    idx = tokens.clamp(0, v - 1).long()
+    lo = _vocab_offset(v, dist)
+    idx = tokens - lo if lo else tokens
+    ok = (idx >= 0) & (idx < v)
+    idx = idx.clamp(0, v - 1).long()
     out = table[idx].to(torch.bfloat16)
-    return torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
-                                                       device=out.device))
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                      device=out.device))
+    return psum_tp(out, dist)
 
 
 def logits_local(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """x: (..., d) -> fp32 logits (..., V). The operands are bf16 values
-    (the table is rounded as the reference rounds it) and the product is
-    taken in fp32, never rounded to bf16: a bf16 output would be coarser
-    than the greedy tie band."""
+    """x: (..., d) -> fp32 logits (..., V_local). The operands are bf16
+    values (the table is rounded as the reference rounds it) and the
+    product is taken in fp32, never rounded to bf16: a bf16 output would
+    be coarser than the greedy tie band."""
     w = table.to(x.dtype).float()
     return torch.matmul(x.float(), w.t())
 
 
-def mask_pad_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Pad-vocab columns (id >= vocab_size) to -1e30; keep in sync with
-    ``serving.sampler.NEG``."""
-    gid = torch.arange(logits.shape[-1], device=logits.device)
+def mask_pad_vocab(logits: torch.Tensor, vocab_size: int,
+                   dist: Optional[Dist] = None) -> torch.Tensor:
+    """Pad-vocab columns (global id >= vocab_size) to -1e30; keep in sync
+    with ``serving.sampler.NEG``."""
+    v = logits.shape[-1]
+    gid = torch.arange(v, device=logits.device) + _vocab_offset(v, dist)
     return torch.where(gid < vocab_size, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
 
 
 def sharded_softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                         mask: torch.Tensor = None) -> torch.Tensor:
-    """Cross-entropy over fp32 logits (..., V): the reference's
-    vocab-sharded head with one shard. The max shift is detached (it
-    cancels in d/dx logsumexp); nll = logz - gold, with targets outside the
-    vocab scoring a gold logit of 0; the mean runs over ``mask`` when given
-    (at least 1 in the denominator)."""
+                         mask: torch.Tensor = None,
+                         dist: Optional[Dist] = None) -> torch.Tensor:
+    """Cross-entropy over this rank's vocab-sharded fp32 logits
+    (..., V_local). The max shift is detached (it cancels in d/dx
+    logsumexp) and, across the model axis, the largest of every rank's
+    max; the sum of exponentials and the gold logit are summed over the
+    model axis. nll = logz - gold, with targets outside the vocab scoring
+    a gold logit of 0; the mean runs over ``mask`` when given (at least 1
+    in the denominator). Pad-vocab rows of the table are not masked: they
+    enter logz, as in the reference."""
     v = logits.shape[-1]
+    lo = _vocab_offset(v, dist)
     lmax = logits.detach().amax(-1)
-    z = torch.exp(logits - lmax[..., None]).sum(-1)
+    if dist is not None and dist.tp > 1:
+        lmax = dist.all_gather(lmax, "model").amax(0)
+    z = psum_tp(torch.exp(logits - lmax[..., None]).sum(-1), dist)
     logz = torch.log(z) + lmax
-    ok = (targets >= 0) & (targets < v)
-    idx = targets.clamp(0, v - 1).long()
+    idx = targets - lo if lo else targets
+    ok = (idx >= 0) & (idx < v)
+    idx = idx.clamp(0, v - 1).long()
     gold = logits.gather(-1, idx[..., None])[..., 0]
     gold = torch.where(ok, gold, torch.zeros((), dtype=gold.dtype,
                                              device=gold.device))
+    gold = psum_tp(gold, dist)
     nll = logz - gold
     if mask is None:
         return nll.mean()

@@ -5,12 +5,18 @@ Format: one ``.npy`` per leaf plus ``meta.json``, each file named as the
 reference names it (``jax.tree_util.keystr`` of the leaf's path, sanitised:
 ``params_layers_q.npy``, ``opt_.mu_embed.npy``, ``opt_.step.npy``,
 ``params_mamba_main_w_z.npy``) and holding the reference's layout, with its
-size-1 tp axis where the model family's subtree puts it
+tp axis where the model family's subtree puts it
 (``params.subtree_tp_axes``). So a checkpoint
 written by the reference's ``Trainer`` restores here, and one written here
 restores there. Saves snapshot every leaf to host memory synchronously and
 write the files on a background thread (``wait()`` joins it before the
 next save).
+
+On a ``(data, model)`` mesh every leaf is gathered whole (``Shard``:
+``params.gather_global``) and rank 0 writes it, so the files hold global
+arrays as the reference's do; a restore takes each rank's part of them
+(``params.local_part``), so a checkpoint restores onto a mesh of any data
+size. The tp size is in the arrays' shapes and must not change.
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.params import (expand_tp, squeeze_tp, subtree_tp_axes,
+from ..models.params import (gather_global, local_part, subtree_tp_axes,
                              tensor_from_numpy)
+from ..models.tp import Dist, Shard
 
 
 def _walk(node, path: str, name: str, parent: str,
@@ -65,32 +72,49 @@ def _rebuild(node, it):
     return next(it)
 
 
-def _to_host(name: str, t: torch.Tensor, axes) -> np.ndarray:
-    if t.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"{name}: checkpoints hold float32 and int32 "
-                        f"leaves, not {t.dtype}")
-    return expand_tp(name, t.detach().cpu().numpy(), axes)
+def _shard_list(files, shards) -> List[Shard]:
+    """Each leaf's ``Shard``: from ``shards`` (a tree like the saved one),
+    or by default its tp axis alone (one device)."""
+    if shards is None:
+        return [Shard(axes.get(name)) for _, name, axes, _ in files]
+    out: List[Tuple[str, str, str, Any]] = []
+    _walk(shards, "", "", "", out)
+    return [sh for *_, sh in out]
 
 
 class Checkpointer:
     """Checkpoints of a ``family`` model's trees (the family picks each
-    leaf's tp axis on disk)."""
+    leaf's tp axis on disk) on the ranks of ``dist`` (one device by
+    default)."""
 
-    def __init__(self, directory: str, family: str, keep: int = 3):
+    def __init__(self, directory: str, family: str, keep: int = 3,
+                 dist: Optional[Dist] = None):
         self.dir = directory
         self.keep = keep
         self.family = family
+        self.dist = dist or Dist()
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, shards: Any = None) -> None:
+        """Write ``tree`` (this rank's parts under ``shards``) as global
+        arrays: a collective on a mesh, whose rank 0 writes."""
         self.wait()
         # snapshot to host memory synchronously, then write the files on a
         # background thread (async checkpointing)
-        host = [(f, _to_host(name, t, axes))
-                for f, name, axes, t in _leaf_files(tree, self.family)]
+        files = _leaf_files(tree, self.family)
+        host = []
+        for (f, name, _, t), sh in zip(files, _shard_list(files, shards)):
+            if t.dtype not in (torch.float32, torch.int32):
+                raise TypeError(f"{name}: checkpoints hold float32 and "
+                                f"int32 leaves, not {t.dtype}")
+            g = gather_global(t.detach(), sh, self.dist)
+            if self.dist.rank == 0:
+                host.append((f, g.to("cpu", copy=True).numpy()))
+        if self.dist.rank != 0:
+            return
         meta = {"step": int(step), "extra": extra or {},
                 "leaves": [f for f, _ in host]}
 
@@ -132,14 +156,22 @@ class Checkpointer:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The last complete checkpoint, the same on every rank (rank 0's
+        writer is joined first)."""
+        self.wait()
+        self.dist.barrier()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree: Any, device=None):
+    def restore(self, step: int, target_tree: Any, device=None,
+                shards: Any = None):
         """Load into the structure of ``target_tree`` (tensors, possibly on
-        the ``meta`` device, giving each leaf's shape and dtype). Leaves go
-        to ``device`` (default: each target leaf's device) in the target's
-        dtype, the size-1 tp axis squeezed. Returns (tree, meta)."""
+        the ``meta`` device, giving each leaf's shape and dtype: this
+        rank's parts under ``shards``). Leaves go to ``device`` (default:
+        each target leaf's device) in the target's dtype. Returns (tree,
+        meta)."""
+        self.wait()
+        self.dist.barrier()
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "meta.json")) as fh:
             meta = json.load(fh)
@@ -147,8 +179,9 @@ class Checkpointer:
         if [f for f, _, _, _ in leaves] != list(meta["leaves"]):
             raise ValueError(f"{d}: tree structure changed")
         out = []
-        for fname, name, axes, ref in leaves:
-            arr = squeeze_tp(name, np.load(os.path.join(d, fname)), axes)
+        for (fname, name, axes, ref), sh in zip(
+                leaves, _shard_list(leaves, shards)):
+            arr = local_part(np.load(os.path.join(d, fname)), sh, self.dist)
             if arr.shape != tuple(ref.shape):
                 raise ValueError(f"{fname}: shape {arr.shape}, expected "
                                  f"{tuple(ref.shape)}")

@@ -1,21 +1,32 @@
-"""AdamW on one device (``repro/training/optimizer.py``): the same schedule,
-global-norm clipping, bias correction at ``step + 1`` and weight decay on
-every leaf (norms included, as the reference does), all in fp32.
+"""AdamW (``repro/training/optimizer.py``): the same schedule, global-norm
+clipping, bias correction at ``step + 1`` and weight decay on every leaf
+(norms included, as the reference does), all in fp32, with ZeRO-1 over a
+mesh's data axis and the reference's bf16 ``compressed_psum``.
 
 The update runs in place under ``torch.no_grad()``: the reference returns
 new params and moments, which at full width (granite-3-2b, 2.5 B fp32
 parameters) would need another 30 GB for the second copies of params, mu
-and nu. The reference's ZeRO-1 state sharding has a data axis of size 1 on
-one card, so the state stays whole here; its bf16 ``compressed_psum`` needs
-a collective across cards and is not ported (ROADMAP).
+and nu.
+
+ZeRO-1 (``zero1_shards``, the reference's ``zero1_spec``): each moment is
+split over the data axis on the first dim of its global leaf that is not
+the tp axis and that the data axis divides; a leaf that already uses the
+data axis (FSDP) keeps its own split. Each rank keeps its slices of
+``mu`` and ``nu`` only, updates the same slice of its fp32 params (the
+masters, whole over the data axis as in the reference) and all-gathers
+the updated slices over the data axis. The clip norm is taken over the
+whole gradient of the mesh. The arithmetic is elementwise, so the result
+is the unsharded update's, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..models.tp import Dist, Shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,41 +75,135 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def init(params) -> OptState:
-    """Zero fp32 moments and step 0 on the params' device."""
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a mesh's ranks share a model's params (``params``: a tree of
+    ``Shard``, the model's ``shards()``) and the optimizer's moments
+    (``state``: ``zero1_shards`` of them, or ``params`` without ZeRO-1)."""
+
+    dist: Dist
+    params: Dict
+    state: Dict
+
+
+def zero1_shards(param_shards, global_shapes, dp: int):
+    """The reference's ``zero1_spec`` for every leaf: split the moment over
+    the data axis on the first dim of its global shape that is not the tp
+    axis, is not empty and that ``dp`` divides (as a dim of the rank's
+    tensor); leaves already split over "data" (FSDP) keep their split, and
+    a leaf with no such dim stays whole."""
+    def one(sh: Shard, shape) -> Shard:
+        if dp == 1 or sh.data_dim is not None:
+            return sh
+        for i, n in enumerate(shape):
+            if i != sh.tp_axis and n > 0 and n % dp == 0:
+                local = i - (sh.tp_axis is not None and i > sh.tp_axis)
+                return Shard(sh.tp_axis, local)
+        return sh
+
+    def go(shards, shapes):
+        return {k: go(v, shapes[k]) if isinstance(v, dict) else
+                one(v, shapes[k]) for k, v in shards.items()}
+    return go(param_shards, global_shapes)
+
+
+def _zero1_dim(layout: Optional[Layout], ps: Shard, ss: Shard):
+    """The dim a ZeRO-1 rank updates a slice of (None: the whole leaf)."""
+    if layout is None or layout.dist.dp == 1 or ss.data_dim == ps.data_dim:
+        return None
+    return ss.data_dim
+
+
+def _slice(t: torch.Tensor, dim, dist: Dist) -> torch.Tensor:
+    if dim is None:
+        return t
+    k = t.shape[dim] // dist.dp
+    return t.narrow(dim, dist.data_rank * k, k)
+
+
+def with_shards(tree, layout: Optional[Layout]):
+    """(tensor, param shard, state shard) of every leaf of ``tree``, in
+    ``leaves`` order (the shards None without a layout)."""
+    if layout is None:
+        return ((t, None, None) for t in leaves(tree))
+    return zip(leaves(tree), leaves(layout.params), leaves(layout.state))
+
+
+def init(params, layout: Optional[Layout] = None) -> OptState:
+    """Zero fp32 moments (this rank's ZeRO-1 slices under ``layout``) and
+    step 0 on the params' device."""
     dev = next(leaves(params)).device
-    return OptState(
-        step=torch.zeros((), dtype=torch.int32, device=dev),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params))
+
+    def zeros(p, dim):
+        return torch.zeros(_slice(p, dim, layout.dist).shape if dim is
+                           not None else p.shape, dtype=torch.float32,
+                           device=p.device)
+
+    def moments():
+        if layout is None:
+            return tree_map(lambda p: zeros(p, None), params)
+        out = [zeros(p, _zero1_dim(layout, ps, ss))
+               for p, ps, ss in with_shards(params, layout)]
+        return _rebuild(params, iter(out))
+
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    mu=moments(), nu=moments())
 
 
-def global_norm(tree) -> torch.Tensor:
+def _rebuild(tree, it):
+    return {k: _rebuild(tree[k], it) if isinstance(tree[k], dict)
+            else next(it) for k in sorted(tree)}
+
+
+def _counted(sh: Optional[Shard], dist: Dist) -> bool:
+    """Whether this rank adds a leaf of the (reduced) gradient to the
+    norm: each element once over the mesh."""
+    return sh is None or (
+        (sh.tp_axis is not None or dist.model_rank == 0)
+        and (sh.data_dim is not None or dist.data_rank == 0))
+
+
+def global_norm(tree, layout: Optional[Layout] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of ``tree``; under a
+    ``layout``, of the global tree the mesh's ranks hold parts of."""
+    dist = layout.dist if layout is not None else Dist()
     total = None
-    for x in leaves(tree):
+    for x, sh, _ in with_shards(tree, layout):
+        if not _counted(sh, dist):
+            continue
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
+    if dist.size > 1:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=next(leaves(tree)).device)
+        total = dist.all_reduce(total, "all")
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params, grads, state: OptState
+def update(cfg: AdamWConfig, params, grads, state: OptState,
+           layout: Optional[Layout] = None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, IN PLACE: ``params`` and the moments of ``state``
     are overwritten, and ``grads`` (consumed) are scaled by the clip
     factor. Returns (params, the new state, metrics) like the reference;
-    the metrics are 0-d device tensors (no host sync)."""
-    gnorm = global_norm(grads)
+    the metrics are 0-d device tensors (no host sync). Under a ZeRO-1
+    ``layout`` each rank updates its slice and the slices are gathered
+    over the data axis."""
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - torch.pow(b1, step.float())
     bc2 = 1 - torch.pow(b2, step.float())
-    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
-                          leaves(state.nu)):
+    for (whole, ps, ss), g, m, v in zip(with_shards(params, layout),
+                                        leaves(grads), leaves(state.mu),
+                                        leaves(state.nu)):
+        dim = _zero1_dim(layout, ps, ss)
+        p = _slice(whole, dim, layout.dist) if dim is not None else whole
+        g = _slice(g, dim, layout.dist) if dim is not None else g
         g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
@@ -110,5 +215,25 @@ def update(cfg: AdamWConfig, params, grads, state: OptState
         else:
             p.copy_((p.float() - lr * delta).to(p.dtype))
         del delta
+        if dim is not None:
+            parts = layout.dist.all_gather(p, "data")
+            whole.copy_(parts.movedim(0, dim).reshape(whole.shape))
     return params, OptState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+# ------------------------------------------- compressed DP gradient all-reduce
+def compressed_psum(x: torch.Tensor, dist: Dist, axis: str = "data",
+                    error: Optional[torch.Tensor] = None):
+    """The reference's bf16 all-reduce with error feedback: quantize
+    (x + error) to bf16, sum it over ``axis`` in bf16, and return (the sum
+    in fp32, the new fp32 error). Half the bytes of an fp32 gradient
+    sync; the error carry keeps the long-run bias at zero. (The reference's
+    ``Trainer`` does not call it, nor does the port's.)"""
+    xf = x.float()
+    if error is not None:
+        xf = xf + error
+    q = xf.to(torch.bfloat16)
+    new_error = xf - q.float()
+    total = dist.all_reduce(q, axis).float()
+    return total, new_error

@@ -1,17 +1,25 @@
-"""Fault-tolerant trainer on one device (``repro/training/trainer.py``).
+"""Fault-tolerant trainer (``repro/training/trainer.py``), on one device or
+on every rank of a ``(data, model)`` mesh (the model's ``dist``).
 
   * train step: ``train_loss`` -> backward per micro-batch, the fp32
     gradients summed across micro-batches in the params' ``.grad`` buffers,
-    then AdamW in place;
+    summed over the mesh axes each leaf is replicated on, then AdamW in
+    place (ZeRO-1 over the data axis when ``zero1``);
+  * data: every rank draws the same global batch from ``batch_at(step)``,
+    splits it into micro-batches first and takes its data rank's
+    ``1 / dp`` of each micro-batch's rows (the reference's order: the
+    step reshapes the global batch, then ``shard_map`` splits each
+    micro-batch over "data");
   * deterministic data keyed by step -> exact resume;
   * NaN/Inf watchdog: restore the last checkpoint and skip the bad step.
     The update is in place, so the loss is tested BEFORE it runs (the same
-    host sync as the reference's ``float(metrics["loss"])``);
-  * async checkpointing every N steps;
+    host sync as the reference's ``float(metrics["loss"])``); the loss is
+    summed over the data axis, so every rank decides alike;
+  * async checkpointing every N steps, of global arrays written by one
+    rank; a checkpoint restores onto a mesh of another data size;
   * straggler monitor: per-step wall-time EMA and a slow-step counter.
 
-``zero1`` is accepted for the reference's config: on one card the data
-axis has size 1 and the optimizer state stays whole.
+``zero1`` has no effect on one device, where the data axis has size 1.
 
 ``extra_batch`` (the reference's hook): ``tokens -> {name: array}`` of
 extra ``train_loss`` arguments for a step's batch (a VLM's
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.tp import Dist, Shard
 from . import optimizer as opt
 from .checkpoint import Checkpointer
 from .data import SyntheticLM
@@ -64,8 +73,19 @@ class Trainer:
         self.adamw = adamw
         self.tcfg = tcfg
         self.extra_batch = extra_batch or (lambda tokens: {})
+        # a model built for a mesh (``DecoderLM(cfg, dist)``) carries its
+        # Dist; the other families run on one device
+        dist = getattr(model, "dist", None)
+        self.dist = dist or Dist()
+        self.layout = None
+        if dist is not None:
+            ps = model.shards()
+            self.layout = opt.Layout(
+                self.dist, ps, opt.zero1_shards(
+                    ps, model.global_shapes(), self.dist.dp)
+                if tcfg.zero1 else ps)
         self.ckpt = Checkpointer(tcfg.ckpt_dir, model.cfg.family,
-                                 keep=tcfg.keep_ckpts)
+                                 keep=tcfg.keep_ckpts, dist=self.dist)
         # straggler stats
         self.step_ema: Optional[float] = None
         self.slow_steps = 0
@@ -77,34 +97,43 @@ class Trainer:
         master=True)``) and a fresh optimizer state, on ``device``."""
         params = self.model.init(seed, device=resolve_device(device),
                                  master=True)
-        return params, opt.init(params)
+        return params, opt.init(params, self.layout)
 
     # ------------------------------------------------------------------- step
-    def _step(self, params, tokens, targets, extras=None):
-        """Gradients of the mean micro-batch loss, summed in fp32 in the
-        params' ``.grad`` buffers. ``extras``: ``train_loss``'s extra
-        arguments for the whole batch. Returns (mean loss tensor, grads
+    def loss_and_grads(self, params, tokens, targets, extras=None):
+        """The step's gradients: ``tokens`` / ``targets`` (and ``extras``,
+        ``train_loss``'s extra arguments) are the GLOBAL batch; each
+        micro-batch's data-rank rows go through ``train_loss`` and
+        backward, the fp32 gradients summed in the params' ``.grad``
+        buffers, then summed over the mesh axes each leaf is replicated on
+        (FSDP leaves were reduce-scattered by the backward) and divided by
+        the number of micro-batches. Returns (mean loss tensor, grads
         tree)."""
         extras = extras or {}
-        n_micro = self.tcfg.micro_batches
+        n_micro, dist = self.tcfg.micro_batches, self.dist
         b = tokens.shape[0]
-        if b % n_micro:
+        if b % (n_micro * dist.dp):
             raise ValueError(f"batch {b} not divisible by {n_micro} "
-                             "micro-batches")
+                             f"micro-batches of {dist.dp} data ranks")
         mb = b // n_micro
+        rows = mb // dist.dp
         for p in opt.leaves(params):
             p.requires_grad_(True)
             p.grad = None
         lsum = None
         for i in range(n_micro):
-            sl = slice(i * mb, (i + 1) * mb)
-            ex = {k: v.narrow(_batch_axis(k), i * mb, mb)
+            lo = i * mb + dist.data_rank * rows
+            ex = {k: v.narrow(_batch_axis(k), lo, rows)
                   for k, v in extras.items()}
-            loss = self.model.train_loss(params, tokens[sl], targets[sl],
-                                         **ex)
+            loss = self.model.train_loss(params, tokens[lo:lo + rows],
+                                         targets[lo:lo + rows], **ex)
             loss.backward()
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
+        for p, sh, _ in opt.with_shards(params, self.layout):
+            if sh is not None and sh.data_dim is None:
+                p.grad = dist.all_reduce(
+                    p.grad, "data" if sh.tp_axis is not None else "all")
         grads = opt.tree_map(lambda p: p.grad, params)
         for g in opt.leaves(grads):
             g.div_(n_micro)
@@ -128,7 +157,7 @@ class Trainer:
             extras = {k: torch.as_tensor(np.asarray(v)).to(dev)
                       for k, v in self.extra_batch(tokens_np).items()}
             t0 = time.perf_counter()
-            loss_t, grads = self._step(
+            loss_t, grads = self.loss_and_grads(
                 params, torch.from_numpy(tokens_np).to(dev),
                 torch.from_numpy(targets_np).to(dev), extras)
             loss = float(loss_t)
@@ -146,7 +175,7 @@ class Trainer:
                 step = last + 1  # skip the bad batch deterministically
                 continue
             params, state, metrics = opt.update(self.adamw, params, grads,
-                                                state)
+                                                state, self.layout)
             self._release(params)
             del grads
             if dev.type == "cuda":
@@ -172,24 +201,31 @@ class Trainer:
         return params, state, history
 
     # ----------------------------------------------------------- checkpoints
+    def _shards(self):
+        """The ``Shard`` tree of ``{"params", "opt"}`` (None: one device
+        of a family without a mesh layout)."""
+        if self.layout is None:
+            return None
+        return {"params": self.layout.params,
+                "opt": opt.OptState(step=Shard(), mu=self.layout.state,
+                                    nu=self.layout.state)}
+
     def save(self, step: int, params, state, blocking: bool = False):
+        """A checkpoint of the global arrays (a collective on a mesh)."""
         self.ckpt.save(step, {"params": params, "opt": state},
-                       extra={"model": self.model.cfg.name}, blocking=blocking)
+                       extra={"model": self.model.cfg.name}, blocking=blocking,
+                       shards=self._shards())
 
     def restore(self, step: int, device="cuda"):
         """(params, state, meta) of checkpoint ``step`` on ``device``:
-        fp32 params and moments, an int32 step."""
+        fp32 params and moments (this rank's parts of them), an int32
+        step."""
         dev = resolve_device(device)
-
-        def struct():
-            return opt.tree_map(
-                lambda shape: torch.empty(shape, dtype=torch.float32,
-                                          device="meta"),
-                self.model.param_shapes())
-
-        target = {"params": struct(),
-                  "opt": opt.OptState(
-                      step=torch.empty((), dtype=torch.int32, device="meta"),
-                      mu=struct(), nu=struct())}
-        tree, meta = self.ckpt.restore(step, target, device=dev)
+        params = opt.tree_map(
+            lambda shape: torch.empty(shape, dtype=torch.float32,
+                                      device="meta"),
+            self.model.param_shapes())
+        target = {"params": params, "opt": opt.init(params, self.layout)}
+        tree, meta = self.ckpt.restore(step, target, device=dev,
+                                       shards=self._shards())
         return tree["params"], tree["opt"], meta
