@@ -53,18 +53,25 @@ Phases, each of which raises on failure:
    (device time by kernel group); reduced granite card vs CPU losses,
    exact resume from a checkpoint and the NaN watchdog.
 
-Phase 5c, training across cards (the dense family on a ``(data,
-model)`` mesh over NCCL, ``repro_torch.launch.mesh``): (i) full-width
-granite-3-2b at full depth through the mesh path at a 1 x 1 mesh, on
-phase 5's batch and weights: its loss and every leaf's gradient norm
-equal to the single-card path's bit for bit, exact dense launch counts, 2
-timed steps beside phase 5's and the peak held to the planner; (ii)
-where 2 or more cards are visible, a 2 x 1 (2 x 2 with 4 cards) mesh with
-FSDP and ZeRO-1 at MESH_CUT layers, one process a card: the first-step
-loss and leaf gradient norms against a 1 x 1 run of the same depth within
-MESH_TOLS, each card's step time, its peak against the planner's per-card
-prediction and the bytes its collectives move a step. With one card the
-phase prints that leg (ii) was skipped and why.
+Phase 5c, training across cards (the dense, MoE, VLM and hybrid families
+on a ``(data, model)`` mesh over NCCL, ``repro_torch.launch.mesh``): (i)
+full-width granite-3-2b at full depth through the mesh path at a 1 x 1
+mesh, on phase 5's batch and weights, and qwen3-moe (1 layer),
+qwen2-vl-2b (with its image batch) and zamba2-1.2b on phase 5b's weights,
+batch and depth: the loss and every leaf's gradient norm equal to the
+single-card path's bit for bit, exact kernel launch counts, the peak
+held to the planner (granite: 2 timed steps beside phase 5's); (ii) where
+2 or more cards are visible, one process a card, each mesh against a run
+of the same function within MESH_TOLS: granite at MESH_CUT layers and
+qwen2-vl-2b, 2 x 1 (2 x 2 with 4 cards) with FSDP and ZeRO-1 against one
+card; zamba2-1.2b 2 x 1 against one card and 2 x 2 against 1 x 2 (its
+out_norm runs over a rank's heads); qwen3-moe at one layer 2 x 1 (EP 2),
+and 2 x 2 (EP 2 x expert-TP 2) against it (capacity and aux loss are
+per data rank); with 4 cards qwen3-moe and dbrx-132b on 4 x 1 (EP 4) at
+the planner's largest depth for it. Each card's step time, its peak
+against the planner's per-card prediction and the bytes each collective
+(the all-to-all among them) sends a step. With one card the phase prints
+that leg (ii) was skipped and why.
 
 Training the hybrid, VLM and MoE families (since the scan's backward
 kernel): phase 2c also holds the scan's backward kernel
@@ -854,8 +861,9 @@ def mamba_cases():
     segments, one killed in flight: length 0), a packed decode step (8
     one-token segments, one killed), a padded step (4 rows of T 256,
     ragged, gaps between rows), a long row (one 2048-token prefill beside 7
-    decodes: 32 chunks chained) and the packed mixed step at the reduced
-    configs' widths (H 8, P 16, N 16; phase 4b serves them)."""
+    decodes: 32 chunks chained), the packed mixed step at the reduced
+    configs' widths (H 8, P 16, N 16; phase 4b serves them) and a rank's
+    32 heads of zamba2's training micro-batch at tp 2 (2 rows of 2048)."""
     def packed(lens):
         return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
 
@@ -869,6 +877,9 @@ def mamba_cases():
         ("long row 2048 + 7 decodes", *packed([2048] + [1] * 7), 2055, 64,
          64, 64),
         ("reduced P=N=16 packed mixed", *packed(mixed), 512, 8, 16, 16),
+        # a rank's heads of zamba2's training micro-batch on a tp 2 mesh
+        ("zamba2 train per rank at tp 2: 2 x 2048, H 32", [0, 2048],
+         [2048, 2048], 4096, 32, 64, 64),
     ]
 
 
@@ -1024,7 +1035,8 @@ def mamba_bwd_cases():
     gaps) at zamba2's widths, the reduced configs' widths (H 8,
     P = N = 16) on ragged rows and on 40 rows, H 6 at P = N = 32, whose
     last head group (``kernel.HEAD_GROUP`` 4) holds 2 heads, and 48 rows
-    of at most one chunk each at zamba2's widths."""
+    of at most one chunk each at zamba2's widths, and a rank's 32 heads of
+    the training micro-batch on a tp 2 mesh (2 rows of 2048)."""
     def packed(lens):
         return np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
 
@@ -1046,6 +1058,9 @@ def mamba_bwd_cases():
         # so launch B's units form one level too
         ("48 rows of at most 64 tokens",
          *packed([23 * i % 65 for i in range(48)]), 1600, 64, 64, 64),
+        # a rank's heads of the training micro-batch on a tp 2 mesh
+        ("zamba2 train per rank at tp 2: 2 x 2048, H 32", [0, 2048],
+         [2048, 2048], 4096, 32, 64, 64),
     ]
 
 
@@ -3120,12 +3135,36 @@ def phase_train():
 
 
 # ---------------------------------------------------------------- phase 5c
-MESH_CUT = 16       # leg (ii)'s depth: its 1 x 1 run fits one card
-# (relative loss, relative gradient-norm) bars of leg (ii) against its
-# 1 x 1 run, by whether the mesh splits the model: the CPU test's bars
-# (tests/test_torch_mesh_train.py: loss 1e-4 / 2e-4 absolute at a loss of
-# ~5.5) taken relative to the loss
+MESH_CUT = 16       # leg (ii)'s granite depth: its 1 x 1 run fits one card
+# (relative loss, relative gradient-norm) bars of leg (ii) against a run
+# of the same function, by whether the meshes split the model: the CPU
+# test's bars (tests/test_torch_mesh_train.py: loss 1e-4 / 2e-4 absolute
+# at a loss of ~5.5) taken relative to the loss
 MESH_TOLS = {False: (2e-5, 8.3e-3), True: (4e-5, 1e-2)}
+# leg (ii)'s MoE layers: qwen3-moe cut to phase 5b's one layer for the
+# pairs, and each 4 x 1 (EP 4) leg at the planner's largest depth for it
+MOE_ARCH, DBRX = "qwen3-moe-235b-a22b", "dbrx-132b"
+
+
+@contextlib.contextmanager
+def _one_card_mesh(device):
+    """A 1 x 1 ``(data, model)`` mesh of this process (NCCL on the card,
+    gloo on the CPU): its ``Dist``, whose collectives all have one rank."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as td
+    from repro_torch.launch.mesh import make_dist
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_mesh_", dir=ROOT / "build")
+    td.init_process_group("nccl" if device == "cuda" else "gloo",
+                          init_method=f"file://{tmp}/store", rank=0,
+                          world_size=1)
+    try:
+        yield make_dist((1, 1))
+    finally:
+        td.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _leaf_norms(grads, shards, dist):
@@ -3139,7 +3178,7 @@ def _leaf_norms(grads, shards, dist):
                 walk(g[k], sh[k], f"{prefix}{k}.")
                 continue
             sq = g[k].float().square().sum()
-            if sh[k].tp_axis is not None:
+            if sh[k].split_model:
                 sq = dist.all_reduce(sq, "model")
             if sh[k].data_dim is not None:
                 sq = dist.all_reduce(sq, "data")
@@ -3148,45 +3187,95 @@ def _leaf_norms(grads, shards, dist):
     return out
 
 
-def _mesh_rank(dist, dev, cfg, micro, seq, batch):
-    """Leg (ii) on one card: ``cfg`` (granite-3-2b cut in depth) on its
-    rank of the mesh, weights from seed 0 (the one-card draw's slices):
-    the first step's loss and leaf gradient norms, then 3 Trainer steps
+def _family_extra(cfg):
+    """``Trainer.extra_batch`` of a family's phase-5b batch: the VLM's
+    image span, enc-dec's frames; None for the others."""
+    return {"vlm": lambda: _image_batch(cfg, 5),
+            "encdec": lambda: _frame_batch(cfg, 5)}.get(
+        cfg.family, lambda: None)()
+
+
+def _step_batch(cfg, data, extra, device):
+    """(tokens, targets, extras) of ``data``'s step 0 on ``device``."""
+    import torch
+    tok, tgt = data.batch_at(0)
+    extras = {k: torch.as_tensor(np.asarray(v)).to(device)
+              for k, v in (extra(tok) if extra else {}).items()}
+    return (torch.from_numpy(tok).to(device),
+            torch.from_numpy(tgt).to(device), extras)
+
+
+def _routing(calls, replay=None):
+    """A ``blocks_attn.moe_route`` that appends each call's top-k experts
+    to ``calls`` and, given ``replay`` (another run's ``calls``), routes
+    every call by that run's experts instead: the gates this run's
+    probabilities at them, their queue places as ``moe_route`` counts
+    them."""
+    import torch
+    from repro_torch.models import blocks_attn as BA
+    route = BA.moe_route
+
+    def fn(tok, router, *, num_experts, top_k, capacity_factor):
+        gates, idx, slot, cap = route(tok, router, num_experts=num_experts,
+                                      top_k=top_k,
+                                      capacity_factor=capacity_factor)
+        calls.append(idx.cpu().numpy())
+        if replay is None:
+            return gates, idx, slot, cap
+        idx = torch.as_tensor(replay[len(calls) - 1], device=tok.device)
+        gates = BA.moe_probs(tok, router).gather(1, idx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return gates, idx, BA.moe_slots(idx, num_experts, cap), cap
+    return fn
+
+
+def _mesh_rank(dist, dev, cfg, micro, seq, batch, steps, replay=None):
+    """Leg (ii) on one card: ``cfg`` on its rank of the mesh, weights from
+    seed 0 (the one-card draw's slices), its family's phase-5b batch: the
+    first step's loss and leaf gradient norms (a MoE's top-k experts of
+    every ``moe_route`` call recorded; with ``replay``, a list by data
+    rank of another run's, routed by those), then ``steps`` Trainer steps
     (ZeRO-1), with the card's peak, the planner's prediction for it and
-    the bytes its collectives moved a step."""
+    the bytes each kind of collective sent a step."""
     import tempfile
 
     import torch
     from repro_torch.launch import dryrun
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import blocks_attn, build_model
     from repro_torch.models.tp import Dist
-    from repro_torch.training import (AdamWConfig, SyntheticLM, Trainer,
-                                      TrainerConfig)
+    from repro_torch.training import SyntheticLM
     cuda = dev.type == "cuda"
-    model = DecoderLM(cfg, dist)
+    model = build_model(cfg, dist)
+    extra = _family_extra(cfg)
+    calls = []
     with tempfile.TemporaryDirectory() as ckpt:      # never written
-        tr = Trainer(model, AdamWConfig(), TrainerConfig(
-            micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt))
+        tr = _mesh_trainer(model, micro, ckpt, extra)
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         params, state = tr.init_state(0, device=dev)
         data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
                            mode="markov")
-        tok, tgt = (torch.from_numpy(a).to(dev) for a in data.batch_at(0))
-        loss, grads = tr.loss_and_grads(params, tok, tgt)
+        route = blocks_attn.moe_route
+        blocks_attn.moe_route = _routing(
+            calls, None if replay is None else replay[dist.data_rank])
+        try:
+            loss, grads = tr.loss_and_grads(params, *_step_batch(
+                cfg, data, extra, dev))
+        finally:
+            blocks_attn.moe_route = route
         norms = _leaf_norms(grads, model.shards(), dist)
         tr._release(params)
         del grads
         before = dict(dist.comm_bytes)
         times = []
-        _, _, hist = tr.run(params, state, data, num_steps=3, log_every=1,
-                            on_metrics=lambda s, m: times.append(
+        _, _, hist = tr.run(params, state, data, num_steps=steps,
+                            log_every=1, on_metrics=lambda s, m: times.append(
                                 m["sec_per_step"]))
-    comm = {k: (dist.comm_bytes[k] - before[k]) / 3 for k in before}
-    terms = dryrun.train_terms(DecoderLM(cfg, Dist(
+    comm = {k: (dist.comm_bytes[k] - before[k]) / steps for k in before}
+    terms = dryrun.train_terms(build_model(cfg, Dist(
         dp=dist.dp, tp=dist.tp, fsdp=dist.fsdp)), batch // dist.dp, seq,
         micro)
-    return dict(loss=float(loss), norms=norms, hist=hist,
+    return dict(loss=float(loss), norms=norms, hist=hist, routing=calls,
                 step_ms=[1e3 * t for t in times],
                 peak=torch.cuda.max_memory_allocated(dev) if cuda else None,
                 terms=terms, comm=comm,
@@ -3194,48 +3283,41 @@ def _mesh_rank(dist, dev, cfg, micro, seq, batch):
 
 
 def _mesh_batch(cfg, device):
-    """Phase 5's batch (the CPU dry run: 32-token rows): (micro, seq,
-    batch, data, tokens, targets) of step 0."""
+    """Phase 5's batch (the CPU dry run: rows of 288 tokens, which hold
+    the VLM's image span): (micro, seq, batch, data, tokens, targets) of
+    step 0."""
     import torch
     from repro_torch.training import SyntheticLM
-    micro, seq, batch = 2, 2048 if device == "cuda" else 32, 4
+    micro, seq, batch = 2, 2048 if device == "cuda" else 288, 4
     data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
                        mode="markov")
     tok, tgt = (torch.from_numpy(a).to(device) for a in data.batch_at(0))
     return micro, seq, batch, data, tok, tgt
 
 
-def _mesh_trainer(model, micro, ckpt):
+def _mesh_trainer(model, micro, ckpt, extra=None):
     from repro_torch.training import AdamWConfig, Trainer, TrainerConfig
     return Trainer(model, AdamWConfig(), TrainerConfig(
-        micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt))
+        micro_batches=micro, ckpt_every=1 << 30, ckpt_dir=ckpt),
+        extra_batch=extra)
 
 
-def _mesh_leg_one(phase5_step_ms, device, cfg):
-    """Leg (i): ``cfg`` at full depth on a 1 x 1 mesh of this process
-    (NCCL on the card) against the single-card path on the same weights
-    and batch. Returns the dense (fwd, bwd) launches of its 2 steps."""
+def _mesh_leg_one(phase5_step_ms, device, cfg, dist):
+    """Leg (i): ``cfg`` at full depth on the 1 x 1 mesh ``dist`` of this
+    process against the single-card path on the same weights and batch.
+    Returns the dense (fwd, bwd) launches of its 2 steps."""
     import gc
-    import shutil
     import tempfile
 
     import torch
-    import torch.distributed as td
     from repro_torch.kernels.flash_attention import (dense_flash_bwd,
                                                      dense_flash_fwd)
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_dist
     from repro_torch.models import DecoderLM
 
     cuda = device == "cuda"
     micro, seq, batch, data, tok, tgt = _mesh_batch(cfg, device)
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="smoke_mesh_", dir=ROOT / "build")
-    backend = "nccl" if cuda else "gloo"
-    td.init_process_group(backend, init_method=f"file://{tmp}/store",
-                          rank=0, world_size=1)
-    try:
-        dist = make_dist((1, 1))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         mesh = _mesh_trainer(DecoderLM(cfg, dist), micro, tmp)
@@ -3267,11 +3349,12 @@ def _mesh_leg_one(phase5_step_ms, device, cfg):
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         step_ms = 1e3 * float(np.mean(times))
         loss0, norms = found["mesh"][:2]
-        log(f"[mesh train] (i) 1 x 1 {backend} mesh, {cfg.name} "
-            f"({cfg.num_layers} layers), phase 5's batch and weights: loss "
-            f"{loss0!r} and all {len(norms)} leaf gradient norms equal the "
-            f"single-card path's bit for bit (embed {norms['embed']!r}); "
-            f"steps 1-2 losses {[round(x, 4) for x in hist]} "
+        log(f"[mesh train] (i) 1 x 1 {'nccl' if cuda else 'gloo'} mesh, "
+            f"{cfg.name} ({cfg.num_layers} layers), phase 5's batch and "
+            f"weights: loss {loss0!r} and all {len(norms)} leaf gradient "
+            f"norms equal the single-card path's bit for bit (embed "
+            f"{norms['embed']!r}); steps 1-2 losses "
+            f"{[round(x, 4) for x in hist]} "
             f"step_ms={[round(1e3 * t, 1) for t in times]} "
             f"mean_step_ms={step_ms:.1f} (phase 5: {phase5_step_ms:.1f}) "
             f"peak_mem_gb={peak / 1e9:.2f} dense_fwd_launches={launches[0]}"
@@ -3281,105 +3364,261 @@ def _mesh_leg_one(phase5_step_ms, device, cfg):
                  f"{batch // micro} x {seq}", dryrun.train_terms(
                      mesh.model, batch, seq, micro), peak)
         del params, state, mesh
-    finally:
-        td.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return launches
 
 
-def _mesh_leg_across(device, cfg, cards):
-    """Leg (ii): a 2 x 1 (2 x 2 with 4 cards) mesh with FSDP and ZeRO-1,
-    one process a card, against the single-card path at the same depth;
-    skipped, and said so, with fewer than 2 cards."""
-    import dataclasses
+def _mesh_leg_family(tr, params, data, micro, batch, seq, counters, dist,
+                     device):
+    """Leg (i) for a phase-5b family (qwen3-moe, qwen2-vl-2b, zamba2-1.2b),
+    on that leg's weights (``params``, before its first update), batch and
+    depth: the same model built for the 1 x 1 mesh ``dist`` against the
+    single-card path of ``tr``: the loss and every leaf's gradient norm
+    bit for bit, the counted kernels launched ``_family_counts`` x micro
+    times, and the peak of the mesh's step held to the planner. Returns
+    the mesh step's launches."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    cfg = tr.model.cfg
+    cuda = device == "cuda"
+    batch_args = _step_batch(cfg, data, tr.extra_batch, device)
+    mesh = _mesh_trainer(build_model(cfg, dist), micro, tr.tcfg.ckpt_dir,
+                         tr.extra_batch)
+    found = {}
+    for tag, t in (("single", tr), ("mesh", mesh)):
+        for fn in counters.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        loss, grads = t.loss_and_grads(params, *batch_args)
+        found[tag] = (loss.item(), _leaf_norms(grads, mesh.model.shards(),
+                                               dist),
+                      {k: fn.launches for k, fn in counters.items()})
+        t._release(params)
+        del grads
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    want = {k: v * micro for k, v in _family_counts(cfg).items()}
+    if found["single"] != found["mesh"] or found["mesh"][2] != want:
+        raise AssertionError(f"{cfg.name} 1 x 1 mesh {found['mesh'][0]} "
+                             f"{found['mesh'][2]} differs from the "
+                             f"single-card path {found['single'][0]} "
+                             f"(launches expected {want})")
+    loss, norms, got = found["mesh"]
+    log(f"[mesh train] (i) 1 x 1 {'nccl' if cuda else 'gloo'} mesh, "
+        f"{cfg.name} ({cfg.num_layers} layers), phase 5b's weights and "
+        f"batch ({micro} x {batch // micro} x {seq}): loss {loss!r} and all "
+        f"{len(norms)} leaf gradient norms equal the single-card path's "
+        f"bit for bit; launches {got} (= {_family_counts(cfg)} x {micro}); "
+        f"peak_mem_gb={peak / 1e9:.2f}")
+    if cuda:
+        _fit(f"train {cfg.name} at {cfg.num_layers} layers on a 1 x 1 mesh, "
+             f"{micro} x {batch // micro} x {seq}", dryrun.train_terms(
+                 mesh.model, batch, seq, micro), peak)
+    return got
+
+
+def _one_card_ref(cfg, micro, seq, batch, device):
+    """The first step's loss and leaf gradient norms of ``cfg`` on this
+    process's card (no mesh), weights from seed 0 and its family's
+    phase-5b batch; the memory is released after."""
     import gc
     import tempfile
 
     import torch
-    from repro_torch.launch.mesh import run_mesh
-    from repro_torch.models import DecoderLM
-    from repro_torch.models.tp import Dist
-
-    cuda = device == "cuda"
-    if cards < 2:
-        log(f"[mesh train] (ii) skipped: {cards} card visible "
-            f"(torch.cuda.device_count()); the 2 x 1 FSDP + ZeRO-1 leg "
-            f"needs 2 cards and the 2 x 2 leg 4")
-        return
-    shape = (2, 2) if cards >= 4 else (2, 1)
-    cut = dataclasses.replace(cfg, num_layers=min(MESH_CUT, cfg.num_layers))
-    micro, seq, batch, _, tok, tgt = _mesh_batch(cut, device)
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticLM
+    extra = _family_extra(cfg)
     with tempfile.TemporaryDirectory() as ckpt:       # never written
-        ref = _mesh_trainer(DecoderLM(cut), micro, ckpt)
+        ref = _mesh_trainer(build_model(cfg), micro, ckpt, extra)
         params = ref.model.init(0, device=device, master=True)
-        loss, grads = ref.loss_and_grads(params, tok, tgt)
-        ref_loss = loss.item()
-        ref_norms = _leaf_norms(grads, DecoderLM(cut, Dist()).shards(),
-                                Dist())
+        data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           mode="markov")
+        loss, grads = ref.loss_and_grads(params, *_step_batch(
+            cfg, data, extra, device))
+        out = dict(loss=loss.item(), norms=_leaf_norms(
+            grads, ref.model.shards(), ref.dist))
     del params, grads, ref, loss
     gc.collect()
-    if cuda:
+    if device == "cuda":
         torch.cuda.empty_cache()
-    backend = "nccl" if cuda else "gloo"
+    return out
+
+
+def _mesh_run(label, cfg, shape, fsdp, micro, seq, batch, device, steps=3,
+              ref=None, ref_label="", replay=None):
+    """One leg (ii) mesh: ``cfg`` on a ``shape`` mesh, one process a card:
+    each rank's step ms, peak against the planner's per-card prediction
+    and bytes sent a step by each collective; all ranks' losses equal;
+    with ``ref`` (a run of the same function: {"loss", "norms"}), the
+    first step's loss and leaf norms within MESH_TOLS of it, and with
+    ``replay`` (that run's routing by data rank) routed as it was, the
+    tokens this mesh would route otherwise counted. Returns every rank's
+    result."""
+    from repro_torch.launch.mesh import run_mesh
+    cuda = device == "cuda"
     t0 = time.perf_counter()
-    ranks = run_mesh(_mesh_rank, shape, args=(cut, micro, seq, batch),
-                     fsdp=True, backend=backend, device=device, timeout=300,
-                     deadline=900)
+    ranks = run_mesh(_mesh_rank, shape, args=(cfg, micro, seq, batch, steps,
+                                              replay),
+                     fsdp=fsdp, backend="nccl" if cuda else "gloo",
+                     device=device, timeout=300, deadline=900)
     wall = time.perf_counter() - t0
-    loss_tol, grad_tol = MESH_TOLS[shape[1] > 1]
     r0 = ranks[0]
-    worst = max(abs(r0["norms"][k] / v - 1) for k, v in ref_norms.items())
-    log(f"[mesh train] (ii) {shape[0]} x {shape[1]} {backend} mesh, FSDP "
-        f"+ ZeRO-1, {cfg.name} at {cut.num_layers} layers, one "
-        f"process a card ({wall:.1f} s with start-up): first-step loss "
-        f"{r0['loss']!r} against the 1 x 1 run's {ref_loss!r} (relative "
-        f"diff {r0['loss'] / ref_loss - 1:+.2e}, bar {loss_tol}); leaf "
-        f"gradient "
-        f"norms within {worst:.2e} relative (bar {grad_tol}); steps 0-2 "
-        f"losses {[round(x, 4) for x in r0['hist']]}")
+    tag = (f"{shape[0]} x {shape[1]}{' FSDP' if fsdp else ''}, {cfg.name} at "
+           f"{cfg.num_layers} layers, {micro} x {batch // micro} x {seq}")
+    line = (f"[mesh train] (ii) {label}: {tag}, one process a card "
+            f"({wall:.1f} s with start-up): first-step loss {r0['loss']!r}, "
+            f"steps 0-{steps - 1} losses {[round(x, 4) for x in r0['hist']]}")
+    bad = not np.isfinite(r0["hist"]).all() or \
+        any(r["hist"] != r0["hist"] for r in ranks)
+    if ref is not None:
+        loss_tol, grad_tol = MESH_TOLS[shape[1] > 1]
+        worst = max(abs(r0["norms"][k] / v - 1) for k, v in
+                    ref["norms"].items())
+        rel = r0["loss"] / ref["loss"] - 1
+        line += (f"; against {ref_label} {ref['loss']!r}: relative diff "
+                 f"{rel:+.2e} (bar {loss_tol}), leaf gradient norms within "
+                 f"{worst:.2e} relative (bar {grad_tol})")
+        bad = bad or abs(rel) > loss_tol or worst > grad_tol
+    if replay is not None:
+        mine = r0["routing"]
+        other = sum(int((np.sort(a, -1) != np.sort(b, -1)).any(-1).sum())
+                    for a, b in zip(mine, replay[0]))
+        line += (f"; routed as {ref_label} routed, where this mesh's own "
+                 f"top-k differs for {other} of "
+                 f"{sum(len(a) for a in mine)} token routings (the "
+                 f"forward's and the recomputation's)")
+    log(line)
     for rank, r in enumerate(ranks):
         mb = {k: v / 1e6 for k, v in r["comm"].items()}
-        log(f"[mesh train] (ii) rank {rank} [{r['card']}]: step_ms="
-            f"{[round(t, 1) for t in r['step_ms']]} bytes sent a step: "
-            f"all-gather {mb['all_gather']:.1f} MB, reduce-scatter "
+        log(f"[mesh train] (ii) {label} rank {rank} [{r['card']}]: step_ms="
+            f"{[round(t, 1) for t in r['step_ms']]} peak_mem_gb="
+            f"{(r['peak'] or 0) / 1e9:.2f} bytes sent a step: all-gather "
+            f"{mb['all_gather']:.1f} MB, reduce-scatter "
             f"{mb['reduce_scatter']:.1f} MB, all-reduce "
-            f"{mb['all_reduce']:.1f} MB")
+            f"{mb['all_reduce']:.1f} MB, all-to-all {mb['all_to_all']:.1f} MB")
         if cuda:
-            _fit(f"train {cfg.name} at {cut.num_layers} layers, rank "
-                 f"{rank} of a {shape[0]} x {shape[1]} FSDP mesh",
-                 r["terms"], r["peak"])
-    if abs(r0["loss"] / ref_loss - 1) > loss_tol or worst > grad_tol or \
-            any(r["hist"] != r0["hist"] for r in ranks):
-        raise AssertionError(f"mesh leg (ii): loss {r0['loss']} vs "
-                             f"{ref_loss}, norms {worst}")
+            _fit(f"train {tag}, rank {rank}", r["terms"], r["peak"])
+    if bad:
+        raise AssertionError(f"mesh leg (ii) {label}: {line}")
+    return ranks
 
 
-def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None):
-    """Phase 5c, training across cards: granite-3-2b at full width through
-    the mesh path (``DecoderLM(cfg, dist)``, ``repro_torch.launch.mesh``)
-    on NCCL. (i) A 1 x 1 mesh at full depth on phase 5's batch and
+def _planner_depth(cfg, shape, micro, seq, batch):
+    """The planner's largest fitting depth of ``cfg`` for a rank of a
+    ``shape`` mesh taking ``batch // dp`` rows of ``seq`` tokens in
+    ``micro`` micro-batches."""
+    from repro_torch.launch import dryrun
+    return dryrun.largest_depth(cfg, lambda c: dryrun.peak(
+        dryrun.train_terms(dryrun.mesh_model(c, shape), batch // shape[0],
+                           seq, micro)) <= dryrun.fit_bytes(shape))
+
+
+def _mesh_leg_across(device, cfg, cards, moe_cfgs=None):
+    """Leg (ii), one process a card: ``_mesh_legs_dense`` and
+    ``_mesh_legs_moe``. Skipped, and said so, with fewer than 2 cards.
+    ``moe_cfgs``: the CPU dry run's reduced configs for (vlm, hybrid,
+    moe, dbrx)."""
+    from repro_torch.configs import ARCHS
+    if cards < 2:
+        log(f"[mesh train] (ii) skipped: {cards} card visible "
+            f"(torch.cuda.device_count()); its meshes (granite, qwen2-vl-2b, "
+            f"zamba2-1.2b, qwen3-moe, dbrx-132b) need 2 cards, and 4 for "
+            f"the 2 x 2 and 4 x 1 ones")
+        return
+    vlm, hybrid, moe, dbrx = moe_cfgs or (
+        ARCHS["qwen2-vl-2b"], ARCHS["zamba2-1.2b"], ARCHS[MOE_ARCH],
+        ARCHS[DBRX])
+    _mesh_legs_dense(device, cfg, vlm, hybrid, cards >= 4)
+    _mesh_legs_moe(device, moe, dbrx, cards >= 4, moe_cfgs is not None)
+
+
+def _mesh_legs_dense(device, cfg, vlm, hybrid, four):
+    """Each mesh against a run of the same function: granite (``cfg``) at
+    MESH_CUT layers and the VLM, 2 x 1 (2 x 2 with ``four`` cards) FSDP
+    against one card; the hybrid 2 x 1 against one card and, with four
+    cards, 2 x 2 against 1 x 2 (its out_norm runs over a rank's heads, so
+    tp moves the function)."""
+    import dataclasses
+    micro, seq, batch, *_ = _mesh_batch(cfg, device)
+    for c in (dataclasses.replace(cfg, num_layers=min(MESH_CUT,
+                                                      cfg.num_layers)), vlm):
+        _mesh_run(c.name, c, (2, 2) if four else (2, 1), True, micro, seq,
+                  batch, device, ref=_one_card_ref(c, micro, seq, batch,
+                                                   device),
+                  ref_label="one card")
+    _mesh_run(hybrid.name, hybrid, (2, 1), False, micro, seq, batch, device,
+              ref=_one_card_ref(hybrid, micro, seq, batch, device),
+              ref_label="one card")
+    if four:
+        ref = _mesh_run(hybrid.name, hybrid, (1, 2), False, micro, seq,
+                        batch, device)[0]
+        _mesh_run(hybrid.name, hybrid, (2, 2), False, micro, seq, batch,
+                  device, ref=ref, ref_label="1 x 2")
+
+
+def _mesh_legs_moe(device, moe, dbrx, four, reduced=False):
+    """The MoE meshes: with ``four`` cards dbrx-132b and qwen3-moe on 4 x 1
+    (EP 4) at the planner's largest depth for it (``reduced``: the CPU dry
+    run's whole reduced configs), 8 rows in 2 micro-batches; qwen3-moe at
+    one layer 2 x 1 (EP 2) and, with four cards, 2 x 2 (EP 2 x
+    expert-TP 2) against it. The capacity and aux loss are per data rank,
+    so only meshes of one data size compute one function, and a router
+    near-tie routes a token otherwise when tp moves the rounding: the
+    2 x 2 run routes as the 2 x 1 run did and counts the tokens it would
+    have routed otherwise."""
+    import dataclasses
+    micro, seq, batch, *_ = _mesh_batch(moe, device)
+    if four:
+        for c in (dbrx, moe):
+            depth = c.num_layers if reduced else _planner_depth(
+                c, (4, 1), micro, seq, 2 * batch)
+            if depth == 0:
+                raise AssertionError(f"{c.name}: no depth fits a 4 x 1 mesh")
+            log(f"[mesh train] (ii) {c.name} on 4 x 1 (EP 4): the planner's "
+                f"largest fitting depth for 8 x {seq} tokens in {micro} "
+                f"micro-batches is {depth} of {c.num_layers} layers")
+            _mesh_run(c.name, dataclasses.replace(c, num_layers=depth),
+                      (4, 1), False, micro, seq, 2 * batch, device, steps=2)
+    one = moe if reduced else dataclasses.replace(moe, num_layers=1)
+    ref = _mesh_run(one.name, one, (2, 1), False, micro, seq, batch,
+                    device)
+    if four:
+        _mesh_run(one.name, one, (2, 2), False, micro, seq, batch, device,
+                  ref=ref[0], ref_label="2 x 1",
+                  replay=[r["routing"] for r in ref])
+
+
+def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None,
+                     moe_cfgs=None):
+    """Phase 5c, training across cards: full width through the mesh path
+    (``build_model(cfg, dist)``, ``repro_torch.launch.mesh``) on NCCL. (i)
+    granite-3-2b on a 1 x 1 mesh at full depth on phase 5's batch and
     weights: the loss and every leaf's gradient norm equal phase 5's
     single-card path bit for bit, the dense kernels launched 2 x 40 x
     micro (forward) and 40 x micro (backward) times a step, 2 timed steps
-    beside phase 5's, the peak held to the planner. (ii) With 2 or more
-    cards: a 2 x 1 (2 x 2 with 4 cards) mesh with FSDP and ZeRO-1 at
-    MESH_CUT layers, one process a card: its first-step loss and leaf
-    gradient norms against a 1 x 1 run of the same depth within
-    MESH_TOLS, each card's step time, peak against the planner's per-card
-    prediction, and bytes gathered and reduced a step. With one card leg
-    (ii) is skipped and says so. Returns the dense launches of leg (i).
+    beside phase 5's, the peak held to the planner; phase 5b runs the
+    same leg for qwen3-moe, qwen2-vl-2b and zamba2-1.2b on its own
+    weights and batch (``_mesh_leg_family``). (ii) With 2 or more cards,
+    ``_mesh_leg_across``: each mesh's first-step loss and leaf gradient
+    norms against a run of the same function within MESH_TOLS, each
+    card's step time, peak against the planner's per-card prediction and
+    bytes sent a step by each collective (the all-to-all of expert
+    parallelism among them). With one card leg (ii) is skipped and says
+    so. Returns the dense launches of leg (i).
 
     A CPU dry run (plain kernels, gloo, no memory checks) takes a reduced
-    ``cfg`` and a pretended count of ``cards``."""
+    ``cfg``, a pretended count of ``cards`` and reduced ``moe_cfgs``."""
     import torch
     from repro_torch.configs import ARCHS
     cfg = cfg or ARCHS["granite-3-2b"]
-    launches = _mesh_leg_one(phase5_step_ms, device, cfg)
+    with _one_card_mesh(device) as dist:
+        launches = _mesh_leg_one(phase5_step_ms, device, cfg, dist)
     _mesh_leg_across(device, cfg, torch.cuda.device_count()
-                     if cards is None else cards)
+                     if cards is None else cards, moe_cfgs)
     return launches
 
 
@@ -3484,7 +3723,10 @@ def phase_train_families(device="cuda"):
     tokens/s (whisper: decoder tokens, and frames/s) and the peak memory
     since before the leg's init, within FIT_TOL of the fit planner's
     prediction for the same depth, batch and micro-batches; a leg cut in
-    depth within the planner's largest fitting depth.
+    depth within the planner's largest fitting depth. Then phase 5c's leg
+    (i) for the MoE, VLM and hybrid legs (``_mesh_leg_family``): the same
+    model built for a 1 x 1 NCCL mesh against the single-card path on the
+    leg's weights and batch, bit for bit.
     (b) Reduced configs with the same fp32 weights on the card and on the
     CPU: 3 steps' losses within TRAIN_LOSS_TOL each; the reduced hybrid,
     RWKV6 and enc-dec models resumed exactly from a checkpoint (rtol
@@ -3515,14 +3757,12 @@ def phase_train_families(device="cuda"):
                     paged=paged_decode_attention)
     totals = dict.fromkeys(counters, 0)
 
-    def extra_batch(cfg):
-        return {"vlm": lambda: _image_batch(cfg, 5),
-                "encdec": lambda: _frame_batch(cfg, 5)}.get(
-            cfg.family, lambda: None)()
-
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="smoke_fam_", dir=ROOT / "build")
+    stack = contextlib.ExitStack()
     try:
+        # the 1 x 1 mesh of phase 5c (i)'s MoE, VLM and hybrid legs
+        mesh_dist = stack.enter_context(_one_card_mesh(device))
         # ---- (a) full width
         steps = 2
         for arch, cut, micro, batch, seq in FAMILY_TRAIN:
@@ -3536,7 +3776,7 @@ def phase_train_families(device="cuda"):
                          TrainerConfig(micro_batches=micro,
                                        ckpt_every=1 << 30,
                                        ckpt_dir=f"{ckpt_root}/{arch}"),
-                         extra_batch=extra_batch(cfg))
+                         extra_batch=_family_extra(cfg))
             t0 = time.perf_counter()
             params, state = tr.init_state(0, device=device)
             if device == "cuda":
@@ -3608,6 +3848,11 @@ def phase_train_families(device="cuda"):
                 f"{time.perf_counter() - t_arch:.1f} s [{card()}]")
             if device == "cuda":
                 _train_fit(tr.model, arch, batch, seq, micro, peak)
+            if cfg.family in ("moe", "vlm", "hybrid"):       # phase 5c (i)
+                for k, n in _mesh_leg_family(tr, params, data, micro, batch,
+                                             seq, counters, mesh_dist,
+                                             device).items():
+                    totals[k] += n
             del params, state, tr
         gc.collect()
         if device == "cuda":
@@ -3620,7 +3865,7 @@ def phase_train_families(device="cuda"):
             rdata = SyntheticLM(rcfg.vocab_size, seq_len=64, global_batch=4,
                                 mode="markov")
             extra = _image_batch(rcfg, 5, grid=4) \
-                if rcfg.family == "vlm" else extra_batch(rcfg)
+                if rcfg.family == "vlm" else _family_extra(rcfg)
 
             def trainer(name, every=1 << 30):
                 return Trainer(build_model(rcfg), adamw,
@@ -3656,6 +3901,7 @@ def phase_train_families(device="cuda"):
                          f"(rtol 1e-5)")
             log(line)
     finally:
+        stack.close()
         shutil.rmtree(ckpt_root, ignore_errors=True)
     log(f"[phase 5b] {time.perf_counter() - t_phase:.1f} s")
     return totals

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Where a training step on a mesh of cards spends its time.
 
-    python3 scripts/trace_mesh_train.py [--mesh 2x2] [--no-fsdp] [--layers N]
+    python3 scripts/trace_mesh_train.py [--arch A] [--mesh 2x2] [--no-fsdp]
+        [--layers N]
 
-Runs ``chip_smoke.py`` phase 5c's leg (ii) configuration (granite-3-2b at
-full width, cut to ``--layers``, weights from seed 0, ZeRO-1, phase 5's
-batch of 4 x 2048 tokens in 2 micro-batches) on a ``(data, model)`` mesh
-of the visible cards, one process a card over NCCL (2 x 2 and 2 x 1 split
-the batch; a 4 x 1 mesh needs a batch of 8). First each rank times
-the collectives at the sizes one step issues (CUDA events, the median of
-10 after 3 warm-ups): an all-reduce over "model" of one layer's bf16
-activations, an all-gather over "data" of one layer's FSDP shard and a
-reduce-scatter over "data" of its gradient, and a 256 MB all-reduce over
-every rank; then it traces its third Trainer step with ``torch.profiler``:
-wall ms, device kernel ms and busy share, and device ms by kernel group
-(NCCL collectives, GEMMs, the dense flash kernels, elementwise and
-copies). Each card's name and power limit are printed beside them.
+Runs a ``chip_smoke.py`` phase 5c leg (ii) configuration: ``--arch``
+(granite-3-2b, qwen3-moe-235b-a22b, qwen2-vl-2b with its image batch, or
+zamba2-1.2b) at full width, cut to ``--layers`` (default: granite 16,
+qwen3-moe 1, the others whole), weights from seed 0, ZeRO-1, FSDP unless
+``--no-fsdp`` (never for the hybrid, which has none), phase 5's batch of
+2048-token rows in 2 micro-batches (4 rows, 8 on a mesh of 4 data ranks),
+on a ``(data, model)`` mesh of the visible cards, one process a card over
+NCCL. First each rank times the collectives at the sizes one step issues
+(CUDA events, the median of 10 after 3 warm-ups): an all-reduce over
+"model" of one layer's bf16 activations, an all-gather over "data" of one
+layer's FSDP shard and a reduce-scatter over "data" of its gradient, a MoE
+layer's (E, cap, d) bf16 all-to-all over "data", and a 256 MB all-reduce
+over every rank; then it traces its third Trainer step with
+``torch.profiler``: wall ms, device kernel ms and busy share, device ms by
+kernel group (NCCL's send/recv, which carries the all-to-all, the other
+NCCL collectives, GEMMs, the dense flash and scan kernels, elementwise and
+copies) and the bytes each kind of collective sent in that step
+(``Dist.comm_bytes``). Each card's name and power limit are printed
+beside them.
 """
 from __future__ import annotations
 
@@ -27,12 +34,17 @@ import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# --arch -> its default depth (None: whole)
+LAYERS = {"granite-3-2b": 16, "qwen3-moe-235b-a22b": 1, "qwen2-vl-2b": None,
+          "zamba2-1.2b": None}
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-GROUPS = (("NCCL collectives", ("nccl",)),
+GROUPS = (("NCCL send/recv (all-to-all)", ("sendrecv",)),
+          ("NCCL collectives", ("nccl",)),
           ("dense_flash", ("dense_fwd", "dense_dkv", "dense_dq",
                            "dense_delta")),
+          ("mamba scan", ("mamba",)),
           ("GEMM (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
           ("elementwise and copies", ("elementwise", "copy")),
           ("reductions", ("reduce",)))
@@ -60,8 +72,10 @@ def _collectives(dist, dev, cfg):
     from repro_torch.models.tp import replica_info
     d, hd = cfg.d_model, cfg.head_dim
     ri = replica_info(cfg.num_heads, cfg.num_kv_heads, dist.tp)
-    layer = (2 * d * ri["q_local"] * hd + 2 * d * ri["kv_local"] * hd
-             + 3 * d * cfg.d_ff // dist.tp)
+    # one layer's FSDP-split leaves: attention, and the dense MLP
+    layer = 2 * d * ri["q_local"] * hd + 2 * d * ri["kv_local"] * hd
+    if cfg.family in ("dense", "vlm"):
+        layer += 3 * d * cfg.d_ff // dist.tp
     act = torch.randn(2048, d, device=dev).to(torch.bfloat16)
     shard = torch.randn(layer // dist.dp, device=dev).to(torch.bfloat16)
     grad = torch.randn(dist.dp, layer // dist.dp,
@@ -75,6 +89,14 @@ def _collectives(dist, dev, cfg):
               dist.dp, lambda: dist.reduce_scatter(grad, "data")),
              ("all-reduce over every rank, 256 MB", big, dist.size,
               lambda: dist.all_reduce(big, "all"))]
+    if cfg.num_experts:
+        e, k = cfg.num_experts, cfg.experts_per_token
+        cap = int(max(1, round(2048 * k / e * cfg.capacity_factor)))
+        disp = torch.randn(dist.dp, e // dist.dp, cap, d,
+                           device=dev).to(torch.bfloat16)
+        cases.append((f"all-to-all over data, one layer's ({e}, {cap}, {d}) "
+                      f"dispatch", disp, dist.dp,
+                      lambda: dist.all_to_all(disp, "data")))
     # an axis of one rank issues no collective: nothing to time
     return [(label, x.numel() * x.element_size() / 1e6, _time_ms(fn))
             for label, x, n, fn in cases if n > 1]
@@ -86,17 +108,22 @@ def _rank(dist, dev, cfg):
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from repro_torch.models import DecoderLM
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticLM
     colls = _collectives(dist, dev, cfg)
-    micro, _, _, data, _, _ = chip_smoke._mesh_batch(cfg, "cuda")
+    micro, seq = 2, 2048
+    data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=max(
+        4, micro * dist.dp), mode="markov")
     with tempfile.TemporaryDirectory() as ckpt:
-        tr = chip_smoke._mesh_trainer(DecoderLM(cfg, dist), micro, ckpt)
+        tr = chip_smoke._mesh_trainer(build_model(cfg, dist), micro, ckpt,
+                                      chip_smoke._family_extra(cfg))
         params, state = tr.init_state(0, device=dev)
         times = []
         params, state, _ = tr.run(params, state, data, num_steps=2,
                                   log_every=1, on_metrics=lambda s, m:
                                   times.append(1e3 * m["sec_per_step"]))
         torch.cuda.synchronize(dev)
+        before = dict(dist.comm_bytes)
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -104,6 +131,7 @@ def _rank(dist, dev, cfg):
                                          start_step=2)
             torch.cuda.synchronize(dev)
         wall = 1e3 * (time.perf_counter() - t0)
+    sent = {k: dist.comm_bytes[k] - v for k, v in before.items()}
     kernels = [e for e in prof.key_averages()
                if chip_smoke._dev_us(e) > 0 and
                str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -115,13 +143,14 @@ def _rank(dist, dev, cfg):
         ms, n = groups.get(name, (0.0, 0))
         groups[name] = (ms + chip_smoke._dev_us(e) / 1e3, n + e.count)
     return dict(colls=colls, wall=wall, steps=times, groups=groups,
-                loss=hist[-1],
+                sent=sent, loss=hist[-1],
                 finite=bool(np.isfinite(hist).all()),
                 card=torch.cuda.get_device_name(dev))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b", choices=sorted(LAYERS))
     ap.add_argument("--mesh", default="2x2")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--layers", type=int, default=None)
@@ -137,10 +166,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     shape = tuple(int(x) for x in args.mesh.split("x"))
-    layers = args.layers or chip_smoke.MESH_CUT
-    cfg = dataclasses.replace(ARCHS["granite-3-2b"], num_layers=layers)
+    full = ARCHS[args.arch]
+    layers = args.layers or LAYERS[args.arch] or full.num_layers
+    cfg = dataclasses.replace(full, num_layers=layers)
+    fsdp = not args.no_fsdp and cfg.family != "hybrid"
     print(f"cards: {chip_smoke.card()}")
-    ranks = run_mesh(_rank, shape, args=(cfg,), fsdp=not args.no_fsdp,
+    ranks = run_mesh(_rank, shape, args=(cfg,), fsdp=fsdp,
                      backend="nccl", device="cuda", timeout=300,
                      deadline=900)
     for rank, r in enumerate(ranks):
@@ -148,12 +179,15 @@ def main() -> int:
             print(f"[collective] rank {rank} {label}: {mb:.1f} MB in "
                   f"{ms:.3f} ms ({mb / ms:.1f} GB/s of input)")
         dev = sum(ms for ms, _ in r["groups"].values())
-        print(f"[trace] rank {rank} [{r['card']}] {shape[0]} x {shape[1]}"
-              f"{'' if args.no_fsdp else ' FSDP'} at {layers} layers: "
+        sent = ", ".join(f"{k} {v / 1e6:.1f} MB"
+                         for k, v in r["sent"].items())
+        print(f"[trace] rank {rank} [{r['card']}] {args.arch} {shape[0]} x "
+              f"{shape[1]}{' FSDP' if fsdp else ''} at {layers} layers: "
               f"untraced steps {[round(t, 1) for t in r['steps']]} ms; "
               f"traced step wall {r['wall']:.1f} ms, "
               f"device kernels {dev:.1f} ms (busy share "
-              f"{dev / r['wall']:.3f}), loss {r['loss']:.4f}")
+              f"{dev / r['wall']:.3f}), loss {r['loss']:.4f}; sent in the "
+              f"traced step: {sent}")
         for name, (ms, n) in sorted(r["groups"].items(),
                                     key=lambda x: -x[1][0]):
             print(f"[trace]   {name}: {ms:.1f} ms over {n} launches "

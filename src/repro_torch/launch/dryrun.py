@@ -29,18 +29,22 @@ and the card's share of the cell (``mesh.card_share``), term by term:
     the batch is split into micro-batches
     (``input_specs.default_micro_batches``, at most one row each).
 
-On a ``(data, model)`` mesh of cards (``--mesh DxM``, dense family,
-training cells) each data rank takes one data shard of the production
-mesh, as one card does, and the terms are one rank's: its fp32 params
-(every tensor-parallel leaf / tp; under ``--fsdp`` the stacked layer
+On a ``(data, model)`` mesh of cards (``--mesh DxM``, training cells of
+the dense, MoE, VLM and hybrid families) each data rank takes one data
+shard of the production mesh, as one card does, and the terms are one
+rank's: its fp32 params (every tensor-parallel leaf / tp; a MoE's experts
+/ dp and their ffe / tp; under ``--fsdp`` the decoder's stacked layer
 leaves / dp too), their fp32 gradients and the two fp32 moments (ZeRO-1
-slices / dp), exactly the tensors the rank holds (``mesh_train_bytes``);
-the activations take the rank's heads, ``d_ff`` columns and vocabulary
-rows, and under FSDP the recomputed cycle holds its layers' bf16 weights
-gathered whole. ``--cards N`` lists, for every training cell of the
-dense family, the meshes of N cards whose per-card peak fits.
+slices / dp; the experts, split over the data axis already, stay whole),
+exactly the tensors the rank holds (``mesh_train_bytes``); the
+activations take the rank's heads (Mamba2 heads too), ``d_ff`` or expert
+ffe columns and vocabulary rows, a MoE layer's expert-parallel exchange
+buffers, and under FSDP the recomputed cycle holds its layers' bf16
+weights gathered whole. ``--cards N`` lists, for every training cell of
+those families, the meshes of N cards whose per-card peak fits.
 
-A cell fits when its peak is at most ``CARD_BYTES - RESERVE``. Its largest
+A cell fits when its peak is at most ``CARD_BYTES - RESERVE`` (a rank of a
+mesh of cards: less ``MESH_RESERVE`` too, ``fit_bytes``). Its largest
 fitting depth is the deepest cut, in whole cycles of the model's layer
 pattern, that fits. Each record also carries the cell's analytic roofline
 terms (``roofline.analytic_terms`` on the H100's constants). ``--measure``
@@ -84,6 +88,12 @@ from .roofline import HBM_BW, PEAK_FLOPS, analytic_terms
 CARD_BYTES = int(79.18 * 2 ** 30)
 RESERVE = 2 << 30
 FIT_BYTES = CARD_BYTES - RESERVE
+# A rank of a mesh of cards holds more outside its tensors: NCCL's
+# communicator buffers and more of the allocator's fragmentation. A 4 x 1
+# qwen3-moe rank that failed to allocate 3.75 GiB at 72.60 GiB allocated
+# had 1.80 GiB held free by the allocator and 2.77 GiB more in use outside
+# it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 5c).
+MESH_RESERVE = 3 << 30
 RWKV_CHUNK = 64     # models.blocks_seq.RWKV_CHUNK
 
 
@@ -139,7 +149,7 @@ def _gathered_layer_params(model) -> int:
         return sum(math.prod(s[1:]) for _, s, st in _leaves(shapes)
                    if st) // max(1, model.cfg.num_layers)
     shards = model.shards()["layers"]
-    return sum(math.prod(s[1:]) * (dist.dp if shards[n].data_dim is not
+    return sum(math.prod(s[1:]) * (dist.dp if shards[n].fsdp_dim is not
                                    None else 1)
                for n, s in shapes["layers"].items())
 
@@ -175,8 +185,9 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
     MLP block."""
     cfg = model.cfg
     d = cfg.d_model
-    ri = getattr(model, "ri", None)      # a mesh rank's heads (DecoderLM)
-    tp = model.dist.tp if ri is not None else 1
+    ri = getattr(model, "ri", None)      # a mesh rank's heads
+    dist = getattr(model, "dist", None)
+    dp, tp = (dist.dp, dist.tp) if ri is not None else (1, 1)
     qd = (ri["q_local"] if ri else cfg.num_heads) * cfg.head_dim
     kvd = (ri["kv_local"] if ri else cfg.num_kv_heads) * cfg.head_dim
     norm = 12 * n * d
@@ -191,13 +202,13 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
         work = max(norm, mix) + dec
     elif cfg.family == "hybrid":
         # Mamba2: in_proj (z, x, B, C, dt) bf16, the conv and the scan's
-        # inputs and output fp32 (``mamba2_dims``); the shared block: its
-        # attention and SwiGLU MLP
-        di = cfg.mamba_expand * d
+        # inputs and output fp32 (``mamba2_dims``), at the rank's heads;
+        # the shared block: its attention and SwiGLU MLP
+        di = cfg.mamba_expand * d // tp
         width = 2 * di + 2 * cfg.mamba_d_state + di // cfg.mamba_headdim
         mamba = max(norm, n * (2 * width + 4 * (di + 2 * cfg.mamba_d_state)
                                + 12 * di)) + 4 * n * d
-        shared = max(norm, attn, 16 * n * cfg.d_ff) + 4 * n * d
+        shared = max(norm, attn, 16 * n * cfg.d_ff // tp) + 4 * n * d
         if not train:
             return max(mamba, shared)
         block = sum(math.prod(s) for _, s, st in
@@ -207,11 +218,19 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
             2 * block + 2 * shared
     elif cfg.num_experts:
         # MoE: router logits fp32, the capacity slots' inputs bf16, g and
-        # u fp32 products, their SiLU product, outputs fp32
+        # u fp32 products at the rank's ffe, their SiLU product, outputs
+        # fp32; on a mesh the rank's experts take (E / dp) x (dp x cap)
+        # rows, E x cap in all, and the (E, cap, d) bf16 exchange adds the
+        # received dispatch and the returned rows, and expert-TP the fp32
+        # down product and its all-reduced copy
         e, k = cfg.num_experts, cfg.experts_per_token
         cap = int(max(1, round(n * k / e * cfg.capacity_factor)))
-        moe = 4 * n * e + e * cap * (16 * cfg.moe_d_ff + 8 * d) \
+        moe = 4 * n * e + e * cap * (16 * cfg.moe_d_ff // tp + 8 * d) \
             + 8 * n * k * d
+        if dp > 1:
+            moe += 4 * e * cap * d
+        if tp > 1:
+            moe += 8 * e * cap * d
         work = max(norm, attn, moe)
     else:
         # dense, VLM and enc-dec decoder layers (enc-dec: GELU MLP, no gate)
@@ -277,6 +296,11 @@ def peak(terms) -> int:
     return terms["weights"] + terms["pool"] + terms["activations"]
 
 
+def fit_bytes(mesh=(1, 1)) -> int:
+    """The most a peak may be on one card (of a mesh of several)."""
+    return FIT_BYTES - (MESH_RESERVE if math.prod(mesh) > 1 else 0)
+
+
 # ------------------------------------------------------------ the cells
 def period(cfg) -> int:
     """Layers in one cycle of the model's layer pattern."""
@@ -293,16 +317,13 @@ def at_depth(cfg, layers: int):
 
 def mesh_model(cfg, mesh=(1, 1), fsdp: bool = False):
     """``cfg``'s model on one card, or one rank's of a ``(data, model)``
-    ``mesh`` (a ``Dist`` without process groups: shapes only)."""
+    ``mesh`` (a ``Dist`` without process groups: shapes only). RWKV6 and
+    enc-dec, and FSDP on the hybrid, raise ``NotImplementedError``."""
     from ..models import build_model
     if tuple(mesh) == (1, 1):
         return build_model(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                  "trains on one card")
-    from ..models import DecoderLM
     from ..models.tp import Dist
-    return DecoderLM(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp))
+    return build_model(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp))
 
 
 def cell_terms(cfg, shape, mesh=(1, 1), fsdp: bool = False):
@@ -348,21 +369,18 @@ def plan(arch: str, shape_name: str, mesh=(1, 1),
     the cell fits one card (one card of ``mesh``), its largest fitting
     depth and its share."""
     cfg, shape = ARCHS[arch], SHAPES_BY_NAME[shape_name]
-
-    def cell_peak(c):
-        t, _ = cell_terms(c, shape, mesh, fsdp)
-        return peak(t) + t["batch"]
-
     terms, cell = cell_terms(cfg, shape, mesh, fsdp)
     total = peak(terms) + terms["batch"]
-    depth = largest_depth(cfg, lambda c: cell_peak(c) <= FIT_BYTES)
+    bound = fit_bytes(mesh)
+    depth = largest_depth(cfg, lambda c: _cell_peak(c, shape, mesh, fsdp)
+                          <= bound)
     share = card_share(shape)
     flops, nbytes = analytic_terms(cfg, shape)
     return dict(arch=arch, shape=shape_name, kind=shape.kind,
                 mesh=list(mesh), fsdp=fsdp,
                 full_depth=cfg.num_layers, max_depth=depth,
-                fits=total <= FIT_BYTES,
-                peak_bytes=total, fit_bytes=FIT_BYTES, terms=terms,
+                fits=total <= bound,
+                peak_bytes=total, fit_bytes=bound, terms=terms,
                 rows=share.rows, tokens=share.tokens, sp=share.sp,
                 micro_batches=cell.notes.get("micro_batches"),
                 buffer_units=cell.buffer_units,
@@ -485,14 +503,17 @@ def meshes_of(cards: int):
     return out
 
 
+MESH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
+
 def fit_cards(cards: int) -> list:
-    """For every training cell of the dense family: each mesh of
-    ``cards`` cards, its per-card peak at full depth and whether it
-    fits."""
+    """For every training cell of the families that train on a mesh:
+    each mesh of ``cards`` cards, its per-card peak at full depth,
+    whether it fits, and its largest fitting depth."""
     rows = []
     for arch in sorted(ARCHS):
         cfg = ARCHS[arch]
-        if cfg.family != "dense":
+        if cfg.family not in MESH_FAMILIES:
             continue
         for shape in shapes_for(cfg):
             if shape.kind != "train":
@@ -500,14 +521,23 @@ def fit_cards(cards: int) -> list:
             for mesh, fsdp in meshes_of(cards):
                 try:
                     terms, _ = cell_terms(cfg, shape, mesh, fsdp)
-                except ValueError:          # heads do not split over tp
-                    continue
+                except (ValueError, NotImplementedError):
+                    continue    # heads or experts do not split; no FSDP
                 total = peak(terms) + terms["batch"]
+                bound = fit_bytes(mesh)
+                depth = cfg.num_layers if total <= bound else \
+                    largest_depth(cfg, lambda c: _cell_peak(
+                        c, shape, mesh, fsdp) <= bound)
                 rows.append(dict(arch=arch, shape=shape.name,
                                  mesh=list(mesh), fsdp=fsdp,
                                  peak_bytes=total,
-                                 fits=total <= FIT_BYTES))
+                                 fits=total <= bound, max_depth=depth))
     return rows
+
+
+def _cell_peak(cfg, shape, mesh, fsdp) -> int:
+    terms, _ = cell_terms(cfg, shape, mesh, fsdp)
+    return peak(terms) + terms["batch"]
 
 
 def main(argv=None) -> int:
@@ -522,8 +552,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fsdp", action="store_true",
                     help="with --mesh: shard layer weights over data")
     ap.add_argument("--cards", type=int,
-                    help="list the meshes of N cards each dense training "
-                         "cell fits at full depth")
+                    help="list the meshes of N cards each training cell "
+                         "of the mesh families fits, and at which depth")
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
@@ -536,15 +566,18 @@ def main(argv=None) -> int:
             print(f"[fit {args.cards} cards] {r['arch']} {r['shape']} mesh "
                   f"{r['mesh'][0]}x{r['mesh'][1]}"
                   f"{' fsdp' if r['fsdp'] else ''}: per-card peak "
-                  f"{r['peak_bytes'] / 1e9:.2f} GB, fits={r['fits']}",
-                  flush=True)
+                  f"{r['peak_bytes'] / 1e9:.2f} GB, fits={r['fits']}, "
+                  f"largest depth {r['max_depth']} of "
+                  f"{ARCHS[r['arch']].num_layers}", flush=True)
         return 0
     mesh = tuple(args.mesh)
     if args.all:
         cells = [(a, s.name) for a in sorted(ARCHS)
                  for s in shapes_for(ARCHS[a])
                  if mesh == (1, 1) or (s.kind == "train"
-                                       and ARCHS[a].family == "dense")]
+                                       and ARCHS[a].family in MESH_FAMILIES
+                                       and not (args.fsdp and ARCHS[a].family
+                                                == "hybrid"))]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:

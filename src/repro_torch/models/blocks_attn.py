@@ -5,7 +5,9 @@ training's self-attention, the SwiGLU MLP and the capacity MoE.
 Training attention (``attn_train``) runs through the dense flash kernel,
 forward and backward, in one call per layer. Training's attention and MLP
 take this rank's heads and ``d_ff`` columns of a ``(data, model)`` mesh
-and end in ``psum_tp``, as the reference's do; serving runs on one device.
+and end in ``psum_tp``, as the reference's do; training's MoE takes this
+rank's experts and their ffe columns and exchanges the routed copies by
+an all-to-all over the data axis; serving runs on one device.
 
 Packed self-attention always runs through the varlen flash kernel in one
 call over [old page slots ++ fresh chunk K/V] (the reference's
@@ -31,7 +33,7 @@ from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
 from .rotary import rotate
-from .tp import psum_tp
+from .tp import all_to_all_dp, psum_tp
 
 # Block-size caps for the segment-block-sparse packed attention schedule
 # (sparse_blocks scales them down for small streams).
@@ -376,12 +378,20 @@ def moe_route(tok, router, *, num_experts, top_k, capacity_factor=1.25):
     gates, idx = moe_top_k(moe_probs(tok, router), top_k)        # (N, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     cap = int(max(1, round(n * top_k / e * capacity_factor)))
+    return gates, idx, moe_slots(idx, e, cap), cap
+
+
+def moe_slots(idx, num_experts: int, cap: int):
+    """(N * K,) dispatch rows of the (N, K) routed copies ``idx``: a kept
+    copy's ``expert * cap + place``, its place in the expert's queue
+    counted over the flattened copies in token-major order; a dropped
+    copy's (place >= cap) the row ``num_experts * cap``."""
     e_flat = idx.reshape(-1)                                     # (N*K,)
     # the one-hot by comparison: F.one_hot range-checks on the host
-    flat = (e_flat[:, None] == torch.arange(e, device=tok.device)).long()
+    flat = (e_flat[:, None] == torch.arange(num_experts,
+                                            device=idx.device)).long()
     pos = (torch.cumsum(flat, 0) * flat - 1).amax(-1)
-    slot = torch.where(pos < cap, e_flat * cap + pos, e * cap)
-    return gates, idx, slot, cap
+    return torch.where(pos < cap, e_flat * cap + pos, num_experts * cap)
 
 
 def moe_aux(probs, idx, *, num_experts, top_k, aux_weight):
@@ -396,11 +406,10 @@ def moe_aux(probs, idx, *, num_experts, top_k, aux_weight):
 
 
 def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
-              norm_eps=1e-5, drops=None, aux_weight=None):
-    """GShard capacity MoE (the reference's ``moe_block``) on one device:
-    expert parallelism and expert-TP are 1, so its all_to_all and psum are
-    identities. Serving drops the aux loss and gets x back; training
-    passes ``aux_weight`` and gets (x, aux) (``moe_aux``).
+              norm_eps=1e-5, drops=None, aux_weight=None, dist=None):
+    """GShard capacity MoE (the reference's ``moe_block``). Serving drops
+    the aux loss and gets x back; training passes ``aux_weight`` and gets
+    (x, aux) (``moe_aux``, over this rank's tokens).
 
     Every token of the (B, T) stream is routed (``moe_route``), pads and
     killed segments included: N = B * T sets the capacity, and a pad ahead
@@ -411,9 +420,23 @@ def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
     bf16. The (E, cap, d) dispatch is zero where no copy landed, and the
     products run over it all, as the reference's do. ``drops`` (a list)
     gets this call's count of dropped copies as a device tensor (no host
-    sync)."""
+    sync).
+
+    On a mesh (``dist``) the experts are split over the data axis and
+    each expert's ffe over the model axis (``p``'s expert leaves are this
+    rank's (E / dp, d, ffe / tp) parts): the capacity comes from this
+    rank's N tokens, the (E, cap, d) dispatch goes out by an all-to-all
+    over "data" into (E / dp, dp * cap, d), the down product is summed
+    over "model" in fp32 and rounded once, and a second all-to-all brings
+    each copy's row home. At one data rank and one model rank no
+    collective runs and the bytes are the single-device path's."""
     b, t, d = x.shape
     e = num_experts
+    ep = 1 if dist is None else dist.dp
+    tp = 1 if dist is None else dist.tp
+    if e % ep:
+        raise ValueError(f"{e} experts do not split over {ep} data ranks")
+    e_local = e // ep
     xn = rms_norm(x, p["mlp_norm"], norm_eps)
     tok = xn.reshape(b * t, d)
     gates, idx, slot, cap = moe_route(tok, p["router"], num_experts=e,
@@ -424,10 +447,20 @@ def moe_block(p, x, *, num_experts, top_k, capacity_factor=1.25,
     dispatch = tok.new_zeros((e * cap + 1, d))
     dispatch.index_copy_(0, slot, tok.repeat_interleave(top_k, dim=0))
     disp = dispatch[:-1].view(e, cap, d)
+    if ep > 1:
+        # (E, cap, d) -> (ep, E_local, cap, d) -> (E_local, ep * cap, d)
+        disp = all_to_all_dp(disp.view(ep, e_local, cap, d), dist)
+        disp = disp.transpose(0, 1).reshape(e_local, ep * cap, d)
     g = _BmmF32.apply(disp, p["moe_gate"].to(x.dtype))
     u = _BmmF32.apply(disp, p["moe_up"].to(x.dtype))
     h = (F.silu(g) * u).to(x.dtype)
-    y = torch.bmm(h, p["moe_down"].to(x.dtype))                  # (E, C, d)
+    if tp > 1:
+        y = psum_tp(_BmmF32.apply(h, p["moe_down"].to(x.dtype)),
+                    dist).to(x.dtype)
+    else:
+        y = torch.bmm(h, p["moe_down"].to(x.dtype))      # (E_local, C', d)
+    if ep > 1:
+        y = all_to_all_dp(y.view(e_local, ep, cap, d).transpose(0, 1), dist)
     back = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
     gathered = back.index_select(0, slot).view(b * t, top_k, d)
     out = (gathered.float() * gates[..., None]).sum(1).to(x.dtype)

@@ -1,5 +1,5 @@
 """Recurrent sequence mixers (``repro/models/blocks_seq.py``): Mamba2 and
-RWKV6, on one device.
+RWKV6; Mamba2 trains on a ``(data, model)`` mesh at each rank's heads.
 
 The SSD scan of ``mamba2_chunked`` (padded rows) and ``mamba2_packed``
 (segments of a packed stream) runs through the Mamba2 chunk-scan kernel,
@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..kernels.mamba_scan import (mamba_chunk_scan_train,
                                   mamba_chunk_scan_varlen)
 from .common import dense, rms_norm
+from .tp import psum_tp
 
 
 def mamba2_dims(d_model: int, expand: int, headdim: int, d_state: int,
@@ -149,14 +150,16 @@ def _mamba_project(p, x):
     return z, xr, bm, cm, dt
 
 
-def _gated_out(p, x, y, xr, z, norm_eps):
+def _gated_out(p, x, y, xr, z, norm_eps, dist=None):
     """y (fp32 scan output, (..., H, P)) plus the D residual, the gated
-    RMSNorm and the out-projection, added to the residual stream x."""
+    RMSNorm and the out-projection, summed over the model axis of
+    ``dist`` and added to the residual stream x. On a mesh the norm runs
+    over this rank's heads only, as the reference's does."""
     y = y + xr.reshape(y.shape).float() * p["D"].float()[:, None]
     y = y.reshape(*x.shape[:-1], -1).to(x.dtype)
     y = rms_norm(y, p["out_norm"], norm_eps)
     y = y * F.silu(z.float()).to(x.dtype)
-    return x + dense(y, p["w_out"])
+    return x + psum_tp(dense(y, p["w_out"]), dist)
 
 
 def _split_xbc(xbc, dil, d_state):
@@ -166,7 +169,7 @@ def _split_xbc(xbc, dil, d_state):
 
 def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
                    conv_width: int, norm_eps=1e-5, init_state=None,
-                   length_mask=None, last_idx=None, train=False):
+                   length_mask=None, last_idx=None, train=False, dist=None):
     """Mamba2 over (B, T) rows (padded serving T > 1, and training).
     Returns (x + out, final state (B, U) fp32). ``length_mask`` (B, T)
     marks valid tokens and ``last_idx`` (B,) the last valid slot per row:
@@ -178,13 +181,18 @@ def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
     rows of equal length T from zero states, the scan through
     ``mamba_chunk_scan_train`` (differentiable: its backward is the scan's
     backward kernel on the card), no in-place write on the autograd graph,
-    and no final state (returned as None)."""
+    and no final state (returned as None). On a ``(data, model)`` mesh
+    (``dist``, training only) ``p`` holds this rank's ``md["h_local"]``
+    heads, the scan runs over them, the gated norm normalises over them
+    and the out-projection is summed over the model axis."""
     b, t, _ = x.shape
     hl, dil = md["h_local"], md["d_in_local"]
     if train and (init_state is not None or length_mask is not None or
                   last_idx is not None):
         raise ValueError("mamba2_chunked(train=True) takes equal rows from "
                          "zero states")
+    if not train and dist is not None and dist.size > 1:
+        raise NotImplementedError("serving runs on one device")
     xn = rms_norm(x, p["norm"], norm_eps)
     z, xr, bm, cm, dt = _mamba_project(p, xn)
     if train:
@@ -197,7 +205,7 @@ def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
             p["A_log"], torch.arange(b, dtype=torch.int32, device=dev) * t,
             torch.full((b,), t, dtype=torch.int32, device=dev))
         return _gated_out(p, x, y.view(b, t, hl, headdim), xr, z,
-                          norm_eps), None
+                          norm_eps, dist), None
     if length_mask is not None:
         dt = dt * length_mask[..., None].to(dt.dtype)
     if init_state is not None:

@@ -10,7 +10,8 @@ kernel; padded T > 1 steps through the chunk-scan kernel
 (``mamba2_chunked``) and plain-torch attention; padded T == 1 steps through
 ``mamba2_step`` (plain torch) and the paged decode kernel. Training
 (``train_loss``): the scans through the chunk-scan kernel and its backward
-kernel, the shared attention through the dense flash kernels.
+kernel, the shared attention through the dense flash kernels, on one
+device or on a ``(data, model)`` mesh at each rank's heads.
 """
 from __future__ import annotations
 
@@ -27,32 +28,56 @@ from . import blocks_attn as BA
 from . import blocks_seq as BS
 from .common import rms_norm, set_matmul_precision
 from .lm import DecodeBatch, DecoderLM, unstack
-from .params import MATRICES
+from .params import MATRICES, local_part
 from .rotary import rope_tables
-from .tp import embed_lookup, logits_local, sharded_softmax_xent
+from .tp import (Dist, embed_lookup, logits_local, psum_dp, replica_info,
+                 replicated_loss, sharded_softmax_xent)
 
 
 class HybridLM(DecoderLM):
-    """Hybrid family on one device. Parameters mirror the reference tree
-    with the tp dim dropped: ``embed``, ``final_norm``, ``mamba_main``
-    ((n_super * attn_every, ...) stacks), ``mamba_tail`` (when
-    ``num_layers % attn_every``), ``shared_attn`` (unstacked) and
-    ``unembed`` (untied configs)."""
+    """Hybrid family. Parameters mirror the reference tree, each leaf this
+    rank's slice of the expanded layout (on one device the tp dim is
+    dropped and nothing is split): ``embed``, ``final_norm``,
+    ``mamba_main`` ((n_super * attn_every, ...) stacks), ``mamba_tail``
+    (when ``num_layers % attn_every``), ``shared_attn`` (unstacked) and
+    ``unembed`` (untied configs).
 
-    def __init__(self, cfg: ModelConfig):
+    ``dist``: the rank's place on a ``(data, model)`` mesh (one device by
+    default), on which the family trains: each rank runs its
+    ``heads / tp`` Mamba2 heads (``w_z``, ``w_x``, ``w_dt``, ``dt_bias``,
+    ``A_log``, ``D``, ``out_norm``, ``w_out`` and the x columns of
+    ``conv_w`` split by head; ``w_B``, ``w_C`` and the B / C columns of
+    ``conv_w`` a copy each, which the reference stores with a tp axis so
+    that each rank's copy gets only its own heads' gradient) and its share
+    of the shared attention and MLP, like the dense family's. The
+    reference shards no hybrid leaf over the data axis (its FSDP rule is
+    ``DecoderLM.template``'s), so ``fsdp`` is refused. Serving runs on one
+    device."""
+
+    def __init__(self, cfg: ModelConfig, dist: Optional[Dist] = None):
         cfg.validate()
         if cfg.family != "hybrid":
             raise ValueError(f"family {cfg.family!r} is not hybrid")
         assert cfg.attn_every > 0
+        dist = dist or Dist()
+        if dist.fsdp:
+            raise NotImplementedError(
+                "the hybrid family has no FSDP: the reference shards only "
+                "DecoderLM's layer stacks over the data axis")
         set_matmul_precision()
         self.cfg = cfg
-        self.kv_local = cfg.num_kv_heads
-        self.v_pad = cfg.vocab_size
+        self.dist = dist
+        self.fsdp = False
+        self.is_moe = False
+        self.ri = replica_info(cfg.num_heads, cfg.num_kv_heads, dist.tp)
+        self.kv_local = self.ri["kv_local"]
+        self.v_local = -(-cfg.vocab_size // dist.tp)
+        self.v_pad = self.v_local * dist.tp
         self.n_super = cfg.num_layers // cfg.attn_every
         self.n_tail = cfg.num_layers % cfg.attn_every
         self.md = BS.mamba2_dims(cfg.d_model, cfg.mamba_expand,
                                  cfg.mamba_headdim, cfg.mamba_d_state,
-                                 cfg.mamba_conv_width)
+                                 cfg.mamba_conv_width, dist.tp)
 
     # ----------------------------------------------------------- kv specs
     def kv_specs(self) -> Tuple[KVCacheSpec, ...]:
@@ -78,32 +103,37 @@ class HybridLM(DecoderLM):
 
     # --------------------------------------------------------------- init
     def _mamba_shapes(self, n: int) -> Dict[str, Tuple[int, ...]]:
-        cfg, md = self.cfg, self.md
+        cfg, md, tp = self.cfg, self.md, self.dist.tp
         d, dil, hl = cfg.d_model, md["d_in_local"], md["h_local"]
         ns, w = cfg.mamba_d_state, cfg.mamba_conv_width
-        return {"norm": (n, d), "w_z": (n, d, dil), "w_x": (n, d, dil),
-                "w_B": (n, d, ns), "w_C": (n, d, ns), "w_dt": (n, d, hl),
-                "dt_bias": (n, hl), "A_log": (n, hl), "D": (n, hl),
-                "conv_w": (n, w, dil + 2 * ns), "out_norm": (n, dil),
-                "w_out": (n, dil, d)}
+        return {"norm": (n, d), "w_z": (n, tp, d, dil),
+                "w_x": (n, tp, d, dil), "w_B": (n, tp, d, ns),
+                "w_C": (n, tp, d, ns), "w_dt": (n, tp, d, hl),
+                "dt_bias": (n, tp, hl), "A_log": (n, tp, hl),
+                "D": (n, tp, hl), "conv_w": (n, tp, w, dil + 2 * ns),
+                "out_norm": (n, tp, dil), "w_out": (n, tp, dil, d)}
 
-    def param_shapes(self) -> Dict[str, Any]:
-        """Shapes of the reference template with the tp dim dropped."""
-        cfg = self.cfg
+    def global_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template at the mesh's tp (each
+        tensor-parallel leaf with its tp axis), keys in the order ``init``
+        draws them."""
+        cfg, tp, ri = self.cfg, self.dist.tp, self.ri
         d, hd = cfg.d_model, cfg.head_dim
-        qd, kvd = cfg.num_heads * hd, self.kv_local * hd
+        qd, kvd = ri["q_local"] * hd, ri["kv_local"] * hd
+        ffl = cfg.d_ff // tp
         tree = {
-            "embed": (self.v_pad, d), "final_norm": (d,),
+            "embed": (tp, self.v_local, d), "final_norm": (d,),
             "mamba_main": self._mamba_shapes(self.n_super * cfg.attn_every),
-            "shared_attn": {"attn_norm": (d,), "q": (d, qd), "k": (d, kvd),
-                            "v": (d, kvd), "o": (qd, d), "mlp_norm": (d,),
-                            "gate": (d, cfg.d_ff), "up": (d, cfg.d_ff),
-                            "down": (cfg.d_ff, d)},
+            "shared_attn": {"attn_norm": (d,), "q": (tp, d, qd),
+                            "k": (tp, d, kvd), "v": (tp, d, kvd),
+                            "o": (tp, qd, d), "mlp_norm": (d,),
+                            "gate": (tp, d, ffl), "up": (tp, d, ffl),
+                            "down": (tp, ffl, d)},
         }
         if self.n_tail:
             tree["mamba_tail"] = self._mamba_shapes(self.n_tail)
         if not cfg.tie_embeddings:
-            tree["unembed"] = (self.v_pad, d)
+            tree["unembed"] = (tp, self.v_local, d)
         return tree
 
     def init(self, seed: int = 0, device="cuda",
@@ -115,11 +145,15 @@ class HybridLM(DecoderLM):
         bf16 (serving) or, with ``master``, fp32 like every other leaf
         (training's masters, the reference's ``PARAM_DTYPE``); ``conv_w``
         and the vectors are fp32. The draws differ from the reference's
-        ``jax.random`` ones."""
+        ``jax.random`` ones. On a mesh every rank draws the one-device
+        model's leaves and keeps its slice of each in the expanded layout
+        (``_expand_leaf``): at tp 1 the one-device function; at tp > 1 the
+        same but for the per-rank ``out_norm``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         out_scale = 0.02 / (2 * self.cfg.num_layers) ** 0.5
+        shards = self.shards()
 
         def leaf(name, shape):
             if name.endswith("norm") or name == "D":
@@ -132,9 +166,46 @@ class HybridLM(DecoderLM):
             return w.to(torch.bfloat16) if name in MATRICES and \
                 not master else w
 
-        return {name: ({n: leaf(n, s) for n, s in shape.items()}
-                       if isinstance(shape, dict) else leaf(name, shape))
-                for name, shape in self.param_shapes().items()}
+        def mine(name, parent, shape, shard):
+            w = leaf(name, shape)
+            if self.dist.size == 1:
+                return w
+            w = self._expand_leaf(name, parent, w)
+            return local_part(w, shard, self.dist).contiguous()
+
+        return {name: ({n: mine(n, name, s, shards[name][n])
+                        for n, s in shape.items()}
+                       if isinstance(shape, dict)
+                       else mine(name, "", shape, shards[name]))
+                for name, shape in HybridLM(self.cfg).param_shapes().items()}
+
+    def _expand_leaf(self, name: str, parent: str,
+                     w: torch.Tensor) -> torch.Tensor:
+        """The one-device leaf ``w`` under ``parent`` in the expanded
+        layout at the mesh's tp: a Mamba2 stack's head-indexed leaves
+        split by head (conv_w's x columns too), ``w_B``, ``w_C`` and
+        conv_w's B / C columns copied to every rank; the shared block's
+        and the vocabulary's leaves as ``DecoderLM._expand`` lays out the
+        dense family's."""
+        tp = self.dist.tp
+        if parent == "shared_attn":
+            return w if w.dim() == 1 else self._expand(name, w[None])[0]
+        if parent not in ("mamba_main", "mamba_tail"):
+            return self._expand(name, w)
+        n = w.shape[0]
+        if name == "norm":
+            return w
+        if name in ("w_B", "w_C"):
+            return w[:, None].expand(n, tp, *w.shape[1:])
+        if name == "conv_w":
+            dil_all = self.md["d_in_local"] * tp
+            xs = w[..., :dil_all].reshape(n, w.shape[1], tp, -1)
+            bc = w[:, None, :, dil_all:].expand(n, tp, *w.shape[1:2], -1)
+            return torch.cat([xs.movedim(2, 1), bc], dim=-1)
+        if name == "w_out":                        # (n, H*P, d)
+            return w.reshape(n, tp, -1, w.shape[-1])
+        # w_z, w_x, w_dt (n, d, heads...) and the (n, heads...) vectors
+        return w.reshape(*w.shape[:-1], tp, -1).movedim(-2, 1)
 
     # --------------------------------------------------------------- train
     def train_loss(self, params, tokens, targets, *, mm_embeds=None,
@@ -146,13 +217,15 @@ class HybridLM(DecoderLM):
         flash kernels) and its MLP, each super-block recomputed in the
         backward (``torch.utils.checkpoint``), as the reference
         checkpoints its scan body; then the tail Mamba2 layers, each
-        recomputed on its own. The hybrid takes no multimodal inputs."""
+        recomputed on its own. The hybrid takes no multimodal inputs.
+        On a mesh, ``tokens`` and ``targets`` are this data rank's rows
+        and the loss is the mean over every data rank's."""
         if mm_embeds is not None or mm_mask is not None or \
                 mrope_pos is not None:
             raise ValueError("the hybrid family takes no multimodal inputs")
-        cfg = self.cfg
+        cfg, dist = self.cfg, self.dist
         t = tokens.shape[1]
-        x = embed_lookup(tokens, params["embed"])
+        x = embed_lookup(tokens, params["embed"], dist)
         rope = rope_tables(torch.arange(t, dtype=torch.int32,
                                         device=tokens.device),
                            cfg.head_dim, cfg.rope_theta)
@@ -167,14 +240,17 @@ class HybridLM(DecoderLM):
                 x = checkpoint(self._train_mamba, x, pj, use_reentrant=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_local(x, self._unembed(params))
-        return sharded_softmax_xent(logits, targets)
+        loss = sharded_softmax_xent(logits, targets, dist=dist)
+        if dist.dp > 1:
+            loss = psum_dp(loss, dist) / dist.dp
+        return replicated_loss(loss, dist)
 
     def _train_mamba(self, x, pj):
         cfg = self.cfg
         x, _ = BS.mamba2_chunked(
             pj, x, self.md, d_state=cfg.mamba_d_state,
             headdim=cfg.mamba_headdim, conv_width=cfg.mamba_conv_width,
-            norm_eps=cfg.norm_eps, train=True)
+            norm_eps=cfg.norm_eps, train=True, dist=self.dist)
         return x
 
     def _train_super(self, x, rope, pjs, shared):
@@ -185,8 +261,8 @@ class HybridLM(DecoderLM):
             x = self._train_mamba(x, pj)
         x = BA.attn_train(shared, x, kv_local=self.kv_local,
                           head_dim=cfg.head_dim, rope=rope,
-                          norm_eps=cfg.norm_eps)
-        return BA.mlp_block(shared, x, cfg.norm_eps)
+                          norm_eps=cfg.norm_eps, dist=self.dist)
+        return BA.mlp_block(shared, x, cfg.norm_eps, dist=self.dist)
 
     # --------------------------------------------------------------- serve
     def serve_step(self, params, buffer: torch.Tensor, batch: DecodeBatch,
@@ -198,6 +274,11 @@ class HybridLM(DecoderLM):
         the tail Mamba2 layers come last. Writes K/V and state into
         ``buffer`` IN PLACE and returns fp32 logits, one row per segment
         (packed) or per batch row (padded)."""
+        if self.dist.size > 1:
+            raise NotImplementedError(
+                "serve_step runs on one device (the reference serves on a "
+                "(1, 1) buffer too); this model was built for a "
+                f"{self.dist.dp} x {self.dist.tp} mesh")
         cfg = self.cfg
         packed = batch.seg_ids is not None
         positions = batch.positions

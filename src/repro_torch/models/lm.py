@@ -1,11 +1,12 @@
 """Decoder-only LM: the training loss and the packed and padded serve
 steps of the dense, MoE and VLM-backbone families (``repro/models/lm.py``).
 
-The dense family trains on a ``(data, model)`` mesh (``models.tp.Dist``):
-each rank holds its slice of the reference's expanded parameters, FSDP
-gathers a layer's shards inside its checkpointed cycle, and the loss is
-summed over the data axis. Serving, and training the MoE and VLM members,
-run on one device."""
+All three train on a ``(data, model)`` mesh (``models.tp.Dist``): each
+rank holds its slice of the reference's expanded parameters (a MoE's
+experts split over the data axis and their ffe over the model axis),
+FSDP gathers a layer's shards inside its checkpointed cycle, and the loss
+(and a MoE's aux loss) is summed over the data axis. Serving runs on one
+device."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,7 +97,7 @@ class DecoderLM:
     device the tp dim is dropped and nothing is split).
 
     ``dist``: the rank's place on a ``(data, model)`` mesh (one device by
-    default). A mesh larger than one device trains the dense family only.
+    default), on which every member trains; serving runs on one device.
 
     ``moe_drops``: set it to a list to have every MoE serve step append
     its count of dropped (token, k) copies, summed over the layers, as a
@@ -111,10 +112,11 @@ class DecoderLM:
                 f"family {cfg.family!r}: DecoderLM serves the dense, moe and "
                 "vlm families")
         dist = dist or Dist()
-        if dist.size > 1 and cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} runs on one device: only the dense "
-                "family trains on a mesh")
+        if cfg.num_experts and (cfg.num_experts % dist.dp
+                                or cfg.moe_d_ff % dist.tp):
+            raise ValueError(
+                f"{cfg.num_experts} experts of ffe {cfg.moe_d_ff} do not "
+                f"split over a {dist.dp} x {dist.tp} mesh")
         set_matmul_precision()
         self.is_moe = cfg.num_experts > 0
         self.cfg = cfg
@@ -214,8 +216,9 @@ class DecoderLM:
 
     def param_shapes(self) -> Dict[str, Any]:
         """Shapes of this rank's leaves: the global shapes with the tp
-        axis dropped and the FSDP dim split over the data axis."""
-        dp = self.dist.dp
+        axis dropped, the FSDP dim or the experts split over the data axis
+        and the experts' ffe over the model axis."""
+        dp, tp = self.dist.dp, self.dist.tp
 
         def local(shape, shard):
             shape = list(shape)
@@ -223,6 +226,8 @@ class DecoderLM:
                 del shape[shard.tp_axis]
             if shard.data_dim is not None:
                 shape[shard.data_dim] //= dp
+            if shard.model_dim is not None:
+                shape[shard.model_dim] //= tp
             return tuple(shape)
 
         def go(tree, shards):
@@ -250,8 +255,10 @@ class DecoderLM:
 
         On a mesh every rank draws the one-device model's leaves from
         ``seed`` one at a time and keeps its slice of each in the
-        expanded layout (``_expand``), so the model computes the same
-        function on every mesh."""
+        expanded layout (``_expand``; its experts and their ffe columns),
+        so the model computes the same function on every mesh (a MoE's up
+        to the capacity and aux loss taken per data rank, as the
+        reference takes them)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -288,7 +295,8 @@ class DecoderLM:
         rows, each rank's q heads (a K/V group's heads padded with zero
         heads to a multiple of its replicas) and their o rows, its K/V
         heads (copied to every replica), its ``d_ff`` columns and down
-        rows. Leaves without a tp axis are returned as they are."""
+        rows. Leaves without a tp axis (the experts among them) are
+        returned as they are."""
         ri, tp = self.ri, self.dist.tp
         hd, kv = self.cfg.head_dim, self.cfg.num_kv_heads
         repl, kv_tp, kvl = ri["repl"], ri["kv_tp"], ri["kv_local"]
@@ -348,9 +356,11 @@ class DecoderLM:
         it a VLM trains on text with RoPE at ``arange(T)``, as the
         reference does.
 
-        On a mesh, ``tokens`` and ``targets`` are this data rank's rows
-        and the loss is the mean over every data rank's (the reference's
-        ``psum_dp(loss) / dp``), the same on every rank."""
+        On a mesh, ``tokens`` and ``targets`` (and the multimodal batch)
+        are this data rank's rows and the loss is the mean over every data
+        rank's (the reference's ``psum_dp(loss) / dp``), the same on every
+        rank. So is a MoE's aux loss (``psum_dp(aux / cycles) / dp``): each
+        data rank routes, caps and balances its own tokens."""
         mm = (mm_embeds, mm_mask, mrope_pos)
         if any(v is not None for v in mm):
             if self.cfg.family != "vlm":
@@ -387,19 +397,23 @@ class DecoderLM:
         if dist.dp > 1:
             loss = psum_dp(loss, dist) / dist.dp
         if aux is not None:
-            loss = loss + aux / max(1, self.cycles)
+            aux = aux / max(1, self.cycles)
+            if dist.dp > 1:
+                aux = psum_dp(aux, dist) / dist.dp
+            loss = loss + aux
         return replicated_loss(loss, dist)
 
     def _fsdp_gather(self, pj):
         """FSDP: one layer's weight shards gathered whole over "data",
         each cast to bf16 first as the reference does (the products round
         weights to bf16 anyway), so the transpose reduce-scatters bf16
-        gradients."""
+        gradients. Expert leaves stay split: their data dim is expert
+        parallelism's."""
         if not self.fsdp:
             return pj
         out = dict(pj)
         for name, w in pj.items():
-            dim = self._layer_shards[name].data_dim
+            dim = self._layer_shards[name].fsdp_dim
             if dim is not None:
                 out[name] = gather_data(w.to(torch.bfloat16), dim - 1,
                                         self.dist)
@@ -424,7 +438,8 @@ class DecoderLM:
                     pj, x, num_experts=cfg.num_experts,
                     top_k=cfg.experts_per_token,
                     capacity_factor=cfg.capacity_factor,
-                    norm_eps=cfg.norm_eps, aux_weight=cfg.router_aux_weight)
+                    norm_eps=cfg.norm_eps, aux_weight=cfg.router_aux_weight,
+                    dist=self.dist)
                 aux = aux + a
             else:
                 x = BA.mlp_block(pj, x, cfg.norm_eps, dist=self.dist)

@@ -50,6 +50,11 @@ _SSM_TP_AXIS = {n: 1 for n in ("ln_x", "w_r", "w_k", "w_v", "w_g", "w_o",
 _ENCDEC_TP_AXIS = {n: 1 for n in ("q", "k", "v", "o", "q_bias", "v_bias",
                                   "w1", "b1", "w2")}
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
+# the MoE expert stacks (L, E, ...): experts (dim 1) over "data" (expert
+# parallelism) and each expert's ffe dim, named here, over "model"
+# (expert-TP), the reference's P(None, "data", None, "model") and
+# P(None, "data", "model") (``DecoderLM.template``)
+EP_MODEL_DIM = {"moe_gate": 3, "moe_up": 3, "moe_down": 2}
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -102,7 +107,12 @@ def leaf_shard(family: str, parent: str, name: str, global_shape=None,
     ``family`` tree whose global (expanded) shape is ``global_shape``: its
     tp axis from ``subtree_tp_axes``, and under FSDP (``dist.fsdp`` with
     more than one data rank) the data dim of a decoder's stacked layer
-    leaf whose tp axis is its second (``fsdp_dim``)."""
+    leaf whose tp axis is its second (``fsdp_dim``). An expert stack has
+    no tp axis: its experts are split over "data" and its ffe over
+    "model" on every mesh (``EP_MODEL_DIM``), and FSDP leaves it alone,
+    as the reference's rule does (its spec's second entry is "data")."""
+    if family == "moe" and parent == "layers" and name in EP_MODEL_DIM:
+        return Shard(None, 1, EP_MODEL_DIM[name])
     tp_axis = subtree_tp_axes(family, parent).get(name)
     data_dim = None
     if (dist is not None and dist.fsdp and dist.dp > 1
@@ -112,10 +122,21 @@ def leaf_shard(family: str, parent: str, name: str, global_shape=None,
     return Shard(tp_axis, data_dim)
 
 
+def _split(a, dim: int, rank: int, n: int):
+    """Part ``rank`` of ``n`` even parts of ``a``'s ``dim``."""
+    if a.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(a.shape)} does not split "
+                         f"over {n} ranks")
+    k = a.shape[dim] // n
+    if isinstance(a, torch.Tensor):
+        return a.narrow(dim, rank * k, k)
+    return np.take(a, range(rank * k, (rank + 1) * k), axis=dim)
+
+
 def local_part(a, shard: Shard, dist: Optional[Dist] = None):
     """This rank's part of the global leaf ``a`` (numpy or torch): index
     ``model_rank`` of ``shard.tp_axis``, then ``data_rank``'s slice of
-    ``shard.data_dim``."""
+    ``shard.data_dim`` and ``model_rank``'s of ``shard.model_dim``."""
     dist = dist or Dist()
     if shard.tp_axis is not None:
         n = a.shape[shard.tp_axis]
@@ -125,12 +146,9 @@ def local_part(a, shard: Shard, dist: Optional[Dist] = None):
              if isinstance(a, torch.Tensor)
              else np.take(a, dist.model_rank, axis=shard.tp_axis))
     if shard.data_dim is not None:
-        n = a.shape[shard.data_dim] // dist.dp
-        if isinstance(a, torch.Tensor):
-            a = a.narrow(shard.data_dim, dist.data_rank * n, n)
-        else:
-            a = np.take(a, range(dist.data_rank * n, (dist.data_rank + 1)
-                                 * n), axis=shard.data_dim)
+        a = _split(a, shard.data_dim, dist.data_rank, dist.dp)
+    if shard.model_dim is not None:
+        a = _split(a, shard.model_dim, dist.model_rank, dist.tp)
     return a
 
 
@@ -143,6 +161,9 @@ def gather_global(t: torch.Tensor, shard: Shard,
     if shard.data_dim is not None:
         parts = dist.all_gather(t, "data")
         t = torch.cat(list(parts), dim=shard.data_dim)
+    if shard.model_dim is not None:
+        parts = dist.all_gather(t, "model")
+        t = torch.cat(list(parts), dim=shard.model_dim)
     if shard.tp_axis is not None:
         t = dist.all_gather(t, "model").movedim(0, shard.tp_axis)
     return t

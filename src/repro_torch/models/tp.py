@@ -40,7 +40,8 @@ from .common import gqa_tp_layout
 
 
 def _comm_counts() -> Dict[str, int]:
-    return {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    return {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+            "all_to_all": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +115,23 @@ class Dist:
         self.comm_bytes["reduce_scatter"] += x.numel() * x.element_size()
         return out.view(x.shape[1:])
 
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x: (n, ...): chunk ``i`` of dim 0 goes to rank ``i`` of
+        ``axis``, and chunk ``j`` of the result came from rank ``j`` (the
+        reference's ``all_to_all(split_axis=0, concat_axis=0,
+        tiled=False)``); ``x`` itself when the axis has one rank."""
+        group, n = self._group(axis)
+        if n == 1:
+            return x
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {n} ranks of a dim of "
+                             f"{x.shape[0]}")
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=group)
+        self.comm_bytes["all_to_all"] += x.numel() * x.element_size()
+        return out
+
     def barrier(self) -> None:
         if self.size > 1:
             torch.distributed.barrier(group=self.group)
@@ -127,12 +145,27 @@ def single_device_dist() -> Dist:
 class Shard:
     """Where a rank's tensor sits in its global leaf (the reference's
     expanded layout): ``tp_axis`` is the global leaf's tensor-parallel
-    axis, which the rank's tensor drops (None: the leaf has none and is
-    the same on every rank of the model axis); ``data_dim`` is the rank's
-    dim split evenly over the data axis (None: the rank holds it whole)."""
+    axis, which the rank's tensor drops; ``model_dim`` a dim the rank
+    keeps, split evenly over the model axis (an expert's ``ffe``: the
+    reference's ``"model"`` on a real dim); with neither, the leaf is the
+    same on every rank of the model axis. ``data_dim`` is the rank's dim
+    split evenly over the data axis (FSDP's, or the experts of expert
+    parallelism; None: the rank holds it whole)."""
 
     tp_axis: Optional[int] = None
     data_dim: Optional[int] = None
+    model_dim: Optional[int] = None
+
+    @property
+    def split_model(self) -> bool:
+        """Whether the model axis's ranks hold different parts."""
+        return self.tp_axis is not None or self.model_dim is not None
+
+    @property
+    def fsdp_dim(self) -> Optional[int]:
+        """The data dim FSDP gathers whole before use (None for an expert
+        leaf, whose data dim is expert parallelism's and stays split)."""
+        return self.data_dim if self.tp_axis is not None else None
 
 
 def replica_info(num_heads: int, num_kv_heads: int, tp: int):
@@ -191,6 +224,29 @@ class _GatherData(torch.autograd.Function):
         shape[dim:dim + 1] = [dist.dp, shape[dim] // dist.dp]
         parts = g.reshape(shape).movedim(dim, 0)
         return dist.reduce_scatter(parts, "data"), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Dist.all_to_all`` over the data axis; its transpose is the same
+    exchange of the cotangents (chunk ``j`` goes back to rank ``j``), as
+    JAX transposes ``all_to_all(..., tiled=False)``."""
+
+    @staticmethod
+    def forward(ctx, x, dist: Dist):
+        ctx.dist = dist
+        return dist.all_to_all(x, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.dist.all_to_all(g, "data"), None
+
+
+def all_to_all_dp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
+    """x: (dp, ...): the expert-parallel exchange over the data axis, with
+    a gradient; ``x`` itself at one data rank."""
+    if dist is None or dist.dp == 1:
+        return x
+    return _AllToAll.apply(x, dist)
 
 
 def psum_tp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:

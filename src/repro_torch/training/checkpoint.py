@@ -16,7 +16,8 @@ On a ``(data, model)`` mesh every leaf is gathered whole (``Shard``:
 ``params.gather_global``) and rank 0 writes it, so the files hold global
 arrays as the reference's do; a restore takes each rank's part of them
 (``params.local_part``), so a checkpoint restores onto a mesh of any data
-size. The tp size is in the arrays' shapes and must not change.
+size (a MoE's experts, written whole, are split anew over the data axis).
+The tp size is in the arrays' shapes and must not change.
 """
 from __future__ import annotations
 

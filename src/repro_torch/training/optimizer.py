@@ -16,7 +16,10 @@ data axis (FSDP) keeps its own split. Each rank keeps its slices of
 masters, whole over the data axis as in the reference) and all-gathers
 the updated slices over the data axis. The clip norm is taken over the
 whole gradient of the mesh. The arithmetic is elementwise, so the result
-is the unsharded update's, bit for bit.
+is the unsharded update's, bit for bit. An expert leaf already splits its
+experts over the data axis (expert parallelism), so ZeRO-1 leaves it
+whole on its rank, as the reference's ``zero1_spec`` falls back to the
+param's own spec.
 """
 from __future__ import annotations
 
@@ -91,7 +94,8 @@ def zero1_shards(param_shards, global_shapes, dp: int):
     the data axis on the first dim of its global shape that is not the tp
     axis, is not empty and that ``dp`` divides (as a dim of the rank's
     tensor); leaves already split over "data" (FSDP) keep their split, and
-    a leaf with no such dim stays whole."""
+    a leaf with no such dim stays whole. Expert leaves, whose experts the
+    data axis already splits, keep their split too."""
     def one(sh: Shard, shape) -> Shard:
         if dp == 1 or sh.data_dim is not None:
             return sh
@@ -159,7 +163,7 @@ def _counted(sh: Optional[Shard], dist: Dist) -> bool:
     """Whether this rank adds a leaf of the (reduced) gradient to the
     norm: each element once over the mesh."""
     return sh is None or (
-        (sh.tp_axis is not None or dist.model_rank == 0)
+        (sh.split_model or dist.model_rank == 0)
         and (sh.data_dim is not None or dist.data_rank == 0))
 
 

@@ -73,8 +73,8 @@ class Trainer:
         self.adamw = adamw
         self.tcfg = tcfg
         self.extra_batch = extra_batch or (lambda tokens: {})
-        # a model built for a mesh (``DecoderLM(cfg, dist)``) carries its
-        # Dist; the other families run on one device
+        # a model built for a mesh (``DecoderLM`` or ``HybridLM`` with a
+        # ``dist``) carries its Dist; the other families run on one device
         dist = getattr(model, "dist", None)
         self.dist = dist or Dist()
         self.layout = None
@@ -106,8 +106,10 @@ class Trainer:
         micro-batch's data-rank rows go through ``train_loss`` and
         backward, the fp32 gradients summed in the params' ``.grad``
         buffers, then summed over the mesh axes each leaf is replicated on
-        (FSDP leaves were reduce-scattered by the backward) and divided by
-        the number of micro-batches. Returns (mean loss tensor, grads
+        (FSDP leaves were reduce-scattered by the backward; an expert leaf,
+        split over both axes, is complete on its rank: the all-to-all's
+        backward brought every data rank's cotangents to it) and divided
+        by the number of micro-batches. Returns (mean loss tensor, grads
         tree)."""
         extras = extras or {}
         n_micro, dist = self.tcfg.micro_batches, self.dist
@@ -133,7 +135,7 @@ class Trainer:
         for p, sh, _ in opt.with_shards(params, self.layout):
             if sh is not None and sh.data_dim is None:
                 p.grad = dist.all_reduce(
-                    p.grad, "data" if sh.tp_axis is not None else "all")
+                    p.grad, "data" if sh.split_model else "all")
         grads = opt.tree_map(lambda p: p.grad, params)
         for g in opt.leaves(grads):
             g.div_(n_micro)

@@ -26,10 +26,10 @@ JAX's ``Trainer`` and by the port's at 1 x 2, and a JAX 2 x 1 checkpoint
 restored by the port at 1 x 1, each resuming within 5e-3 of the
 uninterrupted losses; the NaN watchdog restoring every rank together
 when one rank's params are poisoned; the mesh path at 1 x 1 equal bit
-for bit to the single-device ``train_loss`` and ``Trainer``; serving and
-the MoE and VLM members refusing a mesh; the port's own init giving
-the same function at 1 x 1 and 2 x 2; and a rank that raises failing its
-run within the deadline.
+for bit to the single-device ``train_loss`` and ``Trainer``; serving,
+FSDP on the hybrid, RWKV6 and enc-dec refusing a mesh; the port's own
+init giving the same function at 1 x 1 and 2 x 2; and a rank that raises
+failing its run within the deadline.
 
 The JAX side runs in one background process (this file run as a script
 with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``), because the
@@ -478,16 +478,22 @@ def test_own_init_is_the_same_model_on_every_mesh(runs):
 
 
 def test_serving_and_the_other_decoder_families_refuse_a_mesh():
-    """``serve_step`` runs on one device, as the reference's does; the MoE
-    and VLM members of ``DecoderLM`` train on one device until their
-    slice."""
+    """What still runs on one device: ``serve_step`` of every family
+    built for a mesh (the reference serves on a (1, 1) buffer too), FSDP
+    on the hybrid (the reference's FSDP rule is ``DecoderLM``'s only), and
+    RWKV6 and enc-dec, whose training across cards is a later slice."""
+    from repro_torch.models import HybridLM, build_model
     from repro_torch.models.tp import Dist
-    model = DecoderLM(_cfg(), Dist(dp=2))
-    with pytest.raises(NotImplementedError, match="one device"):
-        model.serve_step({}, torch.zeros(8, dtype=torch.bfloat16), None)
-    for arch in ("dbrx-132b", "qwen2-vl-2b"):
+    buf = torch.zeros(8, dtype=torch.bfloat16)
+    for arch in (ARCH, "dbrx-132b", "qwen2-vl-2b", "zamba2-1.2b"):
+        model = build_model(reduced(ARCHS[arch]), Dist(dp=2))
         with pytest.raises(NotImplementedError, match="one device"):
-            DecoderLM(reduced(ARCHS[arch]), Dist(tp=2))
+            model.serve_step({}, buf, None)
+    with pytest.raises(NotImplementedError, match="no FSDP"):
+        HybridLM(reduced(ARCHS["zamba2-1.2b"]), Dist(dp=2, fsdp=True))
+    for arch in ("rwkv6-3b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="one device"):
+            build_model(reduced(ARCHS[arch]), Dist(tp=2))
 
 
 def _rank_raises(dist, dev):
