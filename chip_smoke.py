@@ -73,6 +73,34 @@ against the planner's per-card prediction and the bytes each collective
 (the all-to-all among them) sends a step. With one card the phase prints
 that leg (ii) was skipped and why.
 
+Phase 5d, serving across cards (``phase_mesh_serve``): ``serve_step`` of
+the dense, MoE, VLM and hybrid families on a ``(data, model)`` mesh over
+NCCL, each rank's batch from ``launch.input_specs.split_batch`` of one
+example batch (SERVE_STEPS: 8 requests mixed, 4 padded prefill rows, 8
+decodes) over random K/V pages. (i) granite-3-2b at full depth (packed,
+padded prefill, padded decode) and zamba2-1.2b (packed) on a 1 x 1 mesh:
+logits and every buffer byte equal to the single-card step, the same
+kernel launches. (ii) with 4 cards, one process a card: granite and
+dbrx-132b (8 layers) 1 x 4 against one card (logits and written K/V
+within MESH_SERVE_FLOOR_X times the noise floor: one card's distance from
+itself with only the mesh's bf16 partial sums emulated, ``_tp_partials``;
+greedy tokens equal or near ties; layer 0's K/V within
+MESH_SERVE_KV0_ULPS); qwen2-vl-2b 1 x 4, K/V heads replicated twice,
+against the same mesh with the attention's plain versions (the floor:
+one card's kernels against their plain versions; its distance to one
+card printed: the
+reference's replica-group combine sums partials of different q heads);
+dbrx-132b 1 x 4 at the planner's largest depth (40 layers), each rank's
+own weights; qwen2.5-32b 2 x 2 sp decoding one sequence at
+SP_ONE_CARD_LEN against one card and at the planner's longest length (up
+to 524,288); zamba2-1.2b 2 x 2 against 1 x 2 (run on each data rank's
+rows). Each rank's step ms, peak against the planner, bytes a step by
+collective (the partial-attention combine among them) and kernel
+launches. The log-sum-exp outputs of the
+varlen and paged kernels that the combine reads are held against their
+plain versions in ``phase_lse_kernels`` (after the paged phase), with
+their device ms with and without the output.
+
 Training the hybrid, VLM and MoE families (since the scan's backward
 kernel): phase 2c also holds the scan's backward kernel
 (``mamba_chunk_scan_bwd``, csrc/mamba_scan_bwd.cu) against its plain
@@ -847,6 +875,195 @@ def phase_paged_kernel():
                             plain_ms=plain_ms, two_calls_ms=two_ms,
                             bound_ms=bound, bound_by=by))
         del pool, plan, out_k, out_2, out_p
+    return results
+
+
+LSE_TOL = 1e-3      # fp32 log-sum-exp: base-2 ex2.approx sums vs the plain natural log
+
+
+def lse_varlen_cases():
+    """The varlen kernel's log-sum-exp cases, at the rank heads of the
+    serving meshes whose partials combine: qwen2-vl-2b at 1 x 4 (its 2
+    K/V heads replicated twice: 3 q heads on 1 kv head a rank, D 128).
+    Old slots only, as a replica group's member reads them (the fresh
+    chunk is merged after the combine), with segments that see nothing
+    (-inf); a mixed and a decode stream (the latter over split kv
+    ranges)."""
+    mixed = [(0, 256, 0), (512, 200, 512), (1024, 1, 1024), (896, 1, 896),
+             (768, 1, 768), (896, 1, 896)]
+    decode = [(511, 1, 511)] * 16
+    rank = dict(h=3, kvl=1, d=128, layout="token")
+    return [dict(_case("qwen2-vl 1x4 rank G=3 mixed old-only T=512", mixed,
+                       t_total=512, novis_segs=(0, 3)), **rank, old_only=True),
+            dict(_case("qwen2-vl 1x4 rank G=3 decode old-only T=16 S=8176",
+                       decode, t_total=16, novis_segs=(5,)), **rank,
+                 old_only=True)]
+
+
+def lse_paged_cases():
+    """The paged kernel's log-sum-exp cases: qwen2-vl-2b's 1 x 4 rank heads
+    (KVL 1, G 3) over 8 rows, two of them a first token's strict old part
+    (position -1 over no page: no visible slot, mean(V) and -inf), and
+    qwen2.5-32b's 2 x 2 sp rank heads (KVL 4, G 5) over one
+    262,144-token row, the half of a 524,288-token sequence one data rank
+    holds (P 16,384, split over 64 blocks)."""
+    lens = np.random.default_rng(2).integers(64, 1057, 8)
+    return [dict(name="qwen2-vl 1x4 rank KVL=1 G=3 + 2 rows at position 0",
+                 d=128, g=3, kvl=1, layers=28, lens=lens, pad=2,
+                 first_token=True),
+            dict(name="qwen2.5-32b 2x2 sp rank KVL=4 G=5 row 262144",
+                 d=128, g=5, kvl=4, layers=1, lens=np.array([262143]),
+                 p=16384)]
+
+
+def _old_only(case):
+    """A packed case's kv stream without its fresh part (the last T
+    slots): what one member of a combine group reads."""
+    t = len(case["q_seg"])
+    return dict(case, kv_seg=case["kv_seg"][:-t], kv_pos=case["kv_pos"][:-t])
+
+
+def _lse_err(lse_k, lse_p, label):
+    """Max abs error of the kernel's log-sum-exp over the entries the plain
+    version finds finite; the others must be -inf in both."""
+    import torch
+    fin = torch.isfinite(lse_p)
+    if not torch.equal(torch.isfinite(lse_k), fin) or \
+            bool((lse_k[~fin] != -torch.inf).any()):
+        raise AssertionError(f"{label}: -inf rows differ from the plain "
+                             "version's")
+    err = (lse_k[fin] - lse_p[fin]).abs().max().item() if fin.any() else 0.0
+    if not np.isfinite(err) or err > LSE_TOL:
+        raise AssertionError(f"{label}: log-sum-exp err {err} > {LSE_TOL}")
+    return err
+
+
+def phase_lse_kernels():
+    """The varlen and paged kernels' log-sum-exp output (the combine of
+    partials on a serving mesh) against their plain versions: the output
+    with it byte for byte the output without it, two calls byte-identical,
+    the log-sum-exp within LSE_TOL and -inf exactly where the plain
+    version's is; device ms with and without the output beside the plain
+    version's ms and the bound (the output adds 4 bytes a row and head)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_varlen, flash_attention_varlen_plain)
+    from repro_torch.kernels.flash_attention.kernel import varlen_kv_tiles
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_plan)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    results = []
+    for case in lse_varlen_cases():
+        case = _old_only(case)
+        q, k, v, meta, token = _varlen_inputs(case, rng, dev)
+        H, t, D = q.shape
+        kv_tiles = varlen_kv_tiles(meta[1], meta[3])
+        args = token or (q, k, v)
+        label = f"varlen lse {case['name']}"
+
+        def kern(lse):
+            return flash_attention_varlen(*args, *meta, kv_tiles=kv_tiles,
+                                          return_lse=lse)
+
+        bare = kern(False)
+        out_k, lse_k = kern(True)
+        out_2, lse_2 = kern(True)
+        out_p, lse_p = flash_attention_varlen_plain(q, k, v, *meta,
+                                                    return_lse=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(bare, out_k) and torch.equal(out_k, out_2)
+                and torch.equal(lse_k, lse_2)):
+            raise AssertionError(f"{label}: outputs with and without the "
+                                 "log-sum-exp, or two calls, differ")
+        valid = torch.tensor(case["q_seg"] >= 0, device=dev)
+        err = (out_k.float() - out_p.float())[:, valid].abs().max().item()
+        if not np.isfinite(err) or err > TOL:
+            raise AssertionError(f"{label}: max abs err {err} > {TOL}")
+        lerr = _lse_err(lse_k[:, valid], lse_p[:, valid], label)
+        ms = device_ms(lambda: kern(True), "varlen_flash_kernel")
+        ms0 = device_ms(lambda: kern(False), "varlen_flash_kernel")
+        plain_ms = cuda_time_ms(lambda: flash_attention_varlen_plain(
+            q, k, v, *meta, return_lse=True), iters=5)
+        qs, ks, qp, kp = (case[n] for n in ("q_seg", "kv_seg", "q_pos",
+                                            "kv_pos"))
+        mask = (ks[None, :] == qs[:, None]) & (kp[None, :] <= qp[:, None])
+        s = k.shape[1]
+        flops = 4.0 * D * int(mask.sum()) * H
+        nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())
+                  + 4 * (2 * t + 2 * s) + 4 * H * t)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+            flops / BF16_FLOPS_PER_S else "operations"
+        n_inf = int((~torch.isfinite(lse_p[:, valid])).sum())
+        log(f"[kernel varlen_flash lse] {case['name']} H={H} D={D} S={s} "
+            f"max_abs_err={err:.3e} lse_err={lerr:.3e} (tol {LSE_TOL}) "
+            f"-inf rows={n_inf} same bytes without it=True ms={ms:.4f} "
+            f"(device; {ms0:.4f} without the output) plain_ms="
+            f"{plain_ms:.4f} bound_ms={bound:.5f} ({by})")
+        results.append(dict(kernel="varlen", case=case["name"], err=err,
+                            lse_err=lerr, ms=ms, ms_without=ms0,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+        del q, k, v, token
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for case in lse_paged_cases():
+        q, pool, meta, (tables, page_pos, positions) = paged_inputs(
+            case, gen, rng, dev)
+        if case.get("first_token"):
+            positions[positions == SENTINEL] = -1
+            meta[2] = torch.tensor(positions, device=dev)
+        B, P = tables.shape
+        TPP, KVL, D = pool.shape[3:]
+        G = q.shape[2]
+        kv = pool[:, 0]
+        plan = paged_decode_plan(*meta, TPP, 0)
+        label = f"paged lse {case['name']}"
+
+        def kern(lse):
+            return paged_decode_attention(q, kv, *meta, plan=plan,
+                                          return_lse=lse)
+
+        bare = kern(False)
+        out_k, lse_k = kern(True)
+        out_2, lse_2 = kern(True)
+        out_p, lse_p = paged_decode_attention_plain(q, kv, *meta,
+                                                    return_lse=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(bare, out_k) and torch.equal(out_k, out_2)
+                and torch.equal(lse_k, lse_2)):
+            raise AssertionError(f"{label}: outputs with and without the "
+                                 "log-sum-exp, or two calls, differ")
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        if not np.isfinite(err) or err > TOL:
+            raise AssertionError(f"{label}: max abs err {err} > {TOL}")
+        lerr = _lse_err(lse_k, lse_p, label)
+        ms = device_ms(lambda: kern(True), "paged_decode_kernel")
+        ms0 = device_ms(lambda: kern(False), "paged_decode_kernel")
+        plain_ms = cuda_time_ms(lambda: paged_decode_attention_plain(
+            q, kv, *meta, return_lse=True), iters=3)
+        slot_pos = (page_pos[:, :, None] + np.arange(TPP)).reshape(B, -1)
+        mask = slot_pos <= positions[:, None]
+        vis = mask.reshape(B, P, TPP).any(-1)
+        seen = set(np.maximum(tables, 0)[vis].tolist())
+        nbytes = (len(seen) * 2 * TPP * KVL * D * 2 + 2 * 2 * q.numel()
+                  + 4 * (2 * B * P + B) + 4 * B * KVL * G)
+        flops = 4.0 * D * G * KVL * int(mask.sum())
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+            flops / BF16_FLOPS_PER_S else "operations"
+        n_inf = int((~torch.isfinite(lse_p)).sum())
+        log(f"[kernel paged_decode lse] {case['name']} B={B} P={P} "
+            f"pages/row={plan.count.tolist()[:8]} max_abs_err={err:.3e} "
+            f"lse_err={lerr:.3e} (tol {LSE_TOL}) -inf heads={n_inf} same "
+            f"bytes without it=True ms={ms:.4f} (device; {ms0:.4f} without "
+            f"the output) plain_ms={plain_ms:.4f} bound_ms={bound:.5f} "
+            f"({by})")
+        results.append(dict(kernel="paged", case=case["name"], err=err,
+                            lse_err=lerr, ms=ms, ms_without=ms0,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+        del pool, plan, q
     return results
 
 
@@ -3208,9 +3425,10 @@ def _step_batch(cfg, data, extra, device):
 def _routing(calls, replay=None):
     """A ``blocks_attn.moe_route`` that appends each call's top-k experts
     to ``calls`` and, given ``replay`` (another run's ``calls``), routes
-    every call by that run's experts instead: the gates this run's
-    probabilities at them, their queue places as ``moe_route`` counts
-    them."""
+    every call by that run's experts instead (call i by replay[i %
+    len(replay)]: a step repeated takes the same routing again): the
+    gates this run's probabilities at them, their queue places as
+    ``moe_route`` counts them."""
     import torch
     from repro_torch.models import blocks_attn as BA
     route = BA.moe_route
@@ -3222,7 +3440,8 @@ def _routing(calls, replay=None):
         calls.append(idx.cpu().numpy())
         if replay is None:
             return gates, idx, slot, cap
-        idx = torch.as_tensor(replay[len(calls) - 1], device=tok.device)
+        idx = torch.as_tensor(replay[(len(calls) - 1) % len(replay)],
+                              device=tok.device)
         gates = BA.moe_probs(tok, router).gather(1, idx)
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
         return gates, idx, BA.moe_slots(idx, num_experts, cap), cap
@@ -3620,6 +3839,766 @@ def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None,
     _mesh_leg_across(device, cfg, torch.cuda.device_count()
                      if cards is None else cards, moe_cfgs)
     return launches
+
+
+# ---------------------------------------------------------------- phase 5d
+# A mesh step against one card (or another run of the same function) is
+# held to twice the in-run noise floor: the distance, on one card, between
+# the reference run and the same step with only the mesh's roundings
+# emulated (``_tp_partials``: the o-projection and down products as tp
+# bf16 partials summed in bf16) or, for a mesh held against its own plain
+# attention, between the kernels and their plain versions. Measured
+# relative to each row's largest logit, and to the largest written K/V.
+# A floor below MESH_SERVE_MIN_FLOOR counts as that (an exact emulation).
+MESH_SERVE_FLOOR_X = 2.0
+MESH_SERVE_MIN_FLOOR = 1e-3
+MESH_SERVE_KV0_ULPS = 2     # layer 0's written K/V: the same inputs
+# (tokens already in pages, tokens this step) of each request of a step
+SERVE_STEPS = {
+    "packed": [(0, 256), (512, 200), (1024, 1), (896, 1), (768, 1),
+               (896, 1), (300, 1), (64, 1)],
+    "prefill": [(0, 128), (256, 64), (512, 32), (100, 16)],
+    "decode": [(1024, 1), (512, 1), (2048, 1), (700, 1), (64, 1), (300, 1),
+               (1500, 1), (900, 1)],
+}
+SP_ONE_CARD_LEN = 16384         # qwen2.5-32b's sp leg against one card
+SP_MAX_LEN = 524288             # the reference's long_500k sequence
+
+
+def _device_batch(arrs, dev):
+    """A ``DecodeBatch`` of the host arrays on ``dev``."""
+    import torch
+    from repro_torch.models import DecodeBatch
+
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    return DecodeBatch(**{f: conv(v) for f, v in arrs.items()})
+
+
+def _pages(cfg, seqs):
+    """Pages of each attention type a leg's pool holds for ``seqs``."""
+    return sum(-(-(o + n) // cfg.tokens_per_page) for o, n in seqs) + 8
+
+
+def _serve_buffer(model, units, seed, dev, pages, one=None, kv0=0):
+    """A leg's unified buffer on ``dev`` (``input_specs.example_pool``
+    layout): N(0, 1) bf16 K/V in the attention pages, N(0, 0.1) fp32
+    state (bf16 pairs) in the state pages, drawn from ``seed``. With
+    ``one`` (the one-card model) the attention pages are the one-card
+    buffer's, K/V heads ``kv0 ..`` of each kept: a rank's share at tp."""
+    import torch
+    from repro_torch.launch.input_specs import example_pool
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    buf = torch.zeros(units, dtype=torch.bfloat16, device=dev)
+    _, first, _ = example_pool(model, pages)
+    views = model._layer_views(buf)
+    for s in model.kv_specs():
+        lo = first[s.name][0] * s.page_units
+        n = first[s.name][1] * s.page_units
+        if s.kind == "mamba":
+            buf[lo:lo + n].view(torch.float32).normal_(0.0, 0.1,
+                                                       generator=gen)
+            continue
+        if one is None:
+            buf[lo:lo + n].normal_(generator=gen)
+            continue
+        ps = one.page_shapes()[s.name]           # (2, TPP, KV, D)
+        whole = torch.empty((first[s.name][1], views[s.name][1]) + ps,
+                            dtype=torch.bfloat16, device=dev)
+        whole.normal_(generator=gen)
+        kvl = views[s.name][4]
+        buf[lo:lo + n].view(whole.shape[:4] + (kvl, ps[-1])).copy_(
+            whole[..., kv0:kv0 + kvl, :])
+        del whole
+    return buf
+
+
+def _written_rows(model, arrs, units, layer0=False):
+    """Row ids (rows of KVL * D units) of every K and V slot a batch's live
+    write ids cover, in every layer of each attention type (with
+    ``layer0`` layer 0 only), as an int64 numpy array (the same ids in the
+    one-card buffer, whose rows are KV * D units, when the page ids
+    are)."""
+    out = []
+    pos = arrs["positions"]
+    import torch
+    for s in model.kv_specs():
+        if s.kind not in ("full_attn", "swa"):
+            continue
+        vp, nl, _, tpp, kvl, d = model._layer_views(
+            torch.empty(units))[s.name]
+        w = arrs["write_eids"][s.name].reshape(-1)
+        p = pos.reshape(-1)
+        live = w >= 0
+        base = (w[live].astype(np.int64) * nl * 2 * tpp + p[live] % tpp)
+        for layer in range(1 if layer0 else nl):
+            for sel in (0, 1):
+                out.append(base + (layer * 2 + sel) * tpp)
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def _serve_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_varlen
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    return {"varlen": flash_attention_varlen.launches,
+            "paged": paged_decode_attention.launches,
+            "scan": mk.mamba_chunk_scan_varlen.launches}
+
+
+def _serve_run(model, params, buf, arrs, layout, dev, repeat=1):
+    """``repeat`` serve steps of one layout (the buffer's written pages
+    written again each time): logits of the last, each step's ms (host
+    clock around a synchronised step) and the kernel launches of the
+    first step."""
+    import torch
+    batch = _device_batch(arrs, dev)
+    times, launches = [], None
+    for i in range(repeat):
+        c0 = _serve_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits = model.serve_step(params, buf, batch,
+                                  prefill=layout != "decode")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        if launches is None:
+            launches = {k: v - c0[k] for k, v in _serve_counts().items()}
+    return logits, times, launches
+
+
+def _serve_terms(model, units, arrs, layout):
+    """The planner's per-card terms for one serve step of ``arrs`` on
+    ``model`` (one card or one rank) with a pool of ``units``."""
+    from repro_torch.core.spec import BYTES_PER_UNIT
+    from repro_torch.launch import dryrun
+    tok = arrs["tokens"]
+    rows = len(arrs["seq_lens"])
+    ctx = 0 if layout == "decode" else sum(
+        t.shape[-1] * t.shape[-2] for t in arrs["tables"].values()) * \
+        model.cfg.tokens_per_page
+    return dryrun.serve_terms(model, units * BYTES_PER_UNIT, tok.size, rows,
+                              ctx)
+
+
+def _serve_rank(dist, dev, spec):
+    """One rank of a serving mesh (leg ii): ``spec["cfg"]`` on this rank
+    (weights from seed 0: the one-card draw's slices, or with
+    ``spec["local"]`` the rank's own draw), then for each layout the
+    rank's batch (``split_batch`` of the leg's (1, 1) example batch, or
+    with ``spec["long"]`` one sequence of that many tokens split over its
+    members) over its buffer (with ``spec["one_card"]`` the one-card
+    buffer's heads, else its own random pages), ``spec["repeat"]`` steps:
+    local logits, written K/V rows, step ms, launches, bytes by
+    collective, peak and the planner's terms. ``spec["plain"]``: the
+    attention kernels' plain versions instead (the same function)."""
+    import dataclasses
+    with _plain_attention() if spec.get("plain") else \
+            contextlib.nullcontext():
+        return _serve_rank_steps(dataclasses.replace(
+            dist, sp=spec.get("sp", False)), dev, spec)
+
+
+def _serve_rank_steps(dist, dev, spec):
+    """``_serve_rank``'s work, under its attention. ``spec["rows_of"]``
+    (a tp-only mesh): the step's rows as each data rank of a mesh of that
+    many data ranks takes them, one after another."""
+    import torch
+    from repro_torch.launch.input_specs import example_batch, split_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.tp import Dist
+    cuda = dev.type == "cuda"
+    cfg = spec["cfg"]
+    model = build_model(cfg, dist)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, device=dev, **(
+        {"local": True} if spec.get("local") else {}))
+    one = build_model(cfg) if spec.get("one_card") else None
+    kv0 = (dist.model_rank // model.ri["repl"]) * model.kv_local
+    steps = spec.get("repeat", 2)
+    out = {"card": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "init_peak": torch.cuda.max_memory_allocated(dev) if cuda
+           else None}
+    for layout in spec["layouts"]:
+        if spec.get("long"):
+            arrs, units = _long_sp_batch(model, spec["long"], dist)
+            buf = torch.empty(units, dtype=torch.bfloat16, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(dist.rank)
+            buf.normal_(generator=gen)
+            parts = [arrs]
+        else:
+            seqs = spec["steps"][layout]
+            pages = _pages(cfg, seqs)
+            whole, units = example_batch(model, seqs, layout == "packed", 7,
+                                         pages)
+            # with rows_of: the rows each data rank of a dp-rank mesh
+            # takes, one after another on this tp-only mesh
+            split = build_model(cfg, Dist(dp=spec["rows_of"], tp=dist.tp,
+                                          repl=dist.repl)) \
+                if spec.get("rows_of") else model
+            parts = [split_batch(whole, split, d, dist.model_rank)
+                     for d in (range(spec["rows_of"]) if spec.get("rows_of")
+                               else [dist.data_rank])]
+            buf = _serve_buffer(model, units, 11 + (
+                0 if one is not None else dist.model_rank), dev, pages,
+                one, kv0)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = dict(dist.comm_bytes)
+        replay = spec.get("replay", {}).get(layout)
+        with _routed([], replay) if replay else contextlib.nullcontext():
+            runs = [_serve_run(model, params, buf, a, layout, dev, steps)
+                    for a in parts]
+        logits = torch.cat([r[0] for r in runs])
+        times = runs[0][1]
+        launches = {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
+        arrs = parts[0]
+        rows = np.concatenate([_written_rows(model, a, units)
+                               for a in parts])
+        kv = buf.view(-1, model.kv_local * cfg.head_dim)[
+            torch.from_numpy(rows).to(dev)]
+        first = np.isin(rows, np.concatenate([
+            _written_rows(model, a, units, True) for a in parts]))
+        real = torch.arange(logits.shape[-1], device=dev) + \
+            dist.model_rank * logits.shape[-1] < cfg.vocab_size
+        out[layout] = dict(
+            logits=logits.float().cpu().numpy(),
+            finite=bool(torch.isfinite(logits[:, real]).all()),
+            rows=rows, kv=kv.float().cpu().numpy(), kv0=kv0, first=first,
+            step_ms=times, launches=launches,
+            comm={k: (dist.comm_bytes[k] - before[k]) / steps
+                  for k in before},
+            peak=torch.cuda.max_memory_allocated(dev) if cuda else None,
+            terms=_serve_terms(model, units, arrs, layout))
+        del buf
+    return out
+
+
+def _long_sp_batch(model, length, dist):
+    """One sequence of ``length`` tokens decoding its last token, on one
+    rank of an ``sp`` mesh: its pages (page ``i`` on member ``i %
+    members``, ``input_specs.page_member``) numbered 0 .. in its own pool
+    of exactly them (plus the scratch page), the token's write kept on
+    the member that holds its page. Returns (arrays, pool units)."""
+    from repro_torch.launch.input_specs import SENTINEL_POS, page_member
+    s = model.kv_specs()[0]
+    tpp = s.tokens_per_page
+    mi, members = page_member(model, dist.data_rank, dist.model_rank)
+    n_pages = -(-length // tpp)
+    mine = np.arange(mi, n_pages, members)
+    i32 = np.int32
+    pos = length - 1
+    tables = np.full((1, 1, 1, len(mine) + 1), -1, i32)
+    page_pos = np.full(tables.shape, SENTINEL_POS, i32)
+    tables[0, 0, 0, :len(mine)] = np.arange(len(mine))
+    page_pos[0, 0, 0, :len(mine)] = mine * tpp
+    owner = (pos // tpp) % members == mi
+    eid = int(np.searchsorted(mine, pos // tpp)) if owner else -1
+    arrs = dict(tokens=np.array([[17]], i32), positions=np.array([[pos]], i32),
+                seq_lens=np.array([length], i32), last_idx=np.zeros(1, i32),
+                tables={s.name: tables}, page_pos={s.name: page_pos},
+                write_eids={s.name: np.array([[[[eid]]]], i32)},
+                state_eids={})
+    for f in ("mm_embeds", "mm_mask", "mrope_pos", "enc_embeds",
+              "enc_write_eids", "enc_lens", "seg_ids", "chunk_start",
+              "seg_start_tok", "seg_last_tok", "page_seg"):
+        arrs[f] = None
+    return arrs, (len(mine) + 1) * s.page_units
+
+
+@contextlib.contextmanager
+def _tp_partials(tp, d_model):
+    """One card computing the roundings of a tp-rank mesh: the
+    o-projection and the MLP's down product as ``tp`` partial products
+    over the rank's head / d_ff slices, each rounded to bf16 and summed in
+    bf16 one after another (an all-reduce's roundings, in one order)."""
+    from repro_torch.models import blocks_attn
+    dense = blocks_attn.dense
+
+    def partials(x, w, b=None):
+        caller = sys._getframe(1).f_code.co_name
+        if tp == 1 or b is not None or w.shape[-1] != d_model or \
+                caller not in ("attn_compute", "attn_compute_padded",
+                               "attn_decode", "mlp_block"):
+            return dense(x, w, b)
+        k = w.shape[0] // tp
+        acc = None
+        for i in range(tp):
+            part = dense(x[..., i * k:(i + 1) * k], w[i * k:(i + 1) * k])
+            acc = part if acc is None else (acc.float() + part.float()).to(
+                part.dtype)
+        return acc
+
+    blocks_attn.dense = partials
+    try:
+        yield
+    finally:
+        blocks_attn.dense = dense
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The serve path's varlen and paged calls through their plain
+    versions (the same function, in torch)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_varlen_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_plain)
+    from repro_torch.models import blocks_attn
+    saved = blocks_attn.flash_attention_varlen, \
+        blocks_attn.paged_decode_attention
+    blocks_attn.flash_attention_varlen = \
+        lambda *a, blk_q=0, blk_k=0, kv_tiles=None, **k: \
+        flash_attention_varlen_plain(*a, **k)
+    blocks_attn.paged_decode_attention = paged_decode_attention_plain
+    try:
+        yield
+    finally:
+        blocks_attn.flash_attention_varlen, \
+            blocks_attn.paged_decode_attention = saved
+
+
+@contextlib.contextmanager
+def _routed(calls, replay=None):
+    """``blocks_attn.moe_route`` through ``_routing(calls, replay)``."""
+    from repro_torch.models import blocks_attn
+    route = blocks_attn.moe_route
+    blocks_attn.moe_route = _routing(calls, replay)
+    try:
+        yield
+    finally:
+        blocks_attn.moe_route = route
+
+
+def _serve_one_card(spec, dev, floor=None):
+    """The one-card run a leg is held against: ``spec["cfg"]`` with the
+    same weights (seed 0), example batches and buffer on one card:
+    {layout: (logits, written K/V rows, their values (rows, KV, D), step
+    ms, noise floor, the MoE layers' top-k experts by call)}. ``floor``
+    (a context manager: ``_tp_partials`` or ``_plain_attention``) runs
+    each step again, on a fresh buffer, under it and routed as the first
+    run was; the noise floor is that run's (relative logit, relative K/V)
+    distance from the first (``_serve_distance``). Its memory is released
+    before it returns."""
+    import gc
+
+    import torch
+    from repro_torch.launch.input_specs import example_batch
+    from repro_torch.models import build_model
+    cfg = spec["cfg"]
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    out = {}
+    for layout in spec["layouts"]:
+        seqs = spec["steps"][layout]
+        pages = _pages(cfg, seqs)
+        arrs, units = example_batch(model, seqs, layout == "packed", 7,
+                                    pages)
+        rows = _written_rows(model, arrs, units)
+        idx = torch.from_numpy(rows).to(dev)
+        runs, calls = [], []
+        for i, ctx in enumerate([contextlib.nullcontext] +
+                                ([floor] if floor else [])):
+            buf = _serve_buffer(model, units, 11, dev, pages)
+            with ctx(), _routed(calls if i == 0 else [],
+                                calls if i else None):
+                logits, times, _ = _serve_run(model, params, buf, arrs,
+                                              layout, dev)
+            kv = buf.view(-1, model.kv_local * cfg.head_dim)[idx]
+            runs.append((logits.float().cpu().numpy(), kv.view(
+                len(rows), model.kv_local, cfg.head_dim).float().cpu()
+                .numpy(), times))
+            del buf
+        noise = _serve_distance(runs[1][0], runs[0][0], runs[1][1],
+                                runs[0][1], cfg.vocab_size) if floor else None
+        out[layout] = (runs[0][0], rows, runs[0][1], runs[0][2], noise,
+                       calls)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_distance(got, want, got_kv, want_kv, vocab):
+    """(relative logit distance: per row max |diff| over the row's largest
+    |logit| of ``want``, relative K/V distance: max |diff| over the
+    largest |K/V|; None without K/V)."""
+    got, want = got[:, :vocab], want[:, :vocab]
+    rel = float((np.abs(got - want).max(-1) / np.abs(want).max(-1)).max())
+    if got_kv is None or not want_kv.size:
+        return rel, None
+    return rel, float(np.abs(got_kv - want_kv).max() / np.abs(want_kv).max())
+
+
+def _bf16_ulp(x):
+    return float(np.exp2(np.floor(np.log2(max(abs(x), 1e-30))) - 7))
+
+
+def _global_serve_logits(ranks, layout, shape, sp):
+    """The reference's global logits from every rank's local ones: the
+    vocabulary over the model ranks, padded rows over the data ranks."""
+    dp, tp = shape
+    rows = range(dp) if layout != "packed" and not sp else range(1)
+    return np.concatenate([np.concatenate(
+        [ranks[d * tp + m][layout]["logits"] for m in range(tp)], axis=-1)
+        for d in rows], axis=0)
+
+
+def _serve_leg(label, shape, spec, device, ref=None, ref_label="",
+               plain_ref=None, plain_floor=None):
+    """One leg (ii) mesh of ``spec`` (``_serve_rank``) on a ``shape`` mesh,
+    one process a card (NCCL). Every layout's logits finite; with ``ref``
+    (``_serve_one_card``'s, or a ``_serve_leg`` run's global logits) held
+    to it by ``_serve_compare``. Logs each rank's step ms, peak against
+    the planner,
+    bytes a step by collective and launches. Returns (ranks, {layout:
+    global logits}, launches of every rank summed)."""
+    from repro_torch.launch.mesh import run_mesh
+    from repro_torch.models.tp import replica_info
+    cuda = device == "cuda"
+    cfg = spec["cfg"]
+    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, shape[1])["repl"]
+    t0 = time.perf_counter()
+    ranks = run_mesh(_serve_rank, shape, args=(spec,),
+                     backend="nccl" if cuda else "gloo", device=device,
+                     timeout=300, deadline=1200, sp=spec.get("sp", False),
+                     repl=repl)
+    wall = time.perf_counter() - t0
+    tag = (f"{cfg.name} at {cfg.num_layers} layers, {shape[0]} x "
+           f"{shape[1]}{' sp' if spec.get('sp') else ''}"
+           f"{' (plain attention)' if spec.get('plain') else ''}")
+    launches = {"varlen": 0, "paged": 0, "scan": 0}
+    glob = {}
+    for layout in spec["layouts"]:
+        logits = _global_serve_logits(ranks, layout, shape, spec.get("sp"))
+        glob[layout] = logits
+        line = (f"[mesh serve] (ii) {label}: {tag}, {layout} "
+                f"({wall:.1f} s for the mesh run with start-up): logits "
+                f"{logits.shape}")
+        bad = not all(r[layout]["finite"] for r in ranks)
+        if ref is not None:
+            line_r, bad_r = _serve_compare(ranks, layout, logits, ref[layout],
+                                           cfg)
+            line += f"; against {ref_label}: {line_r}"
+            bad = bad or bad_r
+        if plain_ref is not None:
+            line_p, bad_p = _serve_compare(ranks, layout, logits,
+                                           (plain_ref[layout],), cfg,
+                                           plain_floor[layout])
+            line += (f"; against the same mesh with the attention's plain "
+                     f"versions: {line_p}")
+            bad = bad or bad_p
+        log(line)
+        for rank, r in enumerate(ranks):
+            x = r[layout]
+            mb = {k: v / 1e6 for k, v in x["comm"].items()}
+            log(f"[mesh serve] (ii) {label} {layout} rank {rank} "
+                f"[{r['card']}]: step_ms="
+                f"{[round(t, 2) for t in x['step_ms']]} launches "
+                f"{x['launches']} bytes a step: all-reduce "
+                f"{mb['all_reduce']:.2f} MB, combine {mb['combine']:.2f} MB, "
+                f"all-to-all {mb['all_to_all']:.2f} MB, all-gather "
+                f"{mb['all_gather']:.2f} MB; peak_mem_gb="
+                f"{(x['peak'] or 0) / 1e9:.2f} (init "
+                f"{(r['init_peak'] or 0) / 1e9:.2f})")
+            for k in launches:
+                launches[k] += x["launches"][k]
+            if cuda and not spec.get("plain"):    # the port's path only
+                _fit(f"serve {tag} {layout}, rank {rank}", x["terms"],
+                     x["peak"])
+        if bad:
+            raise AssertionError(f"mesh serve leg (ii) {label}: {line}")
+    return ranks, glob, launches
+
+
+def _serve_compare(ranks, layout, logits, ref, cfg, floor=None):
+    """A mesh step against a reference run of the same function (``ref``:
+    (logits, written rows, their K/V (rows, KV, D), ..., noise floor) of
+    one card, or (logits,) of another run) within MESH_SERVE_FLOOR_X
+    times the noise floor (``floor``, else the reference's own; at least
+    MESH_SERVE_MIN_FLOOR): the relative logit distance and, with K/V, the
+    relative distance of every rank's written K/V from its heads of the
+    reference's; every row's greedy token the reference's or a near tie
+    there (the reference's gap between the two within twice the row's
+    max diff); layer 0's writes (inputs the same but for GEMMs over head
+    slices) within MESH_SERVE_KV0_ULPS ulps of their largest value.
+    Returns (log line, failed)."""
+    v = cfg.vocab_size
+    got, want = logits[:, :v], ref[0][:, :v]
+    floor = floor or (ref[4] if len(ref) > 4 else None) or (0.0, 0.0)
+    bar = [MESH_SERVE_FLOOR_X * max(f or 0.0, MESH_SERVE_MIN_FLOOR)
+           for f in floor]
+    diff = np.abs(got - want).max(-1)
+    rel, _ = _serve_distance(got, want, None, None, v)
+    g, w = got.argmax(-1), want.argmax(-1)
+    gap = want[np.arange(len(w)), w] - want[np.arange(len(w)), g]
+    flips = int((g != w).sum())
+    ties = int(((g != w) & (gap <= 2 * diff)).sum())
+    line = (f"max abs logit diff {diff.max():.3e} (max |logit| "
+            f"{np.abs(want).max():.3f}), relative {rel:.3e} (noise floor "
+            f"{floor[0]:.3e}, bar {bar[0]:.3e}); greedy tokens differ in "
+            f"{flips} of {len(w)} rows ({ties} near ties)")
+    bad = not rel <= bar[0] or flips != ties
+    if len(ref) > 2:
+        order = np.argsort(ref[1])
+        worst0 = worst = 0.0
+        for r in ranks:
+            x = r[layout]
+            if not len(x["rows"]):
+                continue
+            pos = order[np.searchsorted(ref[1][order], x["rows"])]
+            kvl = x["kv"].shape[1] // cfg.head_dim
+            want_kv = ref[2][pos][:, x["kv0"]:x["kv0"] + kvl].reshape(
+                x["kv"].shape)
+            d = np.abs(x["kv"] - want_kv)
+            f = x["first"]
+            worst0 = max(worst0, float(d[f].max() / _bf16_ulp(
+                np.abs(want_kv[f]).max())))
+            worst = max(worst, float(d.max() / np.abs(ref[2]).max()))
+        line += (f"; written K/V: layer 0 within {worst0:.2f} ulps (bar "
+                 f"{MESH_SERVE_KV0_ULPS}), every layer within {worst:.3e} "
+                 f"of the largest (noise floor {floor[1] or 0:.3e}, bar "
+                 f"{bar[1]:.3e})")
+        bad = bad or worst0 > MESH_SERVE_KV0_ULPS or not worst <= bar[1]
+    return line, bad
+
+
+def _serve_leg_one(device, legs):
+    """Leg (i): each of ``legs`` ((cfg, layouts, steps)) on a 1 x 1 mesh of
+    this process (NCCL on the card) against the single-card
+    ``serve_step``, same weights, batch and buffer: logits and every byte
+    of the buffer equal, and the same kernel launches. Returns the mesh
+    runs' launches."""
+    import gc
+
+    import torch
+    from repro_torch.launch.input_specs import example_batch, example_pool
+    from repro_torch.models import build_model
+    dev = torch.device(device)
+    total = {"varlen": 0, "paged": 0, "scan": 0}
+    with _one_card_mesh(device) as dist:
+        for cfg, layouts, steps in legs:
+            one, mesh = build_model(cfg), build_model(cfg, dist)
+            params = one.init(0, device=dev)
+            for layout in layouts:
+                pages = _pages(cfg, steps[layout])
+                arrs, units = example_batch(one, steps[layout],
+                                            layout == "packed", 7, pages)
+                buf0 = _serve_buffer(one, units, 11, dev, pages)
+                res = []
+                for model in (one, mesh):
+                    buf = buf0.clone()
+                    res.append(_serve_run(model, params, buf, arrs, layout,
+                                          dev) + (buf,))
+                (l1, t1, n1, b1), (l2, t2, n2, b2) = res
+                # the scratch page (the last large page, where dropped
+                # writes land in no fixed order) excepted
+                keep = units - example_pool(one, pages)[2]
+                same_l = torch.equal(l1, l2)
+                same_b = torch.equal(b1[:keep].view(torch.int16),
+                                     b2[:keep].view(torch.int16))
+                same = same_l and same_b
+                log(f"[mesh serve] (i) {cfg.name} at {cfg.num_layers} layers "
+                    f"on a 1 x 1 mesh, {layout} ({len(steps[layout])} "
+                    f"requests): bit for bit equal to the single-card step: "
+                    f"logits {same_l}, buffer (scratch page excepted) "
+                    f"{same_b}; launches {n2} (single card {n1}); step ms "
+                    f"{t2[0]:.2f} (single card {t1[0]:.2f})")
+                # padded T > 1 attention is plain torch: no kernel there
+                if not same or n1 != n2 or (layout != "prefill" and
+                                            not sum(n2.values())):
+                    raise AssertionError(f"mesh serve leg (i) {cfg.name} "
+                                         f"{layout}: not the single-card "
+                                         "step")
+                for k in total:
+                    total[k] += n2[k]
+                del buf0, res
+            del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total
+
+
+def _sp_max_length(cfg, shape):
+    """The longest sequence, up to SP_MAX_LEN, whose sp decode the planner
+    fits on each card of ``shape`` (one rank's weights, its pages and a
+    step's activations), in halvings of SP_MAX_LEN."""
+    from repro_torch.core.spec import BYTES_PER_UNIT
+    from repro_torch.launch import dryrun
+    from repro_torch.models.tp import Dist, replica_info
+    from repro_torch.models import build_model
+    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, shape[1])["repl"]
+    model = build_model(cfg, Dist(dp=shape[0], tp=shape[1], sp=True,
+                                  repl=repl))
+    page = model.kv_specs()[0].page_units
+    length = SP_MAX_LEN
+    while length > cfg.tokens_per_page:
+        pages = -(-length // cfg.tokens_per_page) // (shape[0] * repl) + 2
+        terms = dryrun.serve_terms(model, pages * page * BYTES_PER_UNIT, 1,
+                                   1)
+        if dryrun.peak(terms) <= dryrun.fit_bytes(shape):
+            return length, terms
+        length //= 2
+    raise AssertionError(f"{cfg.name}: no sp decode fits a {shape} mesh")
+
+
+def phase_mesh_serve(device="cuda", cards=None, cfgs=None, steps=None):
+    """Phase 5d, serving across cards: ``serve_step`` of the dense, MoE,
+    VLM and hybrid families on a ``(data, model)`` mesh (NCCL), its
+    batches from ``input_specs.split_batch``. (i) On one
+    card: granite-3-2b at full depth (a packed mixed step, a padded
+    prefill, a padded decode) and zamba2-1.2b (a packed step) on a 1 x 1
+    mesh, bit for bit the single-card step. (ii) With 4 cards (else
+    skipped, and said so): granite 1 x 4 and dbrx-132b 1 x 4 at 8 layers
+    against one card; qwen2-vl-2b 1 x 4 (its K/V heads replicated twice:
+    the replica-group combine) against the same mesh with the
+    attention's plain versions, and its distance to one card reported
+    (the reference's combine sums partials of different q heads, ROADMAP
+    queue 3); dbrx-132b at 40 layers (or the planner's largest depth);
+    qwen2.5-32b 2 x 2 ``sp`` decoding one sequence, at
+    SP_ONE_CARD_LEN against one card and at the planner's longest
+    length; zamba2-1.2b 2 x 2 against 1 x 2 on each data rank's rows.
+    Returns the launches of every mesh run, for the kernels line.
+
+    A CPU dry run (plain kernels, gloo, no memory checks): ``cfgs`` a dict
+    of reduced configs by arch, ``steps`` small step shapes and a
+    pretended count of ``cards``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    cfgs = cfgs or {}
+    steps = steps or SERVE_STEPS
+
+    def cfg_of(arch, **kw):
+        return dataclasses.replace(cfgs.get(arch, ARCHS[arch]), **kw)
+
+    zamba = cfg_of("zamba2-1.2b", **({} if cfgs else {"tokens_per_page":
+                                                      19}))
+    total = _serve_leg_one(device, [
+        (cfg_of("granite-3-2b"), ("packed", "prefill", "decode"), steps),
+        (zamba, ("packed",), steps)])
+    cards = torch.cuda.device_count() if cards is None else cards
+    if cards < 4:
+        log(f"[mesh serve] (ii) skipped: {cards} card visible "
+            f"(torch.cuda.device_count()); its meshes (granite, qwen2-vl-2b "
+            f"and dbrx-132b 1 x 4, qwen2.5-32b 2 x 2 sp, zamba2-1.2b 2 x 2 "
+            f"and 1 x 2) need 4 cards")
+        return total
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+
+    def add(n):
+        for k in total:
+            total[k] += n[k]
+
+    pd = ("packed", "decode")
+    # granite: 8 K/V heads over 4 ranks, no replicas
+    spec = dict(cfg=cfg_of("granite-3-2b"), layouts=pd, steps=steps,
+                one_card=True)
+    add(_serve_leg("granite", (1, 4), spec, device, _serve_one_card(
+        spec, dev, _tp4(spec)), "one card")[2])
+    # qwen2-vl-2b: 2 K/V heads over 4 ranks, two replicas a head
+    spec = dict(cfg=cfg_of("qwen2-vl-2b"), layouts=pd, steps=steps,
+                one_card=True)
+    one = _serve_one_card(spec, dev, _plain_attention)
+    _, plain, _ = _serve_leg("qwen2-vl plain", (1, 4), dict(spec, plain=True,
+                                                           repeat=1), device)
+    _, glob, n = _serve_leg("qwen2-vl", (1, 4), spec, device,
+                            plain_ref=plain, plain_floor={
+                                k: one[k][4] for k in pd})
+    add(n)
+    for layout in pd:
+        v = spec["cfg"].vocab_size
+        log(f"[mesh serve] (ii) qwen2-vl 1 x 4 {layout} against one card: "
+            f"max abs logit diff "
+            f"{np.abs(glob[layout][:, :v] - one[layout][0][:, :v]).max():.3e}"
+            f" (not a bar: the reference's replica-group combine sums the "
+            f"partials of different q heads)")
+    # dbrx-132b: 8 layers against one card, then full depth
+    # routed as the one-card run routed: a router near-tie that bf16
+    # rounding flips moves a MoE's outputs far past the rounding itself
+    spec = dict(cfg=cfg_of(DBRX, num_layers=8 if not cfgs else
+                           cfg_of(DBRX).num_layers),
+                layouts=pd, steps=steps, one_card=True)
+    one = _serve_one_card(spec, dev, _tp4(spec))
+    add(_serve_leg("dbrx", (1, 4), dict(spec, replay={
+        k: one[k][5] for k in pd}), device, one,
+        "one card at 8 layers, routed as it routed")[2])
+    full = cfg_of(DBRX)
+    depth = full.num_layers
+    if not cfgs:
+        from repro_torch.launch.dryrun import largest_depth
+        depth = largest_depth(full, lambda c: _serve_peak(c, (1, 4), steps)
+                              <= _fit_bound((1, 4)))
+    log(f"[mesh serve] (ii) dbrx-132b 1 x 4: the planner fits {depth} of "
+        f"{full.num_layers} layers with this leg's pool and steps")
+    add(_serve_leg("dbrx full", (1, 4), dict(
+        cfg=dataclasses.replace(full, num_layers=depth), layouts=pd,
+        steps=steps, local=True, repeat=3), device)[2])
+    # qwen2.5-32b: one long sequence, sequence-parallel over 2 data ranks
+    qwen = cfg_of("qwen2.5-32b")
+    short = 64 if cfgs else SP_ONE_CARD_LEN
+    spec = dict(cfg=qwen, layouts=("decode",), steps={"decode": [
+        (short - 1, 1)]}, one_card=True, sp=True)
+    add(_serve_leg("qwen2.5-32b sp", (2, 2), spec, device, _serve_one_card(
+        spec, dev, _tp4(spec, 2)), "one card")[2])
+    length, terms = (256, None) if cfgs else _sp_max_length(qwen, (2, 2))
+    log(f"[mesh serve] (ii) qwen2.5-32b 2 x 2 sp: the planner's longest "
+        f"decode fits {length} tokens (of {SP_MAX_LEN})")
+    add(_serve_leg("qwen2.5-32b sp long", (2, 2), dict(
+        cfg=qwen, layouts=("decode",), long=length, sp=True, repeat=2),
+        device)[2])
+    # zamba2-1.2b: tp 2 on both meshes (tp moves the hybrid's function);
+    # 1 x 2 takes each data rank's rows in turn, so that each GEMM has the
+    # rows it has on 2 x 2 (cuBLAS rounds another row count otherwise)
+    spec = dict(cfg=zamba, layouts=("prefill", "decode"), steps=steps)
+    _, glob, n = _serve_leg("zamba2 1 x 2", (1, 2), dict(spec, rows_of=2),
+                            device)
+    add(n)
+    ref = {k: (v,) for k, v in glob.items()}
+    add(_serve_leg("zamba2 2 x 2", (2, 2), spec, device, ref,
+                   "1 x 2 on each data rank's rows")[2])
+    return total
+
+
+def _tp4(spec, tp=4):
+    """``_tp_partials`` at ``tp`` for the leg's model, as a factory."""
+    return lambda: _tp_partials(tp, spec["cfg"].d_model)
+
+
+def _fit_bound(shape):
+    from repro_torch.launch import dryrun
+    return dryrun.fit_bytes(shape)
+
+
+def _serve_peak(cfg, shape, steps):
+    """The planner's per-card peak of a leg (ii) rank of ``cfg`` on
+    ``shape``: the largest of its packed and decode steps."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import example_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.tp import Dist, replica_info
+    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, shape[1])["repl"]
+    model = build_model(cfg, Dist(dp=shape[0], tp=shape[1], repl=repl))
+    peaks = []
+    for layout in ("packed", "decode"):
+        arrs, units = example_batch(model, steps[layout], layout == "packed",
+                                    7, _pages(cfg, steps[layout]))
+        peaks.append(dryrun.peak(_serve_terms(model, units, arrs, layout)))
+    return max(peaks)
 
 
 # ---------------------------------------------------------------- phase 5b
@@ -4233,6 +5212,7 @@ def main() -> int:
     smi = timed(phase_env)
     kres = timed(phase_kernels)
     pres = timed(phase_paged_kernel)
+    lres = timed(phase_lse_kernels)
     mres = timed(phase_mamba_kernel)
     bres = timed(phase_mamba_bwd_kernel)
     dres = timed(phase_dense_kernel)
@@ -4242,6 +5222,9 @@ def main() -> int:
     timed(phase_small_reference, "zamba2-1.2b")
     train = timed(phase_train)
     mesh_fwd, mesh_bwd = timed(phase_mesh_train, train["step_ms"])
+    serve = timed(phase_mesh_serve)
+    launches["varlen"] += serve["varlen"]
+    launches["paged"] += serve["paged"]
     fam = timed(phase_train_families)
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
                   phase_encdec_rwkv, phase_spec_fleet):
@@ -4266,7 +5249,8 @@ def main() -> int:
                   "varlen_flash.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:64",
         "launches": launches["varlen"],
-        "max_abs_err": max(r["err"] for r in kres),
+        "max_abs_err": max(r["err"] for r in kres + [
+            x for x in lres if x["kernel"] == "varlen"]),
         "ms": mixed["ms"],
         "plain_ms": mixed["plain_ms"],
         "bound_ms": mixed["bound_ms"],
@@ -4279,7 +5263,8 @@ def main() -> int:
                   "paged_decode.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:29",
         "launches": launches["paged"],
-        "max_abs_err": max(r["err"] for r in pres),
+        "max_abs_err": max(r["err"] for r in pres + [
+            x for x in lres if x["kernel"] == "paged"]),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"],
@@ -4290,7 +5275,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:19",
-        "launches": hybrid["mamba"] + fam["scan_fwd"],
+        "launches": hybrid["mamba"] + fam["scan_fwd"] + serve["scan"],
         "max_abs_err": max(r["err"] for r in mres),
         "ms": mres[0]["ms"],
         "plain_ms": mres[0]["plain_ms"],

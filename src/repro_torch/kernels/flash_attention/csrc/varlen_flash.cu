@@ -60,6 +60,12 @@
 //    the same bytes.
 //  * Outputs leave through shared memory as 16-byte stores into the
 //    strided out.
+//  * On request (a non-null `lse`), each row's natural-log log-sum-exp of
+//    its scaled scores over the slots it sees goes to lse (BH, T) fp32,
+//    -inf for a row that sees nothing: ln 2 (m + log2 l) of the row's
+//    final base-2 pair, written by the block that writes the row's output.
+//    Partial results of a split stream (sequence-parallel decode, K/V
+//    replica groups) combine through it. Without it nothing else changes.
 //  * Head dim 120 (h2o-danube-3-4b) runs the D 128 instance with the true
 //    head dim `dh` at run time: the tensor maps' first dimension is 120,
 //    so TMA fills columns 120-127 of every Q, K and V tile with zeros and
@@ -169,6 +175,12 @@ __device__ __forceinline__ void softmax_step(float (&sc)[NR], const int* meta,
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
 }
 
+// A row's natural-log log-sum-exp from its base-2 running max m (-inf
+// when it has seen nothing) and its sum l of 2^(score - m).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == -INFINITY ? -INFINITY : (m + log2f(l)) * 0.6931471805599453f;
+}
+
 // The first `rows` staged rows of a warpgroup to out: row r is token tok0 +
 // r / G, head h0 + r % G, its first dh columns; 16 bytes a thread per step.
 template <int D>
@@ -198,7 +210,7 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
                     const int* __restrict__ kv_pos,
                     const int4* __restrict__ kv_tiles,
                     bf16* __restrict__ out, int64_t out_h, int64_t out_t,
-                    float* __restrict__ part_acc,
+                    float* __restrict__ lse, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ counters,
                     int T, int S, int G, int dh, int window, int n_splits) {
   using Gm = Geo<D>;
@@ -469,6 +481,17 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (used == 1) {
     if (rows > 0) {
+      if (lse != nullptr && (lane & 3) == 0) {
+        const float ls[2] = {l0, l1};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r < rows) {
+            lse[(int64_t)(kvh * G + r % G) * T + tw0 + r / G] =
+                row_lse(m[h], ls[h]);
+          }
+        }
+      }
       uint8_t* st = sm + L::kStage + 64 * wg * Gm::kPitch;
       stage_rows<D>(st, o, 1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f),
                     warp, lane);
@@ -547,6 +570,10 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
       acc[7] = fmaf(x1.w, wt, acc[7]);
     }
     const float inv = 1.f / fmaxf(lt, 1e-30f);
+    if (lse != nullptr && v == 0) {
+      lse[(int64_t)(kvh * G + r % G) * T + t0 + w * tq_w + r / G] =
+          row_lse(mm, lt);
+    }
     uint4 pk;
     pk.x = pack_bf16(acc[0] * inv, acc[1] * inv);
     pk.y = pack_bf16(acc[2] * inv, acc[3] * inv);
@@ -561,8 +588,9 @@ varlen_flash_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* q_seg,
            const void* kv_seg, const void* q_pos, const void* kv_pos,
-           const void* kv_tiles, void* out, void* part_acc, void* part_ml,
-           void* counters, const Strides& st, int BH, int T, int S, int G,
+           const void* kv_tiles, void* out, void* lse, void* part_acc,
+           void* part_ml, void* counters, const Strides& st, int BH, int T,
+           int S, int G,
            int dh, int window, int n_splits, cudaStream_t stream) {
   using L = VarlenSmem<D>;
   const int KVH = BH / G, tq_w = 64 / G;
@@ -588,7 +616,8 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
       mq, mk, mv, static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<const int*>(q_pos),
       static_cast<const int*>(kv_pos), static_cast<const int4*>(kv_tiles),
-      static_cast<bf16*>(out), st.oh, st.ot, static_cast<float*>(part_acc),
+      static_cast<bf16*>(out), st.oh, st.ot, static_cast<float*>(lse),
+      static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), static_cast<int*>(counters), T, S, G, dh,
       window, n_splits);
   return (int)cudaGetLastError();
@@ -600,7 +629,8 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
 // kv_seg/kv_pos: (S,) int32; kv_tiles: (ceil(S / 128), 4) int32, per
 // 128-slot tile the (min, max) segment id and (min, max) position of its
 // slots with segment id >= 0 ((2^30, -2^30, 2^30, -2^30) when it has none);
-// out: (BH, T, D) bf16. strides[8]: element strides of the (head, token)
+// out: (BH, T, D) bf16; lse: (BH, T) fp32, or null for no log-sum-exp
+// output. strides[8]: element strides of the (head, token)
 // axes of q, k, v, out (head dim contiguous, every other stride a multiple
 // of 8 elements, pointers 16-byte aligned). D is 16, 32, 64, 120 or 128.
 // n_splits: the kv tile ranges a q tile is split over (1 to min(256,
@@ -613,7 +643,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
 extern "C" int varlen_flash_bf16(const void* q, const void* k, const void* v,
                                  const void* q_seg, const void* kv_seg,
                                  const void* q_pos, const void* kv_pos,
-                                 const void* kv_tiles, void* out,
+                                 const void* kv_tiles, void* out, void* lse,
                                  void* part_acc, void* part_ml,
                                  void* counters, const int64_t* strides,
                                  int BH, int T, int S, int D, int G,
@@ -631,20 +661,20 @@ extern "C" int varlen_flash_bf16(const void* q, const void* k, const void* v,
   switch (D) {
     case 16:
       return launch<16>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
-                        n_splits, cs);
+                        lse, part_acc, part_ml, counters, st, BH, T, S, G, D,
+                        window, n_splits, cs);
     case 32:
       return launch<32>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
-                        n_splits, cs);
+                        lse, part_acc, part_ml, counters, st, BH, T, S, G, D,
+                        window, n_splits, cs);
     case 64:
       return launch<64>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles, out,
-                        part_acc, part_ml, counters, st, BH, T, S, G, D, window,
-                        n_splits, cs);
+                        lse, part_acc, part_ml, counters, st, BH, T, S, G, D,
+                        window, n_splits, cs);
     case 120:
     case 128:
       return launch<128>(q, k, v, q_seg, kv_seg, q_pos, kv_pos, kv_tiles,
-                         out, part_acc, part_ml, counters, st, BH, T, S, G,
+                         out, lse, part_acc, part_ml, counters, st, BH, T, S, G,
                          D, window, n_splits, cs);
     default:
       return (int)cudaErrorInvalidValue;

@@ -47,11 +47,14 @@ _BIG = 1 << 30
 
 
 def flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
-                                 window=0):
+                                 window=0, return_lse=False):
     """Masked-softmax form of the kernel's contract (the reference's
     ``flash_attention_varlen_ref``), with GQA: q (BH, T, D); k/v
     (BH/G, S, D); q_seg/q_pos (T,); kv_seg/kv_pos (S,). Rows with no
-    visible slot are exactly zero. Returns (BH, T, D) in q.dtype."""
+    visible slot are exactly zero. Returns (BH, T, D) in q.dtype, and with
+    ``return_lse`` also each row's natural-log log-sum-exp of its scaled
+    scores over the slots it sees, (BH, T) fp32, -inf for a row that sees
+    nothing."""
     g = q.shape[0] // k.shape[0]
     k = k.repeat_interleave(g, dim=0)
     v = v.repeat_interleave(g, dim=0)
@@ -63,10 +66,17 @@ def flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     logit = torch.einsum("btd,bsd->bts", q.float(), k.float()) / (d ** 0.5)
     logit = torch.where(mask[None], logit,
                         torch.full((), NEG_INF, device=logit.device))
-    p = torch.exp(logit - logit.amax(-1, keepdim=True))
-    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    p = p * mask.any(-1, keepdim=True)[None]
-    return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
+    mx = logit.amax(-1, keepdim=True)
+    p = torch.exp(logit - mx)
+    z = p.sum(-1, keepdim=True)
+    p = p / torch.clamp(z, min=1e-30)
+    seen = mask.any(-1, keepdim=True)[None]
+    out = torch.einsum("bts,bsd->btd", p * seen, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(seen, mx + torch.log(z),
+                      torch.full((), -torch.inf, device=q.device))
+    return out, lse[..., 0]
 
 
 def varlen_kv_tiles(kv_seg, kv_pos):
@@ -169,7 +179,7 @@ def check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos, blk_q, blk_k,
 def _bind():
     lib = build.load("varlen_flash")
     fn = lib.varlen_flash_bf16
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.varlen_flash_error_string.argtypes = [ctypes.c_int]
@@ -179,7 +189,7 @@ def _bind():
 
 def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
                            window=0, blk_q=128, blk_k=128, kv_tiles=None,
-                           out=None):
+                           out=None, return_lse=False):
     """Varlen flash attention over one packed stream.
 
     q: (BH, T, D) bf16; k/v: (BH/G, S, D) bf16 (views with a contiguous
@@ -193,14 +203,19 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
     changes the function. ``kv_tiles`` (``varlen_kv_tiles(kv_seg,
     kv_pos)``) is the per-step skip metadata; without it the wrapper
     computes it. ``out`` (CUDA only): a (BH, T, D) bf16 tensor with the
-    row layout q may have, written in place of a new one.
+    row layout q may have, written in place of a new one. With
+    ``return_lse`` the call also returns each row's natural-log
+    log-sum-exp of its scaled scores over the slots it sees, (BH, T)
+    fp32, -inf for a row that sees nothing: (out, lse). The kernel writes
+    it beside its output; without it the launch is the same as before.
 
     Tensors on the CPU take the plain version (the kernel has no CPU
     form); CUDA tensors launch the kernel on the current stream or raise.
     ``flash_attention_varlen.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_attention_varlen_plain(q, k, v, q_seg, kv_seg, q_pos,
-                                            kv_pos, window=window)
+                                            kv_pos, window=window,
+                                            return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     bh, t, s, d, g = check_inputs(q, k, v, q_seg, kv_seg, q_pos, kv_pos,
@@ -219,6 +234,8 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
             out.device != q.device:
         _check("out", out, torch.bfloat16, tuple(q.shape), q.device)
     _check_rows("out", out)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     part_acc = part_ml = counters = None
     if ns > 1:
         part_acc = torch.empty((kvh * n_qt * ns, Q_ROWS, 128 if d == 120
@@ -235,14 +252,15 @@ def flash_attention_varlen(q, k, v, q_seg, kv_seg, q_pos, kv_pos, *,
         rc = lib.varlen_flash_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
             kv_seg.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            kv_tiles.data_ptr(), out.data_ptr(), *ptr,
+            kv_tiles.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), *ptr,
             ctypes.addressof(strides), bh, t, s, d, g, int(window), ns,
             stream)
     if rc != 0:
         msg = lib.varlen_flash_error_string(rc).decode()
         raise RuntimeError(f"varlen_flash launch failed: {msg} ({rc})")
     flash_attention_varlen.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_varlen.launches = 0

@@ -71,6 +71,13 @@
 //    that block) combines them in split order, up to 8 threads an output
 //    reading the splits in turn: one launch, no atomics on the data,
 //    byte-identical repeats.
+//  * On request (a non-null `lse`), each (row, kv head, q head)'s
+//    natural-log log-sum-exp of its scaled scores over the slots it sees
+//    goes to lse (B, KVL, G) fp32: ln 2 (m + log2 l) of the final base-2
+//    pair, written beside the output. A row that sees nothing keeps its
+//    mean(V) output and gets -inf (its m is the masked score, -1e30), so
+//    partial results of a split page set (sequence-parallel decode, K/V
+//    replica groups) combine through it. Without it nothing else changes.
 //  * Head dim 120 (h2o-danube-3-4b) runs the D 128 instance with the true
 //    head dim `dh` at run time: the page map's first dimension is 120, so
 //    TMA lands columns 120-127 of K and V as zeros, q's are zeroed in its
@@ -105,6 +112,7 @@ struct Params {
   const int4* work;       // plan: the split work list
   const int* positions;
   bf16* out;
+  float* lse;             // (B, KVL, G) log-sum-exp, or null
   float* part;            // split partials: acc, then (m, l)
   int* counters;          // (B x units), zero between launches
   int B, P, KVL, G, dh, TPP, window, HG, q_groups, n_units, stages;
@@ -113,6 +121,13 @@ struct Params {
   uint32_t chunk_bytes;   // a column chunk's rows in a stage (1024-aligned)
   uint32_t stage_bytes;
 };
+
+// The natural-log log-sum-exp of a base-2 running max m and sum l of
+// 2^(score - m); -inf when m is the masked score (nothing seen).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= 0.5f * kNegInf ? -INFINITY
+                             : (m + log2f(l)) * 0.6931471805599453f;
+}
 
 // One 5-d box of the page map (D, slot, head, K/V, page) into shared
 // memory at `dst`; completion is counted in bytes on `bar`.
@@ -418,6 +433,10 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
     }
     if (splits == 1) {
       const float inv = 1.f / fmaxf(lt, 1e-30f);
+      if (p.lse != nullptr && cc == 0) {
+        p.lse[((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g] =
+            row_lse(mm, lt);
+      }
       uint4 pk;
       pk.x = pack_bf16(a[0] * inv, a[1] * inv);
       pk.y = pack_bf16(a[2] * inv, a[3] * inv);
@@ -518,6 +537,10 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap map,
     }
     if (j != 0) continue;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
+    if (p.lse != nullptr && cc == 0) {
+      p.lse[((int64_t)b * p.KVL + grp * HG + h) * p.G + g0 + g] =
+          row_lse(mm, lt);
+    }
     uint4 pk;
     pk.x = pack_bf16(a[0] * inv, a[1] * inv);
     pk.y = pack_bf16(a[2] * inv, a[3] * inv);
@@ -606,7 +629,8 @@ int launch_d(const void* kv, const KvStrides& st, int VP, Params& p,
 // (a slot's (KVL, D) contiguous, the others multiples of 8, 16-byte
 // aligned); pages (B, P, 2) and work (B x n_split, 8): the step's plan
 // (kernel.py paged_decode_plan), int32, 16-byte aligned; positions: (B,)
-// int32; out: (B, KVL, G, D) bf16 contiguous. D is 16, 32, 64, 120 or 128. HG: kv heads a block (a power
+// int32; out: (B, KVL, G, D) bf16 contiguous; lse: (B, KVL, G) fp32, or
+// null for no log-sum-exp output. D is 16, 32, 64, 120 or 128. HG: kv heads a block (a power
 // of two <= 8 dividing KVL); n_split: the most splits of a row in the plan;
 // stages: ring stages, 2 to 8 and at least 8 / HG. With n_split > 1, part
 // holds B x units x n_split x HG x min(G, 8) x (D + 2) floats of scratch
@@ -615,7 +639,8 @@ int launch_d(const void* kv, const KvStrides& st, int VP, Params& p,
 // code (0 on a successful launch); the launch does not synchronise.
 extern "C" int paged_decode_bf16(const void* q, const void* kv,
                                  const void* pages, const void* work,
-                                 const void* positions, void* out, void* part,
+                                 const void* positions, void* out, void* lse,
+                                 void* part,
                                  void* counters, const int64_t* strides,
                                  int B, int VP, int KVL, int G, int D, int P,
                                  int TPP, int window, int HG, int n_split,
@@ -635,6 +660,7 @@ extern "C" int paged_decode_bf16(const void* q, const void* kv,
   p.work = static_cast<const int4*>(work);
   p.positions = static_cast<const int*>(positions);
   p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
   p.part = static_cast<float*>(part);
   p.counters = static_cast<int*>(counters);
   p.B = B;

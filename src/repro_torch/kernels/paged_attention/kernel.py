@@ -125,7 +125,7 @@ def paged_decode_plan(tables, page_pos, positions, tpp, window=0):
 
 
 def paged_decode_attention_plain(q, kv_view, tables, page_pos, positions, *,
-                                 window=0, plan=None):
+                                 window=0, plan=None, return_lse=False):
     """The reference's ``paged_decode_attention_ref``: q (B, KVL, G, D);
     kv_view (VP, 2, TPP, KVL, D); tables/page_pos (B, P); positions (B,).
     Entries < 0 clamp to page 0; a slot is visible iff slot_pos <= qpos
@@ -136,7 +136,9 @@ def paged_decode_attention_plain(q, kv_view, tables, page_pos, positions, *,
     bytes, and their probability 0 times a non-finite value would still
     be NaN. With a ``plan`` only the entries it lists are read, as the
     kernel reads them: the same function. Returns (B, KVL, G, D) in
-    q.dtype."""
+    q.dtype, and with ``return_lse`` also the natural-log log-sum-exp of
+    each (row, head)'s scaled scores over the slots it sees, (B, KVL, G)
+    fp32, -inf for a row that sees nothing."""
     b, kvl, g, d = q.shape
     tpp = kv_view.shape[2]
     p = tables.shape[1]
@@ -161,13 +163,21 @@ def paged_decode_attention_plain(q, kv_view, tables, page_pos, positions, *,
     if listed is not None:
         mask &= listed
         logit = logit.masked_fill(~listed[:, None, None, :], -torch.inf)
-    pr = torch.exp(logit - logit.amax(-1, keepdim=True))
-    pr = pr / torch.clamp(pr.sum(-1, keepdim=True), min=1e-30)
-    unread = ~mask & mask.any(-1, keepdim=True)
+    mx = logit.amax(-1, keepdim=True)
+    pr = torch.exp(logit - mx)
+    z = pr.sum(-1, keepdim=True)
+    pr = pr / torch.clamp(z, min=1e-30)
+    seen = mask.any(-1, keepdim=True)
+    unread = ~mask & seen
     if listed is not None:
         unread |= ~listed
     v = v.masked_fill(unread[:, :, None, None], 0)
-    return torch.einsum("bkgs,bskd->bkgd", pr, v).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", pr, v).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(seen[:, None, None], mx + torch.log(z),
+                      torch.full((), -torch.inf, device=q.device))
+    return out, lse[..., 0]
 
 
 def _check(name, t, dtype, shape, device):
@@ -281,7 +291,7 @@ def check_inputs(q, kv_view, tables, page_pos, positions, *, window=0,
 def _bind():
     lib = build.load("paged_decode")
     fn = lib.paged_decode_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
@@ -290,7 +300,7 @@ def _bind():
 
 
 def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
-                           window=0, plan=None, out=None):
+                           window=0, plan=None, out=None, return_lse=False):
     """Paged decode attention over one layer of the unified buffer.
 
     q: (B, KVL, G, D) bf16; kv_view: (VP, 2, TPP, KVL, D) bf16, typically
@@ -298,7 +308,11 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
     copied); tables/page_pos: (B, P) int32; positions: (B,) int32;
     ``plan``: ``paged_decode_plan(tables, page_pos, positions, TPP,
     window)``, built here when not given. Returns (B, KVL, G, D) bf16, in
-    ``out`` (CUDA only; contiguous, 16-byte aligned) when given.
+    ``out`` (CUDA only; contiguous, 16-byte aligned) when given. With
+    ``return_lse`` the call also returns each (row, head)'s natural-log
+    log-sum-exp of its scaled scores over the slots it sees, (B, KVL, G)
+    fp32, -inf for a row that sees nothing (whose output stays mean(V)):
+    (out, lse). Without it the launch is the same as before.
 
     Tensors on the CPU take the plain version (the kernel has no CPU
     form); CUDA tensors launch the kernel on the current stream or raise.
@@ -306,7 +320,7 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, kv_view, tables, page_pos,
                                             positions, window=window,
-                                            plan=plan)
+                                            plan=plan, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, kvl, g, d, p, tpp = check_inputs(q, kv_view, tables, page_pos,
@@ -324,6 +338,8 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
             out.data_ptr() % 16:
         _check("out", out, torch.bfloat16, tuple(q.shape), dev)
         raise ValueError("out: must be contiguous and 16-byte aligned")
+    lse = torch.empty((b, kvl, g), dtype=torch.float32, device=dev) \
+        if return_lse else None
     part = counters = None
     if n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=dev)
@@ -331,6 +347,7 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
     strides = (ctypes.c_int64 * 4)(*(kv_view.stride(i) for i in range(4)))
     args = (q.data_ptr(), kv_view.data_ptr(), plan.pages.data_ptr(),
             plan.work.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(),
             ctypes.addressof(strides), b, kv_view.shape[0], kvl, g, d, p, tpp,
@@ -344,7 +361,7 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
         msg = lib.paged_decode_error_string(rc).decode()
         raise RuntimeError(f"paged_decode launch failed: {msg} ({rc})")
     paged_decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_decode_attention.launches = 0

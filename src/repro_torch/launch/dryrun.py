@@ -43,6 +43,14 @@ buffers, and under FSDP the recomputed cycle holds its layers' bf16
 weights gathered whole. ``--cards N`` lists, for every training cell of
 those families, the meshes of N cards whose per-card peak fits.
 
+Serving cells take the same meshes (``--mesh DxM`` with a prefill or
+decode shape): one rank's bf16 weights (its heads, ``d_ff`` columns,
+vocabulary rows and experts), its pool (``input_specs.serve_cell`` of the
+rank's model: its rows, under ``sp`` 1 / dp of every sequence, and 1 /
+repl of a K/V group's attention pages) and the activations of its step at
+its heads; ``--cards N`` lists the serving meshes beside the training
+ones.
+
 A cell fits when its peak is at most ``CARD_BYTES - RESERVE`` (a rank of a
 mesh of cards: less ``MESH_RESERVE`` too, ``fit_bytes``). Its largest
 fitting depth is the deepest cut, in whole cycles of the model's layer
@@ -248,8 +256,8 @@ def serve_terms(model, pool: int, step_tokens: int, rows: int,
     (``step_tokens`` tokens, ``rows`` logits rows, ``ctx_tokens`` slots of
     K/V gathered per layer of a cycle, ``enc_rows`` encoder rows)."""
     cfg = model.cfg
-    v, d = model.v_pad, cfg.d_model
-    kvd = cfg.num_kv_heads * cfg.head_dim
+    v, d = getattr(model, "v_local", model.v_pad), cfg.d_model
+    kvd = getattr(model, "kv_local", cfg.num_kv_heads) * cfg.head_dim
     # a decoder gathers a cycle's pages before any is written
     gathers = len(cfg.attn_pattern) if cfg.family in ("dense", "moe",
                                                       "vlm") else 1
@@ -315,28 +323,31 @@ def at_depth(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
-def mesh_model(cfg, mesh=(1, 1), fsdp: bool = False):
+def mesh_model(cfg, mesh=(1, 1), fsdp: bool = False, sp: bool = False):
     """``cfg``'s model on one card, or one rank's of a ``(data, model)``
-    ``mesh`` (a ``Dist`` without process groups: shapes only). RWKV6 and
-    enc-dec, and FSDP on the hybrid, raise ``NotImplementedError``."""
+    ``mesh`` (a ``Dist`` without process groups: shapes only; ``sp`` and
+    the model's K/V replicas for serving). RWKV6 and enc-dec, and FSDP on
+    the hybrid, raise ``NotImplementedError``."""
     from ..models import build_model
     if tuple(mesh) == (1, 1):
         return build_model(cfg)
-    from ..models.tp import Dist
-    return build_model(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp))
+    from ..models.tp import Dist, replica_info
+    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, mesh[1])["repl"]
+    return build_model(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp, sp=sp,
+                                 repl=repl))
 
 
 def cell_terms(cfg, shape, mesh=(1, 1), fsdp: bool = False):
     """(terms, cell) of one card's share of ``shape`` for ``cfg``, on one
-    card or on one rank of a training ``mesh``."""
-    model = mesh_model(cfg, mesh, fsdp)
-    share = card_share(shape)
+    card or on one rank of a ``mesh`` (an ``sp`` serving cell's
+    sequences split over its data ranks)."""
+    sp = card_share(shape).sp and shape.kind != "train" and mesh[0] > 1
+    model = mesh_model(cfg, mesh, fsdp, sp)
+    share = card_share(shape, mesh[0] if sp else 1)
     if shape.kind == "train":
         micro = min(default_micro_batches(cfg), share.rows)
         cell = train_cell(cfg, shape, micro)
         terms = train_terms(model, share.rows, share.tokens, micro)
-    elif tuple(mesh) != (1, 1):
-        raise NotImplementedError("serving runs on one card")
     else:
         cell = serve_cell(model, cfg, shape)
         step = share.rows * (share.tokens if shape.kind == "prefill" else 1)
@@ -374,14 +385,15 @@ def plan(arch: str, shape_name: str, mesh=(1, 1),
     bound = fit_bytes(mesh)
     depth = largest_depth(cfg, lambda c: _cell_peak(c, shape, mesh, fsdp)
                           <= bound)
-    share = card_share(shape)
     flops, nbytes = analytic_terms(cfg, shape)
     return dict(arch=arch, shape=shape_name, kind=shape.kind,
                 mesh=list(mesh), fsdp=fsdp,
                 full_depth=cfg.num_layers, max_depth=depth,
                 fits=total <= bound,
                 peak_bytes=total, fit_bytes=bound, terms=terms,
-                rows=share.rows, tokens=share.tokens, sp=share.sp,
+                rows=cell.notes["rows"], tokens=cell.notes["tokens"],
+                sp=card_share(shape).sp,
+                kv_repl_split=cell.notes.get("kv_repl_split", 1),
                 micro_batches=cell.notes.get("micro_batches"),
                 buffer_units=cell.buffer_units,
                 batch={k: [list(s), dt] for k, (s, dt) in cell.arrays.items()},
@@ -507,18 +519,19 @@ MESH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 
 
 def fit_cards(cards: int) -> list:
-    """For every training cell of the families that train on a mesh:
-    each mesh of ``cards`` cards, its per-card peak at full depth,
-    whether it fits, and its largest fitting depth."""
+    """For every training and serving cell of the families that run on a
+    mesh: each mesh of ``cards`` cards (FSDP only for training), its
+    per-card peak at full depth, whether it fits, and its largest fitting
+    depth."""
     rows = []
     for arch in sorted(ARCHS):
         cfg = ARCHS[arch]
         if cfg.family not in MESH_FAMILIES:
             continue
         for shape in shapes_for(cfg):
-            if shape.kind != "train":
-                continue
             for mesh, fsdp in meshes_of(cards):
+                if fsdp and shape.kind != "train":
+                    continue
                 try:
                     terms, _ = cell_terms(cfg, shape, mesh, fsdp)
                 except (ValueError, NotImplementedError):
@@ -529,7 +542,7 @@ def fit_cards(cards: int) -> list:
                     largest_depth(cfg, lambda c: _cell_peak(
                         c, shape, mesh, fsdp) <= bound)
                 rows.append(dict(arch=arch, shape=shape.name,
-                                 mesh=list(mesh), fsdp=fsdp,
+                                 kind=shape.kind, mesh=list(mesh), fsdp=fsdp,
                                  peak_bytes=total,
                                  fits=total <= bound, max_depth=depth))
     return rows
@@ -548,12 +561,13 @@ def main(argv=None) -> int:
     ap.add_argument("--measure", action="store_true",
                     help="also run each cell once on the card")
     ap.add_argument("--mesh", type=_mesh_arg, default=(1, 1),
-                    help="DxM: one card of a (data, model) training mesh")
+                    help="DxM: one card of a (data, model) mesh")
     ap.add_argument("--fsdp", action="store_true",
                     help="with --mesh: shard layer weights over data")
     ap.add_argument("--cards", type=int,
-                    help="list the meshes of N cards each training cell "
-                         "of the mesh families fits, and at which depth")
+                    help="list the meshes of N cards each training and "
+                         "serving cell of the mesh families fits, and at "
+                         "which depth")
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
@@ -563,7 +577,8 @@ def main(argv=None) -> int:
                   "w") as fh:
             json.dump(rows, fh, indent=1)
         for r in rows:
-            print(f"[fit {args.cards} cards] {r['arch']} {r['shape']} mesh "
+            print(f"[fit {args.cards} cards] {r['arch']} {r['shape']} "
+                  f"({r['kind']}) mesh "
                   f"{r['mesh'][0]}x{r['mesh'][1]}"
                   f"{' fsdp' if r['fsdp'] else ''}: per-card peak "
                   f"{r['peak_bytes'] / 1e9:.2f} GB, fits={r['fits']}, "
@@ -574,10 +589,10 @@ def main(argv=None) -> int:
     if args.all:
         cells = [(a, s.name) for a in sorted(ARCHS)
                  for s in shapes_for(ARCHS[a])
-                 if mesh == (1, 1) or (s.kind == "train"
-                                       and ARCHS[a].family in MESH_FAMILIES
-                                       and not (args.fsdp and ARCHS[a].family
-                                                == "hybrid"))]
+                 if mesh == (1, 1) or (ARCHS[a].family in MESH_FAMILIES
+                                       and not (args.fsdp and (
+                                           s.kind != "train" or
+                                           ARCHS[a].family == "hybrid")))]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:

@@ -11,6 +11,13 @@ scratch page). ``buffer_units_for``, ``default_micro_batches`` and
 ``wants_fsdp`` are copied from the reference unchanged. On a training
 mesh of cards (``dryrun --mesh``) every data rank takes the rows one card
 takes, so a train cell's batch is the same per card.
+
+On a serving mesh (``serve_cell`` of a model built for one) the shapes are
+one rank's, as the reference's ``serve_cell`` gives them: each data rank
+holds one card's rows (or, under ``sp``, every row and 1 / dp of each
+sequence), and each of a K/V group's ``repl`` replicas 1 / repl of its
+attention pages. ``split_batch`` turns one (1, 1) batch (host numpy, the
+``ModelRunner.prepare`` layout) into a rank's batch to that contract.
 """
 from __future__ import annotations
 
@@ -19,9 +26,13 @@ import math
 from typing import Any, Dict, Tuple
 
 from ..configs.base import ModelConfig, ShapeSpec
+import numpy as np
+
 from ..core.spec import BYTES_PER_UNIT
 from ..core.spec import lcm as _lcm
 from .mesh import card_share
+
+SENTINEL_POS = 1 << 29      # serving.runner.SENTINEL_POS: a pad's position
 
 DTYPE_BYTES = {"int32": 4, "bfloat16": 2, "float32": 4, "bool": 1}
 
@@ -75,10 +86,17 @@ def buffer_units_for(model, cfg: ModelConfig, tokens_per_shard: int,
 def serve_cell(model, cfg: ModelConfig, shape: ShapeSpec) -> Cell:
     """The card's serve cell: one padded step of the card's rows (T = the
     whole sequence for prefill, 1 for decode) over a pool that holds the
-    card's KV/state. Every KV type keeps every page (the port has no KV
-    replica split: one card holds all KV heads)."""
-    share = card_share(shape)
+    card's KV/state. On one card every KV type keeps every page. On a
+    mesh (``model.dist``) the cell is one rank's: its rows and tokens
+    (``card_share(shape, dp)``: an ``sp`` cell's sequences split over the
+    data ranks), its attention pages 1 / repl of them (the reference's
+    replica-group split), its page and state shapes the rank model's."""
+    dist = getattr(model, "dist", None)      # enc-dec, RWKV6: one card
+    mesh = dist is not None and dist.size > 1
+    share = card_share(shape, dist.dp if mesh and dist.sp else 1)
     b, s = share.rows, share.tokens
+    repl = model.ri["repl"] if mesh else 1
+    attn = -(-s // repl)
     prefill = shape.kind == "prefill"
     t = s if prefill else 1
     i32 = "int32"
@@ -96,9 +114,9 @@ def serve_cell(model, cfg: ModelConfig, shape: ShapeSpec) -> Cell:
             npg = spec.pages_for_tokens(enc_seq)
         elif spec.kind == "swa":
             npg = spec.pages_for_tokens(
-                min(spec.sliding_window + spec.tokens_per_page, s)) + 1
+                min(spec.sliding_window + spec.tokens_per_page, attn)) + 1
         else:
-            npg = spec.pages_for_tokens(s)
+            npg = spec.pages_for_tokens(attn)
         arrays[f"tables/{name}"] = ((b, npg), i32)
         arrays[f"page_pos/{name}"] = ((b, npg), i32)
         if spec.kind != "cross_attn":
@@ -112,11 +130,191 @@ def serve_cell(model, cfg: ModelConfig, shape: ShapeSpec) -> Cell:
         arrays["mm_embeds"] = ((b, t, cfg.d_model), "bfloat16")
         arrays["mm_mask"] = ((b, t), "bool")
         arrays["mrope_pos"] = ((3, b, t), i32)
-    units = buffer_units_for(model, cfg, tokens_per_shard=s,
+    units = buffer_units_for(model, cfg, tokens_per_shard=attn,
                              seqs_per_shard=b, enc_tokens_per_shard=enc_seq)
     return Cell(kind=shape.kind, arrays=arrays, buffer_units=units,
                 notes=dict(B=shape.global_batch, S=shape.seq_len, rows=b,
-                           tokens=s, sp=share.sp))
+                           tokens=s, sp=share.sp, kv_repl_split=repl))
+
+
+def example_pool(model, pages: int, states: int = 16):
+    """A pool layout for ``example_batch``: (units, {type: (first small
+    page id, small pages)}, the large page's units): each KV type gets
+    whole large pages holding at least ``pages`` of its pages (a state
+    type ``states``), in the order of ``model.kv_specs()``, then one large
+    scratch page (the runner's). A type whose page is the large page
+    (every type of a decoder) gets page ids 0 .. pages - 1 at any tp."""
+    specs = model.kv_specs()
+    big = _lcm([s.page_units for s in specs])
+    first, n = {}, 0
+    for s in specs:
+        per = big // s.page_units
+        k = -(-(states if s.kind in ("mamba", "rwkv") else pages) // per)
+        first[s.name] = (n * per, k * per)
+        n += k
+    return (n + 1) * big, first, big
+
+
+def example_batch(model, seqs, packed: bool, seed: int, pages: int):
+    """A (1, 1) serving batch in the ``ModelRunner.prepare`` layout (host
+    numpy) over random page ids of ``example_pool(model, pages)``: one
+    segment (packed) or row (padded) per ``(old, new)`` of ``seqs`` (its
+    first ``old`` positions already in pages, ``new`` tokens this step),
+    random tokens, each sequence's pages in order, write ids of every new
+    token, and one Mamba2 state page per sequence for a hybrid. Pads as
+    the runner makes them (position ``SENTINEL_POS``, table -1, packed
+    owner -2). Returns (arrays, pool units)."""
+    rng = np.random.default_rng(seed)
+    units, first, _ = example_pool(model, pages)
+    specs = model.kv_specs()
+    attn = [s for s in specs if s.kind in ("full_attn", "swa")]
+    ids = {s.name: first[s.name][0] + rng.permutation(first[s.name][1])
+           for s in specs}
+    pages_of = {}
+    for s in attn:
+        need = np.cumsum([0] + [-(-(o + n) // s.tokens_per_page)
+                                for o, n in seqs])
+        if need[-1] > len(ids[s.name]):
+            raise ValueError(f"{need[-1]} pages of {s.name} in a pool of "
+                             f"{len(ids[s.name])}")
+        pages_of[s.name] = [ids[s.name][need[i]:need[i + 1]]
+                            for i in range(len(seqs))]
+    toks = [rng.integers(0, model.cfg.vocab_size, n) for _, n in seqs]
+    i32 = np.int32
+    a = dict(mm_embeds=None, mm_mask=None, mrope_pos=None, enc_embeds=None,
+             enc_write_eids=None, enc_lens=None, seg_ids=None,
+             chunk_start=None, seg_start_tok=None, seg_last_tok=None,
+             page_seg=None, last_idx=None)
+    a["seq_lens"] = np.array([o + n for o, n in seqs], i32)
+    a["state_eids"] = {s.name: ids[s.name][None, :len(seqs)].astype(i32)
+                       for s in specs if s.kind == "mamba"}
+    if packed:
+        tt = sum(n for _, n in seqs) + 3
+        rows, b, t = [(0, off) for off in np.cumsum(
+            [0] + [n for _, n in seqs])[:-1]], 1, tt
+        npg = {s.name: sum(len(p) for p in pages_of[s.name]) + 2
+               for s in attn}
+        a.update(seg_ids=np.full((1, tt), -1, i32),
+                 chunk_start=np.full((1, tt), SENTINEL_POS, i32),
+                 seg_start_tok=np.zeros((1, tt), i32),
+                 seg_last_tok=np.zeros((len(seqs),), i32),
+                 page_seg={k: np.full((1, 1, 1, p), -2, i32)
+                           for k, p in npg.items()})
+    else:
+        b, t = len(seqs), max(n for _, n in seqs)
+        rows = [(bi, 0) for bi in range(b)]
+        npg = {s.name: max(len(p) for p in pages_of[s.name]) + 1
+               for s in attn}
+        a["last_idx"] = np.array([n - 1 for _, n in seqs], i32)
+    a["tokens"] = np.zeros((b, t), i32)
+    a["positions"] = np.full((b, t), SENTINEL_POS, i32)
+    tb = 1 if packed else b
+    a["tables"] = {k: np.full((1, 1, tb, p), -1, i32) for k, p in npg.items()}
+    a["page_pos"] = {k: np.full((1, 1, tb, p), SENTINEL_POS, i32)
+                     for k, p in npg.items()}
+    a["write_eids"] = {s.name: np.full((1, 1, b, t), -1, i32) for s in attn}
+    cur = dict.fromkeys(npg, 0)
+    for si, ((o, n), tok, (r, off)) in enumerate(zip(seqs, toks, rows)):
+        sl = slice(off, off + n)
+        a["tokens"][r, sl] = tok
+        a["positions"][r, sl] = np.arange(o, o + n)
+        if packed:
+            a["seg_ids"][0, sl] = si
+            a["chunk_start"][0, sl] = o
+            a["seg_start_tok"][0, sl] = off
+            a["seg_last_tok"][si] = off + n - 1
+        for s in attn:
+            pg = pages_of[s.name][si]
+            c = cur[s.name] if packed else 0
+            cols = slice(c, c + len(pg))
+            a["tables"][s.name][0, 0, 0 if packed else r, cols] = pg
+            a["page_pos"][s.name][0, 0, 0 if packed else r, cols] = \
+                np.arange(len(pg)) * s.tokens_per_page
+            if packed:
+                a["page_seg"][s.name][0, 0, 0, cols] = si
+                cur[s.name] = c + len(pg)
+            a["write_eids"][s.name][0, 0, r, sl] = \
+                pg[np.arange(o, o + n) // s.tokens_per_page]
+    return a, units
+
+
+# the per-row fields of a padded batch and their row axis
+_ROW_AXIS = {"tokens": 0, "positions": 0, "seq_lens": 0, "last_idx": 0,
+             "mm_embeds": 0, "mm_mask": 0, "mrope_pos": 1}
+_PAGE_FIELDS = ("tables", "page_pos", "write_eids", "page_seg")
+
+
+def page_member(model, data_rank: int, model_rank: int):
+    """(this rank's member index, members) of the group that splits a
+    sequence's attention pages: the ``repl`` K/V replicas of its model
+    rank's set, times the data ranks under ``sp``. Page ``i`` of a
+    sequence (positions ``i * TPP ..``) lives on member ``i % members``."""
+    dist = model.dist
+    repl = model.ri["repl"] if dist.tp > 1 else 1
+    d = dist.dp if dist.sp else 1
+    return (model_rank % repl) + repl * (data_rank if dist.sp else 0), \
+        repl * d
+
+
+def split_batch(arrs: dict, model, data_rank: int, model_rank: int) -> dict:
+    """One rank's serving batch from a (1, 1) batch ``arrs`` (field ->
+    numpy array, the ``ModelRunner.prepare`` layout: per-type tables
+    (1, 1, B, P)), for ``model``'s mesh (``model.dist``: dp, tp, sp): the
+    reference's ``serve_step`` input specs, host side.
+
+    * Padded rows split over "data" (``B / dp`` each, in order); a packed
+      stream, or any batch under ``sp``, is every rank's whole.
+    * Each attention page goes to exactly one member of the group that
+      splits its sequence (``page_member``: the K/V replica set, and the
+      data ranks under ``sp``); on the others its table entry is a pad
+      (-1, position ``SENTINEL_POS``, packed owner -2).
+    * A token's K/V write is kept on the member that holds its page (by
+      its position) and is -1 (dropped) on the others.
+
+    Page ids stay the batch's: each rank's buffer has the (1, 1) layout
+    at the rank's page shapes. Mamba2 state ids go with their rows."""
+    dist = model.dist
+    out = dict(arrs)
+    packed = arrs.get("seg_ids") is not None
+    if not packed and not dist.sp and dist.dp > 1:
+        b = arrs["tokens"].shape[0]
+        if b % dist.dp:
+            raise ValueError(f"{b} rows do not split over {dist.dp} data "
+                             "ranks")
+        n = b // dist.dp
+        rows = slice(data_rank * n, (data_rank + 1) * n)
+
+        def take(a, axis):
+            return None if a is None else np.take(
+                a, np.arange(b)[rows], axis=axis)
+        for f, axis in _ROW_AXIS.items():
+            if arrs.get(f) is not None:
+                out[f] = take(arrs[f], axis)
+        for f, axis in [(f, 2) for f in _PAGE_FIELDS] + [("state_eids", 1)]:
+            if arrs.get(f) is not None:
+                out[f] = {k: take(v, axis) for k, v in arrs[f].items()}
+    mi, members = page_member(model, data_rank, model_rank)
+    if members == 1:
+        return out
+    tpp = {s.name: s.tokens_per_page for s in model.kv_specs()
+           if s.kind in ("full_attn", "swa")}
+    for f in _PAGE_FIELDS:
+        if out.get(f) is not None:
+            out[f] = dict(out[f])
+    pos = out["positions"]
+    for name, t in tpp.items():
+        tab = out["tables"][name]
+        mine = (tab < 0) | ((out["page_pos"][name] // t) % members == mi)
+        out["tables"][name] = np.where(mine, tab, -1).astype(np.int32)
+        out["page_pos"][name] = np.where(
+            mine, out["page_pos"][name], SENTINEL_POS).astype(np.int32)
+        if out.get("page_seg") is not None:
+            out["page_seg"][name] = np.where(
+                mine, out["page_seg"][name], -2).astype(np.int32)
+        w = out["write_eids"][name]
+        keep = (pos.reshape(w.shape) // t) % members == mi
+        out["write_eids"][name] = np.where(keep, w, -1).astype(np.int32)
+    return out
 
 
 def train_cell(cfg: ModelConfig, shape: ShapeSpec,

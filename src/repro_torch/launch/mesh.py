@@ -19,7 +19,14 @@ onto it (tp = 1, or the run's own tp on a mesh of cards). So it holds
 A decode cell with ``global_batch < 32`` is sequence-parallel in the
 reference (``sp``): its few sequences are split over the 16 data shards.
 One card has no shard to split with, so ``sp`` cells follow a rule of their
-own: the card holds every sequence of the cell, whole.
+own: the card holds every sequence of the cell, whole. On a mesh of cards
+(``card_share(shape, dp)``) an ``sp`` cell's sequences split over the mesh's
+``dp`` data ranks, as the reference splits them over its data shards.
+
+Serving across cards. ``make_dist(..., sp=, repl=)`` adds what a serve
+step needs: the ``sp`` flag and one process group per K/V replica set of
+the model axis (``models.attention.replica_groups``; ``repl`` ranks each,
+the model's ``replica_info(...)["repl"]``).
 """
 from __future__ import annotations
 
@@ -51,9 +58,13 @@ def is_sp(shape) -> bool:
     return shape.kind == "decode" and shape.global_batch < 32
 
 
-def card_share(shape) -> CardShare:
+def card_share(shape, dp: int = 1) -> CardShare:
+    """One card's share of ``shape``; with ``dp`` data ranks of a mesh of
+    cards, an ``sp`` cell's sequences split over them (each rank holds
+    ceil(seq_len / dp) tokens of every sequence)."""
     if is_sp(shape):
-        return CardShare(shape.global_batch, shape.seq_len, True, 1)
+        return CardShare(shape.global_batch, -(-shape.seq_len // dp), True,
+                         1)
     dp = PRODUCTION_MESH["data"]
     if shape.global_batch % dp:
         raise ValueError(f"{shape.name}: global batch {shape.global_batch} "
@@ -63,12 +74,16 @@ def card_share(shape) -> CardShare:
 
 # ------------------------------------------------------------ training mesh
 def make_dist(shape: Tuple[int, int], *, fsdp: bool = False,
-              backend: str = None, timeout: float = 60.0):
+              backend: str = None, timeout: float = 60.0, sp: bool = False,
+              repl: int = 1):
     """This rank's ``Dist`` on a ``(data, model)`` mesh of ``shape`` over
     the initialised default process group (global rank ``r`` sits at
     ``divmod(r, model)``, the reference's device order). Every rank
     creates every group, in the same order, on ``backend`` (the world's
-    by default), with ``timeout`` seconds for each of its collectives."""
+    by default), with ``timeout`` seconds for each of its collectives.
+    ``sp`` and ``repl`` (serving): sequence-parallel decode, and the
+    model's K/V replicas, whose sets of ``repl`` model ranks
+    (``replica_groups``) each get a group."""
     import torch.distributed as td
 
     from ..models.tp import Dist
@@ -83,13 +98,24 @@ def make_dist(shape: Tuple[int, int], *, fsdp: bool = False,
                               backend=backend) for m in range(tp)]
     tp_groups = [td.new_group([d * tp + m for m in range(tp)], timeout=wait,
                               backend=backend) for d in range(dp)]
+    if tp % repl:
+        raise ValueError(f"{repl} K/V replicas do not split {tp} model ranks")
+    kv_group = None
+    if repl > 1:
+        from ..models.attention import replica_groups
+        sets = replica_groups(tp // repl, repl)
+        kv_groups = [[td.new_group([d * tp + m for m in ms], timeout=wait,
+                                   backend=backend) for ms in sets]
+                     for d in range(dp)]
+        kv_group = kv_groups[data_rank][model_rank // repl]
     return Dist(dp=dp, tp=tp, data_rank=data_rank, model_rank=model_rank,
                 fsdp=fsdp, dp_group=dp_groups[model_rank],
-                tp_group=tp_groups[data_rank], group=td.group.WORLD)
+                tp_group=tp_groups[data_rank], group=td.group.WORLD, sp=sp,
+                repl=repl, kv_group=kv_group)
 
 
 def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
-               args, results):
+               args, results, dist_kw):
     """One rank of ``run_mesh``: join the world, build the Dist, run
     ``fn`` and report its result or its traceback."""
     import torch
@@ -107,7 +133,7 @@ def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
             world_size=shape[0] * shape[1],
             timeout=datetime.timedelta(seconds=timeout))
         try:
-            dist = make_dist(shape, fsdp=fsdp, timeout=timeout)
+            dist = make_dist(shape, fsdp=fsdp, timeout=timeout, **dist_kw)
             results.put((rank, True, fn(dist, dev, *args)))
         finally:
             td.destroy_process_group()
@@ -117,13 +143,15 @@ def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
 
 def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
              fsdp: bool = False, backend: str = "nccl", device: str = "cuda",
-             timeout: float = 60.0, deadline: float = 600.0) -> List[Any]:
+             timeout: float = 60.0, deadline: float = 600.0,
+             sp: bool = False, repl: int = 1) -> List[Any]:
     """Run ``fn(dist, device, *args)`` on every rank of a ``shape``
     ``(data, model)`` mesh, one spawned process per rank, and return the
     results in rank order. ``fn`` and ``args`` are pickled (``fn`` by its
     import path) and the results must be picklable: return numpy arrays,
     not tensors. ``device`` "cuda" puts rank ``r`` on ``cuda:r``; "cpu"
-    runs every rank on the CPU (with ``backend="gloo"``).
+    runs every rank on the CPU (with ``backend="gloo"``). ``sp`` and
+    ``repl`` go to ``make_dist`` (serving meshes).
 
     The ranks meet through a file store in a fresh temporary directory
     (no port to collide with another run); every collective of theirs
@@ -141,7 +169,8 @@ def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
     n = shape[0] * shape[1]
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         fn, shape, r, os.path.join(tmp, "store"), backend, device, fsdp,
-        timeout, tuple(args), results)) for r in range(n)]
+        timeout, tuple(args), results, dict(sp=sp, repl=repl)))
+        for r in range(n)]
     out: List[Any] = [None] * n
     try:
         for p in procs:

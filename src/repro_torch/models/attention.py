@@ -91,12 +91,44 @@ def flash_attention_partials(q, k, v, *, window=0, block=512):
 
 
 def merge_partials(o1, m1, l1, o2, m2, l2):
-    """Merge two partial-softmax results."""
+    """Merge two partial-softmax results. A side may carry m -inf (a
+    kernel's log-sum-exp of nothing, ``lse_partials``): it weighs 0, and
+    a row neither side saw stays 0."""
     m = torch.maximum(m1, m2)
-    c1 = torch.exp(m1 - m)
-    c2 = torch.exp(m2 - m)
-    out = o1 * c1[..., None] + o2 * c2[..., None]
-    return out, m, l1 * c1 + l2 * c2
+    o1, l1 = rescale_partials(o1, m1, l1, m)
+    o2, l2 = rescale_partials(o2, m2, l2, m)
+    return o1 + o2, m, l1 + l2
+
+
+def rescale_partials(o, m, l, gmax):
+    """The local half of the reference's ``combine_partials``: this
+    member's (o, l) rescaled to the group's max ``gmax`` of ``m`` (the
+    caller sums them over the group). A row that no member has seen
+    (``gmax`` -inf, the kernels' log-sum-exp of nothing) is rescaled by
+    0 instead of NaN."""
+    mu = torch.where(gmax == -torch.inf, torch.zeros_like(gmax), gmax)
+    corr = torch.exp(m - mu)
+    return o * corr[..., None], l * corr
+
+
+def replica_groups(kv_tp: int, repl: int):
+    """Model-axis index groups [[kg*repl .. kg*repl+repl-1] ...]: the K/V
+    replica sets that jointly hold one kv-head group's pages (the
+    reference's ``replica_groups``)."""
+    return [[kg * repl + r for r in range(repl)] for kg in range(kv_tp)]
+
+
+def lse_partials(out, lse):
+    """Partials (o, m, l) of a kernel's normalised output ``out`` (...,
+    D) and its log-sum-exp ``lse`` (...): o = out in fp32, m = lse, l = 1,
+    so that ``combine_partials`` and ``merge_partials`` weigh it by
+    exp(lse). A row that saw nothing (lse -inf) gets o = l = 0: its
+    output (zeros, or the paged kernel's mean(V), which may be NaN over
+    a hybrid pool's state pages) weighs nothing."""
+    seen = torch.isfinite(lse)
+    o = torch.where(seen[..., None], out.float(),
+                    torch.zeros((), device=out.device))
+    return o, lse, seen.float()
 
 
 def attend_tokens(q, k, v, mask):

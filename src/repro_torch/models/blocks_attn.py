@@ -7,7 +7,13 @@ forward and backward, in one call per layer. Training's attention and MLP
 take this rank's heads and ``d_ff`` columns of a ``(data, model)`` mesh
 and end in ``psum_tp``, as the reference's do; training's MoE takes this
 rank's experts and their ffe columns and exchanges the routed copies by
-an all-to-all over the data axis; serving runs on one device.
+an all-to-all over the data axis. Serving on a mesh does the same with
+the rank's heads, and where a sequence's pages are split over ranks (K/V
+replica groups, ``sp``: ``Dist.combine_axes``) each member attends its
+own pages with the kernels' log-sum-exp output, the partials combine over
+the group (``tp.combine_all``), and the fresh chunk (or token) merges
+once, after the combine, on every rank with its own heads, as the
+reference's ``attn_compute`` does.
 
 Packed self-attention always runs through the varlen flash kernel in one
 call over [old page slots ++ fresh chunk K/V] (the reference's
@@ -33,7 +39,7 @@ from ..kernels.paged_attention import paged_decode_attention
 from . import attention as A
 from .common import dense, rms_norm
 from .rotary import rotate
-from .tp import all_to_all_dp, psum_tp
+from .tp import all_to_all_dp, combine_all, psum_tp
 
 # Block-size caps for the segment-block-sparse packed attention schedule
 # (sparse_blocks scales them down for small streams).
@@ -85,7 +91,7 @@ def attn_gather(buf, view_shape, tables, layer, index=None):
 
 
 def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
-                          chunk_start):
+                          chunk_start, split=False):
     """The varlen call's segment ids, positions and tile sizes for one
     packed step over [old page slots ++ fresh chunk] — the same for every
     layer of the step.
@@ -97,7 +103,11 @@ def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
     Fresh tokens ride with kv_pos = positions, so the kernel's
     ``kpos <= qpos`` rule is the intra-chunk causal mask. ``kv_tiles`` is
     the kernel's per-tile skip metadata (``varlen_kv_tiles``), computed
-    here once for all layers."""
+    here once for all layers.
+
+    ``split`` (a member of a combine group, ``packed_split_attention``):
+    two calls' metadata, ``old`` over the old slots alone and ``fresh``
+    over the chunk alone, each with its own tiles."""
     t = seg_ids.shape[1]
     s = slot_pos.shape[1]
     sid = seg_ids[0]
@@ -107,11 +117,20 @@ def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
                                    torch.where(sid >= 0, cs, -1), "amax")
     slot_cs = seg_cs[slot_seg[0].clamp(0, t - 1).long()]
     live = (slot_seg[0] >= 0) & (slot_pos[0] < slot_cs)
-    kv_seg = torch.cat([torch.where(live, slot_seg[0], -2), sid])
-    kv_pos = torch.cat([slot_pos[0], positions[0]])
-    blk_q, blk_k = sparse_blocks(t, s + t)
+    old_seg = torch.where(live, slot_seg[0], -2)
+    if split:
+        return dict(old=_varlen_meta(sid, positions[0], old_seg,
+                                     slot_pos[0]),
+                    fresh=_varlen_meta(sid, positions[0], sid, positions[0]))
+    return _varlen_meta(sid, positions[0], torch.cat([old_seg, sid]),
+                        torch.cat([slot_pos[0], positions[0]]))
+
+
+def _varlen_meta(q_seg, q_pos, kv_seg, kv_pos):
+    """One varlen call's int32 metadata, its skip tiles and tile sizes."""
+    blk_q, blk_k = sparse_blocks(q_seg.shape[0], kv_seg.shape[0])
     kv_seg, kv_pos = kv_seg.int(), kv_pos.int()
-    return dict(q_seg=sid.int(), kv_seg=kv_seg, q_pos=positions[0].int(),
+    return dict(q_seg=q_seg.int(), kv_seg=kv_seg, q_pos=q_pos.int(),
                 kv_pos=kv_pos, kv_tiles=varlen_kv_tiles(kv_seg, kv_pos),
                 blk_q=blk_q, blk_k=blk_k)
 
@@ -135,6 +154,38 @@ def packed_kernel_attention(q, k_old, v_old, k_fresh, v_fresh, meta, *,
         meta["kv_pos"], window=window, blk_q=meta["blk_q"],
         blk_k=meta["blk_k"], kv_tiles=meta["kv_tiles"])    # (H, T, D)
     return out.transpose(0, 1).reshape(1, t, kvl, g, d)
+
+
+def _varlen_partials(q, k, v, meta, window):
+    """One varlen call with its log-sum-exp, as partials (o (1,KVL,G,T,D),
+    m, l (1,KVL,G,T)): ``attention.lse_partials``."""
+    _, t, kvl, g, d = q.shape
+    out, lse = flash_attention_varlen(
+        q[0].reshape(t, kvl * g, d).transpose(0, 1), k[0].transpose(0, 1),
+        v[0].transpose(0, 1), meta["q_seg"], meta["kv_seg"], meta["q_pos"],
+        meta["kv_pos"], window=window, blk_q=meta["blk_q"],
+        blk_k=meta["blk_k"], kv_tiles=meta["kv_tiles"], return_lse=True)
+    return A.lse_partials(out.unflatten(0, (kvl, g))[None],
+                          lse.view(1, kvl, g, t))
+
+
+def packed_split_attention(q, k_old, v_old, k_fresh, v_fresh, meta, dist, *,
+                           window=0):
+    """Packed attention of a member of a combine group (``meta``:
+    ``packed_attention_meta(..., split=True)``): the varlen kernel over
+    this rank's old page slots with its log-sum-exp, the partials combined
+    over ``dist.combine_axes``, then a second call over the fresh chunk
+    merged in, once, on every rank: the reference's order (its old part
+    ``slot_pos < chunk_start`` combined over the group, then the fresh
+    part's intra-chunk causal mask). The fresh chunk must not ride with
+    every member's old slots: the combine would count it once per member,
+    and with K/V replicas (whose q heads differ) with another rank's
+    heads. Returns (1,T,KVL,G,D) in q.dtype."""
+    o, m, l = combine_all(*_varlen_partials(q, k_old, v_old, meta["old"],
+                                            window), dist)
+    o, m, l = A.merge_partials(o, m, l, *_varlen_partials(
+        q, k_fresh, v_fresh, meta["fresh"], window))
+    return A.finalize_softmax(o, l).to(q.dtype)
 
 
 def packed_cross_meta(slot_pos, slot_seg, seg_ids, enc_lens):
@@ -170,17 +221,24 @@ def packed_cross_attention(q, k, v, meta):
 
 
 def attn_compute(p, x, k_old, v_old, *, meta, rope, kv_local, head_dim,
-                 window=0, norm_eps=1e-5):
+                 window=0, norm_eps=1e-5, dist=None):
     """Phase 2 (COMPUTE): packed attention over the gathered old pages and
     this step's fresh K/V (still in hand — the buffer write happens in
-    phase 3). Returns (x_out, k_fresh, v_fresh)."""
+    phase 3), the o-projection summed over the model axis of ``dist``.
+    A member of a combine group (``meta`` has ``old`` and ``fresh``) takes
+    ``packed_split_attention``. Returns (x_out, k_fresh, v_fresh)."""
     b, t, _ = x.shape
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
-    out = packed_kernel_attention(q, k_old, v_old, k, v, meta, window=window)
+    if "old" in meta:
+        out = packed_split_attention(q, k_old, v_old, k, v, meta, dist,
+                                     window=window)
+    else:
+        out = packed_kernel_attention(q, k_old, v_old, k, v, meta,
+                                      window=window)
     y = dense(out.reshape(b, t, -1), p["o"])
-    return x + y, k, v
+    return x + psum_tp(y, dist), k, v
 
 
 def padded_prefill_meta(slot_pos, positions, *, window=0, block=512):
@@ -220,26 +278,30 @@ def prefill_flash(q, k, v, blocks):
 
 
 def attn_compute_padded(p, x, k_old, v_old, *, meta, rope, kv_local,
-                        head_dim, window=0, norm_eps=1e-5):
+                        head_dim, window=0, norm_eps=1e-5, dist=None):
     """Phase 2 (COMPUTE) of a padded T > 1 step: flash over the gathered
     old pages merged with the fresh chunk (still in hand — the buffer
-    write happens in phase 3). ``meta``: ``padded_prefill_meta``.
+    write happens in phase 3), the o-projection summed over the model
+    axis of ``dist``. ``meta``: ``padded_prefill_meta``.
     Returns (x_out, k_fresh, v_fresh)."""
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
     out = padded_prefill_attention(q, k, v, k_old, v_old, meta,
-                                   window=window)
-    return x + dense(out, p["o"]), k, v
+                                   window=window, dist=dist)
+    return x + psum_tp(dense(out, p["o"]), dist), k, v
 
 
-def padded_prefill_attention(q, k, v, k_old, v_old, meta, *, window=0):
+def padded_prefill_attention(q, k, v, k_old, v_old, meta, *, window=0,
+                             dist=None):
     """The attention of a padded T > 1 step: flash over the gathered old
     pages merged with the fresh chunk (q (B,T,KVL,G,D); k/v (B,T,KVL,D);
-    ``meta``: ``padded_prefill_meta``). Returns (B, T, KVL*G*D) in
-    q.dtype."""
+    ``meta``: ``padded_prefill_meta``). On a combine group the old part's
+    partials combine over ``dist.combine_axes`` before the fresh merge, as
+    the reference's do. Returns (B, T, KVL*G*D) in q.dtype."""
     b, t = q.shape[:2]
-    o, m, l = prefill_flash(q, k_old, v_old, meta["blocks"])
+    o, m, l = combine_all(*prefill_flash(q, k_old, v_old, meta["blocks"]),
+                          dist)
     if meta["fresh"] is not None:
         of, mf, lf = A.attend_tokens(q, k, v, meta["fresh"])
     else:
@@ -250,7 +312,7 @@ def padded_prefill_attention(q, k, v, k_old, v_old, meta, *, window=0):
 
 def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
                 qpos, plan, rope, kv_local, head_dim, window=0,
-                norm_eps=1e-5):
+                norm_eps=1e-5, dist=None):
     """A padded T == 1 attention layer: project, write this token's K/V
     into its slot FIRST (``rows``: ``kv_rows``; pad and killed rows go to
     the scratch page), then one paged decode kernel call over this layer's
@@ -259,18 +321,24 @@ def attn_decode(p, x, buf, view_shape, layer, *, rows, tables, page_pos,
     the reference's old-part (``slot_pos < qpos``) plus fresh-token merge.
     Only this layer's slots are written before it reads, so every other
     layer of the cycle still reads what it would before any write.
-    ``plan``: the step's ``paged_decode_plan``, shared by every layer."""
+    ``plan``: the step's ``paged_decode_plan``, shared by every layer.
+    On a combine group (``dist.combine_axes``) the layer takes
+    ``split_decode_attention`` instead (``qpos`` and ``plan`` then the
+    strict old part's); the o-projection is summed over the model axis
+    of ``dist``."""
     xn = rms_norm(x, p["attn_norm"], norm_eps)
     q, k, v = qkv_proj(p, xn, kv_local=kv_local, head_dim=head_dim,
                        rope=rope)
-    out = decode_attention(q, k, v, buf, view_shape, layer, rows=rows,
-                           tables=tables, page_pos=page_pos, qpos=qpos,
-                           plan=plan, window=window)
-    return x + dense(out, p["o"])
+    attend = split_decode_attention if dist is not None and \
+        dist.combine_axes else decode_attention
+    out = attend(q, k, v, buf, view_shape, layer, rows=rows, tables=tables,
+                 page_pos=page_pos, qpos=qpos, plan=plan, window=window,
+                 dist=dist)
+    return x + psum_tp(dense(out, p["o"]), dist)
 
 
 def decode_attention(q, k, v, buf, view_shape, layer, *, rows, tables,
-                     page_pos, qpos, plan, window=0):
+                     page_pos, qpos, plan, window=0, dist=None):
     """The attention of a padded T == 1 layer (``attn_decode``): this
     token's K/V (k/v (B,1,KVL,D)) written into its slot first, then one
     paged decode kernel call over the layer's view of ``buf``, read in
@@ -280,6 +348,43 @@ def decode_attention(q, k, v, buf, view_shape, layer, *, rows, tables,
                                  tables, page_pos, qpos, window=window,
                                  plan=plan)
     return out.reshape(q.shape[0], 1, -1)
+
+
+def strict_old(positions, window: int):
+    """The paged kernel's (positions, window) for the reference's strict
+    old part of a T == 1 step, ``qpos - window < slot_pos < qpos``: its
+    rule ``slot_pos <= qpos'`` and ``> qpos' - window'`` at qpos' = qpos -
+    1 and window' = window - 1 (a window of 1 sees no old slot, which
+    window' 0, no window, cannot say)."""
+    if window == 1:
+        raise NotImplementedError("a sliding window of 1 token")
+    return positions - 1, max(0, window - 1)
+
+
+def split_decode_attention(q, k, v, buf, view_shape, layer, *, rows,
+                           tables, page_pos, qpos, plan, window=0,
+                           dist=None):
+    """The attention of a padded T == 1 layer on a member of a combine
+    group: one paged decode kernel call over this rank's pages, read in
+    place, with its log-sum-exp, at the strict old part's visibility
+    (``qpos`` and ``plan`` from ``strict_old``); the partials combined
+    over ``dist.combine_axes``; then the token's own K/V merged once, on
+    every rank with its own heads (the reference's fresh part: one slot,
+    weight 1), and only then the K/V written (``rows``: the member whose
+    page holds the slot; the others' go to the scratch page). The token
+    is not written first as on one device: the combine would count it on
+    the member that holds its slot with that member's q heads, which at
+    K/V replicas are not every rank's. Returns (B, 1, KVL*G*D)."""
+    b = q.shape[0]
+    out, lse = paged_decode_attention(
+        q[:, 0], buf.view(view_shape)[:, layer], tables, page_pos, qpos,
+        window=max(0, window - 1), plan=plan, return_lse=True)
+    o, m, l = combine_all(*A.lse_partials(out[:, :, :, None],
+                                          lse[..., None]), dist)
+    fresh = torch.ones((b, 1, 1), dtype=torch.bool, device=q.device)
+    o, m, l = A.merge_partials(o, m, l, *A.attend_tokens(q, k, v, fresh))
+    A.write_kv_rows(buf, view_shape, layer, rows, k, v)
+    return A.finalize_softmax(o, l).reshape(b, 1, -1).to(q.dtype)
 
 
 def attn_train(p, x, *, kv_local, head_dim, rope, window=0, causal=True,

@@ -182,17 +182,16 @@ def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
     ``mamba_chunk_scan_train`` (differentiable: its backward is the scan's
     backward kernel on the card), no in-place write on the autograd graph,
     and no final state (returned as None). On a ``(data, model)`` mesh
-    (``dist``, training only) ``p`` holds this rank's ``md["h_local"]``
-    heads, the scan runs over them, the gated norm normalises over them
-    and the out-projection is summed over the model axis."""
+    (``dist``, training and serving) ``p`` holds this rank's
+    ``md["h_local"]`` heads, the scan runs over them, the gated norm
+    normalises over them and the out-projection is summed over the model
+    axis."""
     b, t, _ = x.shape
     hl, dil = md["h_local"], md["d_in_local"]
     if train and (init_state is not None or length_mask is not None or
                   last_idx is not None):
         raise ValueError("mamba2_chunked(train=True) takes equal rows from "
                          "zero states")
-    if not train and dist is not None and dist.size > 1:
-        raise NotImplementedError("serving runs on one device")
     xn = rms_norm(x, p["norm"], norm_eps)
     z, xr, bm, cm, dt = _mamba_project(p, xn)
     if train:
@@ -227,13 +226,13 @@ def mamba2_chunked(p, x, md: dict, *, d_state: int, headdim: int,
     y, s_fin = mamba_chunk_scan_varlen(
         xr.view(b * t, hl, headdim), bm, cm, dt.reshape(b * t, hl),
         p["A_log"], row_start, row_len.contiguous(), ssm0)
-    out = _gated_out(p, x, y.view(b, t, hl, headdim), xr, z, norm_eps)
+    out = _gated_out(p, x, y.view(b, t, hl, headdim), xr, z, norm_eps, dist)
     return out, flatten_mamba_state(s_fin, conv_state)
 
 
 def mamba2_packed(p, x, md: dict, *, d_state: int, headdim: int,
                   conv_width: int, seg_ids, seg_start, seg_last, init_state,
-                  meta=None, norm_eps=1e-5):
+                  meta=None, norm_eps=1e-5, dist=None):
     """Mamba2 over a PACKED stream: x (1, TT, d) holds S segments back to
     back; seg_ids (TT,) (-1 pad), seg_start (TT,) (stream index of the
     token's segment's first token), seg_last (S,), init_state (S, U).
@@ -242,7 +241,8 @@ def mamba2_packed(p, x, md: dict, *, d_state: int, headdim: int,
     0), as in the reference; the scan then runs one row per segment, so
     ``states[i]`` is the state after segment i's last token and a segment
     with no token passes its state through. Returns (x + out, final
-    states (S, U) fp32)."""
+    states (S, U) fp32). On a mesh (``dist``) the rank's heads, as
+    ``mamba2_chunked``'s."""
     hl, dil = md["h_local"], md["d_in_local"]
     tt = x.shape[1]
     if meta is None:
@@ -263,14 +263,15 @@ def mamba2_packed(p, x, md: dict, *, d_state: int, headdim: int,
     y, s_fin = mamba_chunk_scan_varlen(
         xr.view(tt, hl, headdim), bm, cm, dt, p["A_log"],
         meta["row_start"], meta["row_len"], ssm0)
-    out = _gated_out(p, x, y[None], xr, z, norm_eps)
+    out = _gated_out(p, x, y[None], xr, z, norm_eps, dist)
     return out, flatten_mamba_state(s_fin, conv_state)
 
 
 def mamba2_step(p, x, state_flat, md: dict, *, d_state: int, headdim: int,
-                conv_width: int, norm_eps=1e-5):
+                conv_width: int, norm_eps=1e-5, dist=None):
     """Single-token decode (padded T == 1), plain torch. x: (B, 1, d).
-    Returns (x + out, new state (B, U) fp32)."""
+    Returns (x + out, new state (B, U) fp32). On a mesh (``dist``) the
+    rank's heads, as ``mamba2_chunked``'s."""
     b = x.shape[0]
     hl, dil = md["h_local"], md["d_in_local"]
     ssm, conv = split_mamba_state(state_flat, md, d_state, headdim,
@@ -288,7 +289,7 @@ def mamba2_step(p, x, state_flat, md: dict, *, d_state: int, headdim: int,
     ssm = ssm * decay[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xh, bm.float())
     y = torch.einsum("bn,bhpn->bhp", cm.float(), ssm)
-    out = _gated_out(p, x, y[:, None], xr, z, norm_eps)
+    out = _gated_out(p, x, y[:, None], xr, z, norm_eps, dist)
     return out, flatten_mamba_state(ssm, conv)
 
 

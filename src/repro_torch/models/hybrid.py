@@ -11,7 +11,10 @@ kernel; padded T > 1 steps through the chunk-scan kernel
 ``mamba2_step`` (plain torch) and the paged decode kernel. Training
 (``train_loss``): the scans through the chunk-scan kernel and its backward
 kernel, the shared attention through the dense flash kernels, on one
-device or on a ``(data, model)`` mesh at each rank's heads.
+device or on a ``(data, model)`` mesh at each rank's heads. Serving on
+such a mesh runs the same blocks at the rank's Mamba2 heads (the gated
+norm over them, the out-projection summed over the model axis) and the
+shared attention as ``DecoderLM.serve_step`` does.
 """
 from __future__ import annotations
 
@@ -51,8 +54,8 @@ class HybridLM(DecoderLM):
     that each rank's copy gets only its own heads' gradient) and its share
     of the shared attention and MLP, like the dense family's. The
     reference shards no hybrid leaf over the data axis (its FSDP rule is
-    ``DecoderLM.template``'s), so ``fsdp`` is refused. Serving runs on one
-    device."""
+    ``DecoderLM.template``'s), so ``fsdp`` is refused. It serves on the
+    same mesh (``serve_step``)."""
 
     def __init__(self, cfg: ModelConfig, dist: Optional[Dist] = None):
         cfg.validate()
@@ -171,7 +174,10 @@ class HybridLM(DecoderLM):
             if self.dist.size == 1:
                 return w
             w = self._expand_leaf(name, parent, w)
-            return local_part(w, shard, self.dist).contiguous()
+            # a copy: a contiguous slice would keep the whole one-device
+            # leaf alive (a vocabulary table, tp times this rank's part)
+            return local_part(w, shard, self.dist).clone(
+                memory_format=torch.contiguous_format)
 
         return {name: ({n: mine(n, name, s, shards[name][n])
                         for n, s in shape.items()}
@@ -273,18 +279,20 @@ class HybridLM(DecoderLM):
         back, then the shared attention block and MLP, then its K/V write;
         the tail Mamba2 layers come last. Writes K/V and state into
         ``buffer`` IN PLACE and returns fp32 logits, one row per segment
-        (packed) or per batch row (padded)."""
-        if self.dist.size > 1:
-            raise NotImplementedError(
-                "serve_step runs on one device (the reference serves on a "
-                "(1, 1) buffer too); this model was built for a "
-                f"{self.dist.dp} x {self.dist.tp} mesh")
+        (packed) or per batch row (padded).
+
+        On a ``(data, model)`` mesh the arguments and the logits are this
+        rank's, as ``DecoderLM.serve_step``'s: each Mamba2 layer runs on
+        the rank's heads and their state (its ``state_eids`` rows), the
+        shared attention on its heads and pages."""
+        self._check_mesh()
+        dist = self.dist
         cfg = self.cfg
         packed = batch.seg_ids is not None
         positions = batch.positions
         if prefill is None:
             prefill = packed or positions.shape[1] > 1
-        x = embed_lookup(batch.tokens, params["embed"])
+        x = embed_lookup(batch.tokens, params["embed"], dist)
         views = self._layer_views(buffer)
         aview, mview = views["full_attn"], views["mamba"]
         if packed:
@@ -302,9 +310,10 @@ class HybridLM(DecoderLM):
         st = step["full_attn"]
         eids = batch.state_eids["mamba"].reshape(-1)
         mkw = dict(d_state=cfg.mamba_d_state, headdim=cfg.mamba_headdim,
-                   conv_width=cfg.mamba_conv_width, norm_eps=cfg.norm_eps)
+                   conv_width=cfg.mamba_conv_width, norm_eps=cfg.norm_eps,
+                   dist=dist)
         akw = dict(rope=rope, kv_local=self.kv_local, head_dim=cfg.head_dim,
-                   norm_eps=cfg.norm_eps)
+                   norm_eps=cfg.norm_eps, dist=dist)
 
         def run_mamba(pj, x, layer):
             s0 = A.read_state(buffer.view(mview), layer, eids)
@@ -323,7 +332,6 @@ class HybridLM(DecoderLM):
         main = unstack(params["mamba_main"])
         shared = params["shared_attn"]
         ae = cfg.attn_every
-        qpos = positions[:, 0].contiguous()
         for cyc in range(self.n_super):
             if prefill:
                 gathered = BA.attn_gather(buffer, aview, st["tables"], cyc,
@@ -340,9 +348,9 @@ class HybridLM(DecoderLM):
             else:
                 x = BA.attn_decode(shared, x, buffer, aview, cyc,
                                    rows=st["rows"], tables=st["tables"],
-                                   page_pos=st["page_pos"], qpos=qpos,
+                                   page_pos=st["page_pos"], qpos=st["qpos"],
                                    plan=st["plan"], **akw)
-            x = BA.mlp_block(shared, x, cfg.norm_eps)
+            x = BA.mlp_block(shared, x, cfg.norm_eps, dist=dist)
             if k is not None:
                 A.write_kv_rows(buffer, aview, cyc, st["rows"], k, v)
         if self.n_tail:

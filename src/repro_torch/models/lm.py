@@ -5,8 +5,11 @@ All three train on a ``(data, model)`` mesh (``models.tp.Dist``): each
 rank holds its slice of the reference's expanded parameters (a MoE's
 experts split over the data axis and their ffe over the model axis),
 FSDP gathers a layer's shards inside its checkpointed cycle, and the loss
-(and a MoE's aux loss) is summed over the data axis. Serving runs on one
-device."""
+(and a MoE's aux loss) is summed over the data axis. All three serve on
+such a mesh too (the reference's ``shard_map``'d ``serve_step``): each
+rank takes its batch (``launch.input_specs.split_batch``), its heads, its
+vocabulary rows and its experts, and returns its (rows, V_local) logits
+(``tp.gather_logits`` assembles the global ones)."""
 from __future__ import annotations
 
 import dataclasses
@@ -97,7 +100,7 @@ class DecoderLM:
     device the tp dim is dropped and nothing is split).
 
     ``dist``: the rank's place on a ``(data, model)`` mesh (one device by
-    default), on which every member trains; serving runs on one device.
+    default), on which every member trains and serves.
 
     ``moe_drops``: set it to a list to have every MoE serve step append
     its count of dropped (token, k) copies, summed over the layers, as a
@@ -235,8 +238,8 @@ class DecoderLM:
                     local(v, shards[n]) for n, v in tree.items()}
         return go(self.global_shapes(), self.shards())
 
-    def init(self, seed: int = 0, device="cuda",
-             master: bool = False) -> Dict[str, Any]:
+    def init(self, seed: int = 0, device="cuda", master: bool = False,
+             local: bool = False) -> Dict[str, Any]:
         """Random weights from ``seed`` with the reference template's
         shapes and scales (normal 0.02; o/down/moe_down 0.02/sqrt(2L);
         norms ones; biases zeros), drawn by a ``torch.Generator`` on
@@ -258,10 +261,14 @@ class DecoderLM:
         expanded layout (``_expand``; its experts and their ffe columns),
         so the model computes the same function on every mesh (a MoE's up
         to the capacity and aux loss taken per data rank, as the
-        reference takes them)."""
+        reference takes them). With ``local`` each rank draws its own
+        leaves directly from ``seed * 1000 + rank``, at the same scales: a
+        model of the same shapes but of other values on every mesh, for a
+        model whose one-device leaves do not fit one card (dbrx-132b's
+        stacked experts are 84 GB at 40 layers)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen.manual_seed(seed * 1000 + self.dist.rank if local else seed)
         out_scale = 0.02 / (2 * self.cfg.num_layers) ** 0.5
 
         def leaf(name, shape):
@@ -275,13 +282,16 @@ class DecoderLM:
                                torch.float32, gen)
 
         def mine(name, shape, shard):
-            if self.dist.size == 1:
+            if self.dist.size == 1 or local:
                 return leaf(name, shape)
             whole = self._expand(name, leaf(name, shape))
-            return local_part(whole, shard, self.dist).contiguous()
+            # a copy: a contiguous slice would keep the whole one-device
+            # leaf alive (a vocabulary table, tp times this rank's part)
+            return local_part(whole, shard, self.dist).clone(
+                memory_format=torch.contiguous_format)
 
         # the one-device model's leaves, in the order they are drawn
-        shapes = DecoderLM(self.cfg).param_shapes()
+        shapes = (self if local else DecoderLM(self.cfg)).param_shapes()
         shards = self.shards()
         params = {n: mine(n, s, shards[n]) for n, s in shapes.items()
                   if n != "layers"}
@@ -480,12 +490,17 @@ class DecoderLM:
         is written, as the reference does. What is the same for every layer
         of the step — rope tables, page indices, slot positions, the varlen
         call's metadata, write rows, per-layer parameter views — is computed
-        once per step: the port runs eagerly, and each op costs a launch."""
-        if self.dist.size > 1:
-            raise NotImplementedError(
-                "serve_step runs on one device (the reference serves on a "
-                "(1, 1) buffer too); this model was built for a "
-                f"{self.dist.dp} x {self.dist.tp} mesh")
+        once per step: the port runs eagerly, and each op costs a launch.
+
+        On a ``(data, model)`` mesh (``dist``) the arguments are this
+        rank's: its parameters, its flat buffer and its batch
+        (``input_specs.split_batch``: its rows, and its share of every
+        page table); the logits are its (rows, V_local) vocabulary
+        columns. Where a sequence's pages are split over ranks (K/V
+        replicas, ``sp``) the attention's partials combine over them
+        (``blocks_attn``); the o-projection, MLP and head sum over the
+        model axis. At a 1 x 1 mesh it is the single-device step."""
+        self._check_mesh()
         if batch.seg_ids is None:
             return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg
@@ -511,7 +526,7 @@ class DecoderLM:
                     pj, x, *gathered[j], meta=step[tname]["meta"], rope=rope,
                     kv_local=self.kv_local, head_dim=cfg.head_dim,
                     window=cfg.sliding_window if kind == "swa" else 0,
-                    norm_eps=cfg.norm_eps)
+                    norm_eps=cfg.norm_eps, dist=self.dist)
                 writes.append((tname, lit, k, v))
                 x = self._mlp(pj, x, drops)
             for tname, lit, k, v in writes:
@@ -520,10 +535,27 @@ class DecoderLM:
         self._record_drops(drops)
         return self._head(params, x, batch)
 
+    def _split_pages(self) -> bool:
+        """Whether a sequence's pages are split over this rank's combine
+        group (the enc-dec and RWKV6 families have no ``dist``)."""
+        dist = getattr(self, "dist", None)
+        return dist is not None and bool(dist.combine_axes)
+
+    def _check_mesh(self):
+        """A serve step on a mesh needs the mesh's K/V replica groups to
+        be this model's (``launch.mesh.make_dist(..., repl=)``)."""
+        dist = self.dist
+        if dist.tp > 1 and dist.repl != self.ri["repl"]:
+            raise ValueError(
+                f"the mesh's K/V replica sets hold {dist.repl} ranks; this "
+                f"model's {self.cfg.num_kv_heads} K/V heads at tp {dist.tp} "
+                f"need {self.ri['repl']}")
+
     def _embed(self, params, batch: DecodeBatch) -> torch.Tensor:
-        """Token embeddings, with the step's precomputed image embeddings
-        (fp32, rounded to bf16) spliced in where ``mm_mask`` is set."""
-        x = embed_lookup(batch.tokens, params["embed"])
+        """Token embeddings (summed over the model axis of a mesh), with
+        the step's precomputed image embeddings (fp32, rounded to bf16)
+        spliced in where ``mm_mask`` is set."""
+        x = embed_lookup(batch.tokens, params["embed"], self.dist)
         if batch.mm_embeds is not None:
             x = torch.where(batch.mm_mask[..., None],
                             batch.mm_embeds.to(x.dtype), x)
@@ -554,8 +586,8 @@ class DecoderLM:
                 pj, x, num_experts=cfg.num_experts,
                 top_k=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor, norm_eps=cfg.norm_eps,
-                drops=drops)
-        return BA.mlp_block(pj, x, cfg.norm_eps)
+                drops=drops, dist=self.dist)
+        return BA.mlp_block(pj, x, cfg.norm_eps, dist=self.dist)
 
     def _attn_views(self, views):
         """The attention types' entries of ``_layer_views``."""
@@ -566,9 +598,12 @@ class DecoderLM:
     def _packed_invariants(self, batch: DecodeBatch, views):
         """What every layer of a packed step shares: the rope tables and,
         per attention type, the page index, the varlen call's metadata and
-        the K/V write rows. Returns (rope, {type: dict})."""
+        the K/V write rows (on a combine group the split calls' metadata,
+        ``packed_attention_meta(..., split=True)``). Returns (rope,
+        {type: dict})."""
         positions = batch.positions
         rope = self._rope(batch)
+        split = self._split_pages()
         step = {}
         for tname, view in self._attn_views(views).items():
             sq = {f: getattr(batch, f)[tname].reshape(1, -1)
@@ -579,7 +614,7 @@ class DecoderLM:
                 index=A.page_index(sq["tables"]), tables=sq["tables"],
                 meta=BA.packed_attention_meta(slot_pos, slot_seg, positions,
                                               batch.seg_ids,
-                                              batch.chunk_start),
+                                              batch.chunk_start, split),
                 rows=A.kv_rows(view, sq["write_eids"], positions % view[3]))
         return rope, step
 
@@ -587,11 +622,14 @@ class DecoderLM:
         """What every layer of a padded step shares: the rope tables and,
         per attention type, its tables, page starts, window and K/V write
         rows, plus (T > 1) the page index and masks or (T == 1) the paged
-        decode kernel's plan. Returns (rope, {type: dict})."""
+        decode kernel's positions and plan (on a combine group the strict
+        old part's, ``blocks_attn.strict_old``). Returns (rope, {type:
+        dict})."""
         cfg = self.cfg
         positions = batch.positions
         b, t = positions.shape
         rope = self._rope(batch)
+        split = self._split_pages()
         step = {}
         for tname, view in self._attn_views(views).items():
             tables = batch.tables[tname].reshape(b, -1)
@@ -610,9 +648,11 @@ class DecoderLM:
                           meta=BA.padded_prefill_meta(slot_pos, positions,
                                                       window=window))
             else:
-                st["plan"] = paged_decode_plan(tables, page_pos,
-                                               positions[:, 0], view[3],
-                                               window)
+                qpos, win = positions[:, 0].contiguous(), window
+                if split:
+                    qpos, win = BA.strict_old(qpos, window)
+                st.update(qpos=qpos, plan=paged_decode_plan(
+                    tables, page_pos, qpos, view[3], win))
             step[tname] = st
         return rope, step
 
@@ -630,7 +670,8 @@ class DecoderLM:
         else:
             x = x[:, -1]
         logits = logits_local(x, self._unembed(params))
-        return mask_pad_vocab(logits, self.cfg.vocab_size)
+        return mask_pad_vocab(logits, self.cfg.vocab_size,
+                              getattr(self, "dist", None))
 
     def _final_norm(self, params, x):
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -657,7 +698,6 @@ class DecoderLM:
         rope, step = self._padded_invariants(batch, views, prefill)
         layers = self._layer_params(params)
         drops = self._drops()
-        qpos = positions[:, 0].contiguous()
         for cycle in range(self.cycles):
             gathered = []
             if prefill:
@@ -675,7 +715,7 @@ class DecoderLM:
                 st = step[tname]
                 kw = dict(rope=rope, kv_local=self.kv_local,
                           head_dim=cfg.head_dim, window=st["window"],
-                          norm_eps=cfg.norm_eps)
+                          norm_eps=cfg.norm_eps, dist=self.dist)
                 if prefill:
                     x, k, v = BA.attn_compute_padded(
                         pj, x, *gathered[j], meta=st["meta"], **kw)
@@ -684,7 +724,7 @@ class DecoderLM:
                     x = BA.attn_decode(
                         pj, x, buffer, views[tname], lit, rows=st["rows"],
                         tables=st["tables"], page_pos=st["page_pos"],
-                        qpos=qpos, plan=st["plan"], **kw)
+                        qpos=st["qpos"], plan=st["plan"], **kw)
                 x = self._mlp(pj, x, drops)
             for tname, lit, k, v in writes:
                 A.write_kv_rows(buffer, views[tname], lit,

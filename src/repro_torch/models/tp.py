@@ -25,6 +25,15 @@ sums each leaf's gradient over the axes it is replicated on. The result is
 the gradient of the global loss, on any mesh (held against JAX on 2- and
 4-process CPU meshes in ``tests/test_torch_mesh_train.py``).
 
+Serving. ``sp`` (the reference's sequence-parallel decode) splits every
+sequence's pages over the data axis, and a GQA layout with ``repl`` K/V
+replicas splits a kv head group's pages over its replica set of the model
+axis (``attention.replica_groups``; one process group, ``kv_group``, per
+set).
+Partial attention results over those pages combine by ``combine_partials``
+(the reference's ``attention.combine_partials``): a max of ``m`` over the
+group, then one sum of ``o * corr`` and ``l * corr`` in fp32.
+
 A ``Dist`` of size 1 issues no collective, so at a 1 x 1 mesh every
 function here computes what the single-card code computes, bit for bit.
 """
@@ -36,21 +45,26 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .attention import rescale_partials
 from .common import gqa_tp_layout
 
 
 def _comm_counts() -> Dict[str, int]:
     return {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-            "all_to_all": 0}
+            "all_to_all": 0, "combine": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class Dist:
     """One rank of a ``(data, model)`` mesh. ``dp_group`` holds the ranks
     that share this rank's ``model_rank``, ``tp_group`` those that share
-    its ``data_rank``, ``group`` every rank. ``comm_bytes`` counts the
-    bytes each kind of collective of this rank sent into the group (its
-    input's size), for the step's communication volume."""
+    its ``data_rank``, ``group`` every rank, and ``kv_group`` the ``repl``
+    ranks of this rank's K/V replica set (``attention.replica_groups``;
+    serving).
+    ``sp``: serving splits each sequence's pages over the data axis.
+    ``comm_bytes`` counts the bytes each kind of collective of this rank
+    sent into the group (its input's size; ``combine``: the partial
+    attention combines), for the step's communication volume."""
 
     dp: int = 1
     tp: int = 1
@@ -60,6 +74,9 @@ class Dist:
     dp_group: Any = None
     tp_group: Any = None
     group: Any = None
+    sp: bool = False
+    repl: int = 1
+    kv_group: Any = None
     comm_bytes: Dict[str, int] = dataclasses.field(
         default_factory=_comm_counts, compare=False)
 
@@ -71,20 +88,33 @@ class Dist:
     def rank(self) -> int:
         return self.data_rank * self.tp + self.model_rank
 
+    @property
+    def combine_axes(self):
+        """The axes whose ranks hold parts of a sequence's pages, in the
+        order their partials combine (the reference's: the K/V replica
+        group, then "data" under ``sp``)."""
+        return (("replica",) if self.repl > 1 else ()) + \
+            (("data",) if self.sp and self.dp > 1 else ())
+
     def _group(self, axis: str):
         return {"data": (self.dp_group, self.dp), "model":
-                (self.tp_group, self.tp), "all": (self.group, self.size)}[axis]
+                (self.tp_group, self.tp), "all": (self.group, self.size),
+                "replica": (self.kv_group, self.repl)}[axis]
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``x`` over ``axis`` ("data", "model" or "all") in
-        ``x``'s dtype, as a new tensor (``x`` itself when the axis has one
-        rank)."""
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum",
+                   kind: str = "all_reduce") -> torch.Tensor:
+        """The sum (``op`` "sum") or max ("max") of ``x`` over ``axis``
+        ("data", "model", "replica" or "all") in ``x``'s dtype, as a new
+        tensor (``x`` itself when the axis has one rank); its bytes count
+        under ``kind``."""
         group, n = self._group(axis)
         if n == 1:
             return x
         y = x.contiguous().clone()
-        torch.distributed.all_reduce(y, group=group)
-        self.comm_bytes["all_reduce"] += y.numel() * y.element_size()
+        red = torch.distributed.ReduceOp.MAX if op == "max" else \
+            torch.distributed.ReduceOp.SUM
+        torch.distributed.all_reduce(y, op=red, group=group)
+        self.comm_bytes[kind] += y.numel() * y.element_size()
         return y
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -166,6 +196,31 @@ class Shard:
         """The data dim FSDP gathers whole before use (None for an expert
         leaf, whose data dim is expert parallelism's and stays split)."""
         return self.data_dim if self.tp_axis is not None else None
+
+
+def combine_partials(o, m, l, dist: Optional[Dist], axis: str):
+    """Flash-decoding combine of partial softmax results (o (..., D) fp32
+    unnormalised, m and l (...) fp32) over ``axis`` of ``dist`` ("replica"
+    or "data"), the reference's ``combine_partials``: the group's max of
+    ``m``, then the sum of ``o * corr`` and ``l * corr`` (one all-reduce of
+    both, fp32). Returns (o, m, l) rescaled to the group max. A member
+    that saw nothing (m -inf) weighs 0; a row no member saw keeps m -inf
+    and o = l = 0. The identity at a group of one."""
+    if dist is None or dist._group(axis)[1] == 1:
+        return o, m, l
+    gmax = dist.all_reduce(m, axis, op="max", kind="combine")
+    o, l = rescale_partials(o, m, l, gmax)
+    both = dist.all_reduce(torch.cat([o.reshape(-1), l.reshape(-1)]), axis,
+                           kind="combine")
+    return both[:o.numel()].view(o.shape), gmax, \
+        both[o.numel():].view(l.shape)
+
+
+def combine_all(o, m, l, dist: Optional[Dist]):
+    """``combine_partials`` over every axis of ``dist.combine_axes``."""
+    for axis in (() if dist is None else dist.combine_axes):
+        o, m, l = combine_partials(o, m, l, dist, axis)
+    return o, m, l
 
 
 def replica_info(num_heads: int, num_kv_heads: int, tp: int):
@@ -273,6 +328,21 @@ def replicated_loss(loss: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
 def gather_data(w: torch.Tensor, dim: int, dist: Dist) -> torch.Tensor:
     """An FSDP weight shard gathered whole along ``dim`` over "data"."""
     return _GatherData.apply(w, dist, dim)
+
+
+def gather_logits(logits: torch.Tensor, dist: Optional[Dist],
+                  rows_over_data: bool = False) -> torch.Tensor:
+    """A rank's (rows, V_local) serving logits in the reference's global
+    layout (a collective): the vocabulary gathered over the model axis,
+    and with ``rows_over_data`` (padded rows split over "data") the rows
+    over the data axis, in rank order."""
+    if dist is None or dist.size == 1:
+        return logits
+    out = dist.all_gather(logits, "model")            # (tp, rows, V_local)
+    out = out.permute(1, 0, 2).reshape(logits.shape[0], -1)
+    if rows_over_data and dist.dp > 1:
+        out = dist.all_gather(out, "data").reshape(-1, out.shape[1])
+    return out
 
 
 # ------------------------------------------------ vocab-parallel heads

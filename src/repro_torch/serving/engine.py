@@ -78,7 +78,7 @@ import numpy as np
 
 from ..core.manager import JengaKVCacheManager, StateCopyOp
 from .request import Request, SamplingParams, Status
-from .runner import ModelRunner
+from .runner import ModelRunner, refuse_mesh
 from .sampler import TIE_EPS, greedy_token, host_sample, rid_hash
 from .scheduler import ScheduledSeq, Scheduler, SchedulerConfig, StepPlan
 
@@ -251,6 +251,7 @@ class _InflightStep:
 class Engine:
     def __init__(self, model, cfg: EngineConfig,
                  params=None, seed: int = 0, device="cuda"):
+        refuse_mesh(model)      # one device's buffer, as the reference's
         self.model = model
         if cfg.batching_mode == "mixed":        # legacy alias for PR-1 mode
             cfg = dataclasses.replace(cfg, batching_mode="padded")

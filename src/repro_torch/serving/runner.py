@@ -219,13 +219,30 @@ def _seg_intervals(vals: np.ndarray, block: int):
 
 
 
+def refuse_mesh(model) -> None:
+    """Raise for a model built for a mesh of more than one rank."""
+    dist = getattr(model, "dist", None)
+    if dist is not None and dist.size > 1:
+        raise NotImplementedError(
+            f"this model was built for a {dist.dp} x {dist.tp} mesh; an "
+            "Engine or ModelRunner serves on one device (a (1, 1) buffer, "
+            "as the reference's runner does): call its serve_step on each "
+            "rank with launch.input_specs.split_batch's batch")
+
+
 class ModelRunner:
     def __init__(self, model, manager: JengaKVCacheManager,
                  stub_embed_fn=None, device="cuda",
                  buffer: Optional[torch.Tensor] = None):
         """``buffer``: another runner's unified buffer to share (two models
         on one manager, as speculative decoding runs them); by default the
-        runner allocates its own, zeroed."""
+        runner allocates its own, zeroed.
+
+        A model built for a ``(data, model)`` mesh of ranks is refused:
+        the runner serves one device's (1, 1) buffer and batch, as the
+        reference's does; a mesh's ranks take their share of a batch
+        through ``launch.input_specs.split_batch``."""
+        refuse_mesh(model)
         self.model = model
         self.mgr = manager
         self.device = resolve_device(device)
