@@ -893,11 +893,20 @@ def lse_varlen_cases():
              (768, 1, 768), (896, 1, 896)]
     decode = [(511, 1, 511)] * 16
     rank = dict(h=3, kvl=1, d=128, layout="token")
+    # whisper-tiny at 1 x 4: 6 MHA heads padded to 12, 3 q heads on 3 K/V
+    # heads a rank (G 1, D 64), two replicas a K/V head
+    whisper = dict(h=3, kvl=3, d=64, layout="token")
     return [dict(_case("qwen2-vl 1x4 rank G=3 mixed old-only T=512", mixed,
                        t_total=512, novis_segs=(0, 3)), **rank, old_only=True),
             dict(_case("qwen2-vl 1x4 rank G=3 decode old-only T=16 S=8176",
                        decode, t_total=16, novis_segs=(5,)), **rank,
-                 old_only=True)]
+                 old_only=True),
+            dict(_case("whisper 1x4 rank KVL=3 G=1 D=64 mixed old-only "
+                       "T=512", mixed, t_total=512, novis_segs=(0, 3)),
+                 **whisper, old_only=True),
+            dict(_case("whisper 1x4 rank KVL=3 G=1 D=64 decode old-only "
+                       "T=16 S=8176", decode, t_total=16, novis_segs=(5,)),
+                 **whisper, old_only=True)]
 
 
 def lse_paged_cases():
@@ -910,6 +919,9 @@ def lse_paged_cases():
     lens = np.random.default_rng(2).integers(64, 1057, 8)
     return [dict(name="qwen2-vl 1x4 rank KVL=1 G=3 + 2 rows at position 0",
                  d=128, g=3, kvl=1, layers=28, lens=lens, pad=2,
+                 first_token=True),
+            dict(name="whisper 1x4 rank KVL=3 G=1 D=64 + 2 rows at "
+                 "position 0", d=64, g=1, kvl=3, layers=4, lens=lens, pad=2,
                  first_token=True),
             dict(name="qwen2.5-32b 2x2 sp rank KVL=4 G=5 row 262144",
                  d=128, g=5, kvl=4, layers=1, lens=np.array([262143]),
@@ -936,6 +948,27 @@ def _lse_err(lse_k, lse_p, label):
     if not np.isfinite(err) or err > LSE_TOL:
         raise AssertionError(f"{label}: log-sum-exp err {err} > {LSE_TOL}")
     return err
+
+
+def _efficient_lse_ms(q, k, v, mask):
+    """Yardstick only (never called by the port): the ms of one
+    ``torch.ops.aten._scaled_dot_product_efficient_attention`` call that
+    computes the varlen call's output and its log-sum-exp, ``mask`` (T, S)
+    as an additive bf16 bias (0 / -inf, its rows 16-aligned as the kernel
+    wants) and each K/V head repeated for its G q heads."""
+    import torch
+    H, T, D = q.shape
+    g = H // k.shape[0]
+    s = k.shape[1]
+    bias = torch.full((1, H, T, -(-s // 16) * 16), float("-inf"),
+                      dtype=q.dtype, device=q.device)
+    bias[..., :s].masked_fill_(torch.as_tensor(mask, device=q.device), 0.0)
+    bias = bias[..., :s]
+    q4 = q[None]
+    k4, v4 = (a.repeat_interleave(g, 0)[None] for a in (k, v))
+    return cuda_time_ms(lambda: torch.ops.aten.
+                        _scaled_dot_product_efficient_attention(
+                            q4, k4, v4, bias, True), iters=10)
 
 
 def phase_lse_kernels():
@@ -990,6 +1023,7 @@ def phase_lse_kernels():
                                             "kv_pos"))
         mask = (ks[None, :] == qs[:, None]) & (kp[None, :] <= qp[:, None])
         s = k.shape[1]
+        lib_ms = _efficient_lse_ms(q, k, v, mask)
         flops = 4.0 * D * int(mask.sum()) * H
         nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())
                   + 4 * (2 * t + 2 * s) + 4 * H * t)
@@ -1001,10 +1035,13 @@ def phase_lse_kernels():
             f"max_abs_err={err:.3e} lse_err={lerr:.3e} (tol {LSE_TOL}) "
             f"-inf rows={n_inf} same bytes without it=True ms={ms:.4f} "
             f"(device; {ms0:.4f} without the output) plain_ms="
-            f"{plain_ms:.4f} bound_ms={bound:.5f} ({by})")
+            f"{plain_ms:.4f} bound_ms={bound:.5f} ({by}) library_ms="
+            f"{lib_ms:.4f} (_scaled_dot_product_efficient_attention with "
+            f"compute_log_sumexp, the mask as an additive bias)")
         results.append(dict(kernel="varlen", case=case["name"], err=err,
                             lse_err=lerr, ms=ms, ms_without=ms0,
-                            plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=lib_ms))
         del q, k, v, token
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1421,6 +1458,14 @@ def dense_cases():
          True, 0),
         ("whisper cross BH=48 T=448 S=1536 non-causal", 8, 6, 6, 64, 448,
          1536, False, 0),
+        # whisper-tiny trained on a 2 x 2 mesh (phase 5c (ii)): a rank's 3
+        # heads (6 over tp 2) of its 4 rows of a micro-batch (8 over dp 2)
+        ("whisper 2x2 rank encoder BH=12 T=1500 S=1536 non-causal", 4, 3, 3,
+         64, 1500, 1536, False, 0),
+        ("whisper 2x2 rank decoder self BH=12 T=S=448 causal", 4, 3, 3, 64,
+         448, 448, True, 0),
+        ("whisper 2x2 rank cross BH=12 T=448 S=1536 non-causal", 4, 3, 3, 64,
+         448, 1536, False, 0),
     ]
 
 
@@ -3463,6 +3508,7 @@ def _mesh_rank(dist, dev, cfg, micro, seq, batch, steps, replay=None):
     from repro_torch.models import blocks_attn, build_model
     from repro_torch.models.tp import Dist
     from repro_torch.training import SyntheticLM
+    from repro_torch.training.optimizer import leaves
     cuda = dev.type == "cuda"
     model = build_model(cfg, dist)
     extra = _family_extra(cfg)
@@ -3487,14 +3533,18 @@ def _mesh_rank(dist, dev, cfg, micro, seq, batch, steps, replay=None):
         del grads
         before = dict(dist.comm_bytes)
         times = []
-        _, _, hist = tr.run(params, state, data, num_steps=steps,
-                            log_every=1, on_metrics=lambda s, m: times.append(
-                                m["sec_per_step"]))
+        moments = sum(t.numel() for t in leaves(state.mu)) / sum(
+            t.numel() for t in leaves(params))
+        params, _, hist = tr.run(params, state, data, num_steps=steps,
+                                 log_every=1, on_metrics=lambda s, m:
+                                 times.append(m["sec_per_step"]))
+        after = _leaf_norms(params, model.shards(), dist)
     comm = {k: (dist.comm_bytes[k] - before[k]) / steps for k in before}
     terms = dryrun.train_terms(build_model(cfg, Dist(
-        dp=dist.dp, tp=dist.tp, fsdp=dist.fsdp)), batch // dist.dp, seq,
-        micro)
+        dp=dist.dp, tp=dist.tp, pod=dist.pod, fsdp=dist.fsdp)),
+        batch // dist.rows, seq, micro)
     return dict(loss=float(loss), norms=norms, hist=hist, routing=calls,
+                moments=moments, after=after,
                 step_ms=[1e3 * t for t in times],
                 peak=torch.cuda.max_memory_allocated(dev) if cuda else None,
                 terms=terms, comm=comm,
@@ -3555,6 +3605,25 @@ def _mesh_leg_one(phase5_step_ms, device, cfg, dist):
             raise AssertionError(f"1 x 1 mesh {found['mesh'][:1]} differs "
                                  f"from the single-card path "
                                  f"{found['single'][:1]}")
+        # the (pod, data, model) mesh of one rank: the same step's loss
+        # and gradients as the 1 x 1 mesh's, bit for bit
+        from repro_torch.launch.mesh import make_dist
+        pod = _mesh_trainer(DecoderLM(cfg, make_dist((1, 1, 1))), micro, tmp)
+        dense_flash_fwd.launches = dense_flash_bwd.launches = 0
+        loss, grads = pod.loss_and_grads(params, tok, tgt)
+        found["pod"] = (loss.item(), _leaf_norms(grads, mesh.model.shards(),
+                                                 dist),
+                        (dense_flash_fwd.launches, dense_flash_bwd.launches))
+        pod._release(params)
+        del grads, pod
+        log(f"[mesh train] (i) 1 x 1 x 1 (pod, data, model) mesh, "
+            f"{cfg.name}: loss {found['pod'][0]!r}, all "
+            f"{len(found['pod'][1])} leaf gradient norms and launches "
+            f"{found['pod'][2]} equal the 1 x 1 mesh's bit for bit: "
+            f"{found['pod'] == found['mesh']}")
+        if found["pod"] != found["mesh"]:
+            raise AssertionError("the 1 x 1 x 1 pod mesh differs from the "
+                                 "1 x 1 mesh")
         dense_flash_fwd.launches = dense_flash_bwd.launches = 0
         times = []
         params, state, hist = mesh.run(
@@ -3640,6 +3709,52 @@ def _mesh_leg_family(tr, params, data, micro, batch, seq, counters, dist,
     return got
 
 
+def _mesh_leg_steps(cfg, micro, batch, seq, want, counters, dist, device):
+    """Leg (i) for a phase-5b RWKV6 or enc-dec leg: the model built for the
+    1 x 1 mesh ``dist``, weights from seed 0 as the leg's, trained two
+    steps on the leg's batch (``micro`` x ``batch // micro`` x ``seq``):
+    both losses equal the leg's first two (``want``, the single-card path)
+    bit for bit, the counted kernels launched ``_family_counts`` x micro x
+    2 times, and the peak held to the planner. Returns the launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.training import SyntheticLM
+    cuda = device == "cuda"
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        tr = _mesh_trainer(build_model(cfg, dist), micro, ckpt,
+                           _family_extra(cfg))
+        params, state = tr.init_state(0, device=device)
+        data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           mode="markov")
+        for fn in counters.values():
+            fn.launches = 0
+        params, state, hist = tr.run(params, state, data, num_steps=2)
+        got = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        model = tr.model
+        del params, state, tr
+    expect = {k: v * micro * 2 for k, v in _family_counts(cfg).items()}
+    line = (f"[mesh train] (i) 1 x 1 {'nccl' if cuda else 'gloo'} mesh, "
+            f"{cfg.name} ({cfg.num_layers} layers), phase 5b's weights and "
+            f"batch ({micro} x {batch // micro} x {seq}), two steps: losses "
+            f"{hist} (single card {list(want[:2])}); launches {got} (= "
+            f"{_family_counts(cfg)} x {micro} x 2); peak_mem_gb="
+            f"{peak / 1e9:.2f}")
+    log(line)
+    if hist != list(want[:2]) or got != expect:
+        raise AssertionError(f"mesh leg (i) {cfg.name}: {line}")
+    if cuda:
+        _fit(f"train {cfg.name} at {cfg.num_layers} layers on a 1 x 1 mesh, "
+             f"{micro} x {batch // micro} x {seq}", dryrun.train_terms(
+                 model, batch, seq, micro), peak)
+    return got
+
+
 def _one_card_ref(cfg, micro, seq, batch, device):
     """The first step's loss and leaf gradient norms of ``cfg`` on this
     process's card (no mesh), weights from seed 0 and its family's
@@ -3686,15 +3801,16 @@ def _mesh_run(label, cfg, shape, fsdp, micro, seq, batch, device, steps=3,
                      device=device, timeout=300, deadline=900)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
-    tag = (f"{shape[0]} x {shape[1]}{' FSDP' if fsdp else ''}, {cfg.name} at "
-           f"{cfg.num_layers} layers, {micro} x {batch // micro} x {seq}")
+    tag = (f"{' x '.join(map(str, shape))}{' FSDP' if fsdp else ''}, "
+           f"{cfg.name} at {cfg.num_layers} layers, {micro} x "
+           f"{batch // micro} x {seq}")
     line = (f"[mesh train] (ii) {label}: {tag}, one process a card "
             f"({wall:.1f} s with start-up): first-step loss {r0['loss']!r}, "
             f"steps 0-{steps - 1} losses {[round(x, 4) for x in r0['hist']]}")
     bad = not np.isfinite(r0["hist"]).all() or \
         any(r["hist"] != r0["hist"] for r in ranks)
     if ref is not None:
-        loss_tol, grad_tol = MESH_TOLS[shape[1] > 1]
+        loss_tol, grad_tol = MESH_TOLS[shape[-1] > 1]
         worst = max(abs(r0["norms"][k] / v - 1) for k, v in
                     ref["norms"].items())
         rel = r0["loss"] / ref["loss"] - 1
@@ -3702,6 +3818,12 @@ def _mesh_run(label, cfg, shape, fsdp, micro, seq, batch, device, steps=3,
                  f"{rel:+.2e} (bar {loss_tol}), leaf gradient norms within "
                  f"{worst:.2e} relative (bar {grad_tol})")
         bad = bad or abs(rel) > loss_tol or worst > grad_tol
+        if "after" in ref:
+            moved = max(abs(r0["after"][k] / v - 1) for k, v in
+                        ref["after"].items())
+            line += (f"; leaf parameter norms after {steps} steps within "
+                     f"{moved:.2e} relative (bar {grad_tol})")
+            bad = bad or moved > grad_tol
     if replay is not None:
         mine = r0["routing"]
         other = sum(int((np.sort(a, -1) != np.sort(b, -1)).any(-1).sum())
@@ -3718,7 +3840,8 @@ def _mesh_run(label, cfg, shape, fsdp, micro, seq, batch, device, steps=3,
             f"{(r['peak'] or 0) / 1e9:.2f} bytes sent a step: all-gather "
             f"{mb['all_gather']:.1f} MB, reduce-scatter "
             f"{mb['reduce_scatter']:.1f} MB, all-reduce "
-            f"{mb['all_reduce']:.1f} MB, all-to-all {mb['all_to_all']:.1f} MB")
+            f"{mb['all_reduce']:.1f} MB, all-to-all {mb['all_to_all']:.1f} "
+            f"MB; moments {r['moments']:.4f} of the params' elements")
         if cuda:
             _fit(f"train {tag}, rank {rank}", r["terms"], r["peak"])
     if bad:
@@ -3736,23 +3859,92 @@ def _planner_depth(cfg, shape, micro, seq, batch):
                            seq, micro)) <= dryrun.fit_bytes(shape))
 
 
-def _mesh_leg_across(device, cfg, cards, moe_cfgs=None):
-    """Leg (ii), one process a card: ``_mesh_legs_dense`` and
-    ``_mesh_legs_moe``. Skipped, and said so, with fewer than 2 cards.
-    ``moe_cfgs``: the CPU dry run's reduced configs for (vlm, hybrid,
-    moe, dbrx)."""
+def _mesh_leg_across(device, cfg, cards, moe_cfgs=None, ed_cfgs=None):
+    """Leg (ii), one process a card: ``_mesh_legs_dense``,
+    ``_mesh_legs_moe`` and, with 4 cards, ``_mesh_legs_encdec_rwkv_pod``.
+    Skipped, and said so, with fewer than 2 cards. ``moe_cfgs`` and
+    ``ed_cfgs``: the CPU dry run's reduced configs for (vlm, hybrid, moe,
+    dbrx) and (whisper, rwkv)."""
     from repro_torch.configs import ARCHS
     if cards < 2:
         log(f"[mesh train] (ii) skipped: {cards} card visible "
             f"(torch.cuda.device_count()); its meshes (granite, qwen2-vl-2b, "
             f"zamba2-1.2b, qwen3-moe, dbrx-132b) need 2 cards, and 4 for "
-            f"the 2 x 2 and 4 x 1 ones")
+            f"the 2 x 2, 4 x 1 and pod ones and whisper-tiny's and "
+            f"rwkv6-3b's")
         return
     vlm, hybrid, moe, dbrx = moe_cfgs or (
         ARCHS["qwen2-vl-2b"], ARCHS["zamba2-1.2b"], ARCHS[MOE_ARCH],
         ARCHS[DBRX])
     _mesh_legs_dense(device, cfg, vlm, hybrid, cards >= 4)
     _mesh_legs_moe(device, moe, dbrx, cards >= 4, moe_cfgs is not None)
+    if cards >= 4:
+        whisper, rwkv = ed_cfgs or (ARCHS["whisper-tiny"],
+                                    ARCHS["rwkv6-3b"])
+        _mesh_legs_encdec_rwkv_pod(device, cfg, whisper, rwkv,
+                                   ed_cfgs is not None)
+
+
+# phase 5b's whisper batch: micro-batches, rows, decoder tokens a row
+WHISPER_BATCH = (2, 16, 448)
+RWKV_MESH_LAYERS = 8        # rwkv6-3b's depth on the 2 x 2 training leg
+
+
+def _mesh_legs_encdec_rwkv_pod(device, cfg, whisper, rwkv, reduced=False):
+    """The four-card training meshes of the enc-dec and RWKV6 families and
+    of the pod axis: whisper-tiny 2 x 2 on phase 5b's batch (2 x 8 x 448
+    over 1500 frames) against one card (tp 2 keeps its function);
+    rwkv6-3b at RWKV_MESH_LAYERS layers 2 x 2 against 1 x 2 on the same
+    global batch (``ln_x`` and ``cm_wv`` make tp another function, so
+    both meshes take tp 2); granite (``cfg``) at MESH_CUT layers on the
+    (2, 2, 1) (pod, data, model) mesh against (1, 4, 1), which computes
+    the same function (``_mesh_leg_pod``)."""
+    import dataclasses
+    micro, seq, batch, *_ = _mesh_batch(cfg, device)
+    wm, wb, ws = WHISPER_BATCH if not reduced else (micro, batch, seq)
+    _mesh_run(whisper.name, whisper, (2, 2), False, wm, ws, wb, device,
+              steps=2, ref=_one_card_ref(whisper, wm, ws, wb, device),
+              ref_label="one card")
+    r8 = rwkv if reduced else dataclasses.replace(
+        rwkv, num_layers=RWKV_MESH_LAYERS)
+    ref = _mesh_run(r8.name, r8, (1, 2), False, micro, seq, batch, device,
+                    steps=2)[0]
+    _mesh_run(r8.name, r8, (2, 2), False, micro, seq, batch, device, steps=2,
+              ref=ref, ref_label="1 x 2")
+    _mesh_leg_pod(device, cfg)
+
+
+def _mesh_leg_pod(device, cfg):
+    """Granite (``cfg``) at MESH_CUT layers on the (2, 2, 1) (pod, data,
+    model) mesh against (1, 4, 1), which computes the same function (one
+    row a rank a micro-batch): the first loss bit for bit, the leaf
+    gradient and parameter norms after two steps within MESH_TOLS, and
+    each rank's moments the share of its parameters that ZeRO-1 over
+    data, then pod, gives (the planner's ``mesh_train_bytes``: a quarter,
+    but for leaves that no free dim of the pod size splits, which keep a
+    half, as the reference's ``zero1_shardings`` keeps them)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    micro, seq, batch, *_ = _mesh_batch(cfg, device)
+    c = dataclasses.replace(cfg, num_layers=min(MESH_CUT, cfg.num_layers))
+    ref = _mesh_run(f"{c.name} 1 x 4 x 1", c, (1, 4, 1), False, micro, seq,
+                    2 * batch, device, steps=2)[0]
+    pod = _mesh_run(f"{c.name} pod", c, (2, 2, 1), False, micro, seq,
+                    2 * batch, device, steps=2, ref=ref,
+                    ref_label="1 x 4 x 1")
+    plan = dryrun.mesh_train_bytes(dryrun.mesh_model(c, (2, 2, 1)))
+    want = plan["moments"] / (2 * plan["params"])
+    share = [r["moments"] for r in pod]
+    log(f"[mesh train] (ii) pod: the (2, 2, 1) mesh's first loss "
+        f"{pod[0]['loss']!r} against (1, 4, 1)'s {ref['loss']!r}: bit for "
+        f"bit {pod[0]['loss'] == ref['loss']}; each rank's moments "
+        f"{share[0]:.4f} of its parameters' elements (the planner's ZeRO-1 "
+        f"over data and pod: {want:.4f}; (1, 4, 1): {ref['moments']:.4f})")
+    if pod[0]["loss"] != ref["loss"] or \
+            any(abs(x - want) > 1e-6 for x in share):
+        raise AssertionError("mesh leg (ii) pod: not the (1, 4, 1) mesh's "
+                             "function, or moments not ZeRO-1's split")
 
 
 def _mesh_legs_dense(device, cfg, vlm, hybrid, four):
@@ -3812,7 +4004,7 @@ def _mesh_legs_moe(device, moe, dbrx, four, reduced=False):
 
 
 def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None,
-                     moe_cfgs=None):
+                     moe_cfgs=None, ed_cfgs=None):
     """Phase 5c, training across cards: full width through the mesh path
     (``build_model(cfg, dist)``, ``repro_torch.launch.mesh``) on NCCL. (i)
     granite-3-2b on a 1 x 1 mesh at full depth on phase 5's batch and
@@ -3837,7 +4029,7 @@ def phase_mesh_train(phase5_step_ms, device="cuda", cfg=None, cards=None,
     with _one_card_mesh(device) as dist:
         launches = _mesh_leg_one(phase5_step_ms, device, cfg, dist)
     _mesh_leg_across(device, cfg, torch.cuda.device_count()
-                     if cards is None else cards, moe_cfgs)
+                     if cards is None else cards, moe_cfgs, ed_cfgs)
     return launches
 
 
@@ -3880,16 +4072,24 @@ def _device_batch(arrs, dev):
 
 
 def _pages(cfg, seqs):
-    """Pages of each attention type a leg's pool holds for ``seqs``."""
-    return sum(-(-(o + n) // cfg.tokens_per_page) for o, n in seqs) + 8
+    """Pages of each attention type a leg's pool holds for ``seqs`` (an
+    enc-dec model's cross pages too: a clip of ``encoder_seq`` frames a
+    sequence)."""
+    tpp = cfg.tokens_per_page
+    n = sum(-(-(o + k) // tpp) for o, k in seqs)
+    if cfg.family == "encdec":
+        n = max(n, len(seqs) * -(-cfg.encoder_seq // tpp))
+    return n + 8
 
 
 def _serve_buffer(model, units, seed, dev, pages, one=None, kv0=0):
     """A leg's unified buffer on ``dev`` (``input_specs.example_pool``
     layout): N(0, 1) bf16 K/V in the attention pages, N(0, 0.1) fp32
     state (bf16 pairs) in the state pages, drawn from ``seed``. With
-    ``one`` (the one-card model) the attention pages are the one-card
-    buffer's, K/V heads ``kv0 ..`` of each kept: a rank's share at tp."""
+    ``one`` (the one-card model) the pages are the one-card buffer's, a
+    rank's share at tp: K/V heads ``kv0 ..`` of each attention page, and
+    of an RWKV6 state page the wkv state of heads ``kv0 ..`` (``kv0`` the
+    rank's first head) beside the whole token shifts."""
     import torch
     from repro_torch.launch.input_specs import example_pool
     gen = torch.Generator(device=dev)
@@ -3900,12 +4100,26 @@ def _serve_buffer(model, units, seed, dev, pages, one=None, kv0=0):
     for s in model.kv_specs():
         lo = first[s.name][0] * s.page_units
         n = first[s.name][1] * s.page_units
-        if s.kind == "mamba":
+        if s.kind in ("mamba", "rwkv") and (one is None or s.kind == "mamba"):
             buf[lo:lo + n].view(torch.float32).normal_(0.0, 0.1,
                                                        generator=gen)
             continue
         if one is None:
             buf[lo:lo + n].normal_(generator=gen)
+            continue
+        if s.kind == "rwkv":
+            rd, hs = one.rd, model.cfg.rwkv_head_size
+            whole = torch.empty((first[s.name][1], views[s.name][1],
+                                 rd["wkv_units"] + rd["shift_units"]),
+                                dtype=torch.float32, device=dev)
+            whole.normal_(0.0, 0.1, generator=gen)
+            n_wkv = model.rd["wkv_units"]
+            mine = buf[lo:lo + n].view(torch.float32).view(
+                *whole.shape[:2], -1)
+            mine[..., :n_wkv] = whole[..., kv0 * hs * hs:
+                                      kv0 * hs * hs + n_wkv]
+            mine[..., n_wkv:] = whole[..., rd["wkv_units"]:]
+            del whole
             continue
         ps = one.page_shapes()[s.name]           # (2, TPP, KV, D)
         whole = torch.empty((first[s.name][1], views[s.name][1]) + ps,
@@ -3943,12 +4157,14 @@ def _written_rows(model, arrs, units, layer0=False):
 
 
 def _serve_counts():
-    from repro_torch.kernels.flash_attention import flash_attention_varlen
+    from repro_torch.kernels.flash_attention import (dense_flash_fwd,
+                                                     flash_attention_varlen)
     from repro_torch.kernels.mamba_scan import kernel as mk
     from repro_torch.kernels.paged_attention import paged_decode_attention
     return {"varlen": flash_attention_varlen.launches,
             "paged": paged_decode_attention.launches,
-            "scan": mk.mamba_chunk_scan_varlen.launches}
+            "scan": mk.mamba_chunk_scan_varlen.launches,
+            "dense": dense_flash_fwd.launches}
 
 
 def _serve_run(model, params, buf, arrs, layout, dev, repeat=1):
@@ -3984,8 +4200,10 @@ def _serve_terms(model, units, arrs, layout):
     ctx = 0 if layout == "decode" else sum(
         t.shape[-1] * t.shape[-2] for t in arrs["tables"].values()) * \
         model.cfg.tokens_per_page
+    enc = arrs.get("enc_embeds")        # the encoder's rows of the step
     return dryrun.serve_terms(model, units * BYTES_PER_UNIT, tok.size, rows,
-                              ctx)
+                              ctx, enc_rows=0 if enc is None else
+                              enc.shape[0])
 
 
 def _serve_rank(dist, dev, spec):
@@ -4022,7 +4240,11 @@ def _serve_rank_steps(dist, dev, spec):
     params = model.init(0, device=dev, **(
         {"local": True} if spec.get("local") else {}))
     one = build_model(cfg) if spec.get("one_card") else None
-    kv0 = (dist.model_rank // model.ri["repl"]) * model.kv_local
+    # the rank's first K/V head (RWKV6: its first head) of the one-card
+    # model's
+    kv0 = dist.model_rank * model.rd["h_local"] if cfg.family == "ssm" \
+        else (dist.model_rank // model.ri["repl"]) * model.kv_local
+    kvl = getattr(model, "kv_local", 1)     # RWKV6 writes no K/V
     steps = spec.get("repeat", 2)
     out = {"card": torch.cuda.get_device_name(dev) if cuda else "cpu",
            "init_peak": torch.cuda.max_memory_allocated(dev) if cuda
@@ -4065,7 +4287,7 @@ def _serve_rank_steps(dist, dev, spec):
         arrs = parts[0]
         rows = np.concatenate([_written_rows(model, a, units)
                                for a in parts])
-        kv = buf.view(-1, model.kv_local * cfg.head_dim)[
+        kv = buf.view(-1, kvl * cfg.head_dim)[
             torch.from_numpy(rows).to(dev)]
         first = np.isin(rows, np.concatenate([
             _written_rows(model, a, units, True) for a in parts]))
@@ -4214,9 +4436,10 @@ def _serve_one_card(spec, dev, floor=None):
                                 calls if i else None):
                 logits, times, _ = _serve_run(model, params, buf, arrs,
                                               layout, dev)
-            kv = buf.view(-1, model.kv_local * cfg.head_dim)[idx]
+            kvl = getattr(model, "kv_local", 1)  # RWKV6 writes no K/V
+            kv = buf.view(-1, kvl * cfg.head_dim)[idx]
             runs.append((logits.float().cpu().numpy(), kv.view(
-                len(rows), model.kv_local, cfg.head_dim).float().cpu()
+                len(rows), kvl, cfg.head_dim).float().cpu()
                 .numpy(), times))
             del buf
         noise = _serve_distance(runs[1][0], runs[0][0], runs[1][1],
@@ -4278,7 +4501,7 @@ def _serve_leg(label, shape, spec, device, ref=None, ref_label="",
     tag = (f"{cfg.name} at {cfg.num_layers} layers, {shape[0]} x "
            f"{shape[1]}{' sp' if spec.get('sp') else ''}"
            f"{' (plain attention)' if spec.get('plain') else ''}")
-    launches = {"varlen": 0, "paged": 0, "scan": 0}
+    launches = {"varlen": 0, "paged": 0, "scan": 0, "dense": 0}
     glob = {}
     for layout in spec["layouts"]:
         logits = _global_serve_logits(ranks, layout, shape, spec.get("sp"))
@@ -4374,6 +4597,28 @@ def _serve_compare(ranks, layout, logits, ref, cfg, floor=None):
     return line, bad
 
 
+def _serve_launches(cfg, layout, arrs):
+    """The kernel launches of one enc-dec or RWKV6 serve step (None for the
+    other families): whisper's encoder once a layer where the step
+    carries frames (the dense forward), its decoder's self and cross
+    attention once a layer each in a packed step (the varlen kernel), its
+    self attention once a layer in a padded T == 1 step (the paged
+    kernel); RWKV6 none."""
+    if cfg.family not in ("encdec", "ssm"):
+        return None
+    out = {"varlen": 0, "paged": 0, "scan": 0, "dense": 0}
+    if cfg.family == "ssm":
+        return out
+    n = cfg.num_layers
+    if arrs.get("enc_embeds") is not None:
+        out["dense"] = cfg.encoder_layers
+    if layout == "packed":
+        out["varlen"] = 2 * n
+    elif layout == "decode":
+        out["paged"] = n
+    return out
+
+
 def _serve_leg_one(device, legs):
     """Leg (i): each of ``legs`` ((cfg, layouts, steps)) on a 1 x 1 mesh of
     this process (NCCL on the card) against the single-card
@@ -4386,7 +4631,7 @@ def _serve_leg_one(device, legs):
     from repro_torch.launch.input_specs import example_batch, example_pool
     from repro_torch.models import build_model
     dev = torch.device(device)
-    total = {"varlen": 0, "paged": 0, "scan": 0}
+    total = {"varlen": 0, "paged": 0, "scan": 0, "dense": 0}
     with _one_card_mesh(device) as dist:
         for cfg, layouts, steps in legs:
             one, mesh = build_model(cfg), build_model(cfg, dist)
@@ -4415,12 +4660,15 @@ def _serve_leg_one(device, legs):
                     f"logits {same_l}, buffer (scratch page excepted) "
                     f"{same_b}; launches {n2} (single card {n1}); step ms "
                     f"{t2[0]:.2f} (single card {t1[0]:.2f})")
-                # padded T > 1 attention is plain torch: no kernel there
-                if not same or n1 != n2 or (layout != "prefill" and
-                                            not sum(n2.values())):
+                # padded T > 1 attention is plain torch: no kernel
+                # there; RWKV6 runs none
+                want = _serve_launches(cfg, layout, arrs)
+                if not same or n1 != n2 or (want is None and (
+                        layout != "prefill" and not sum(n2.values()))) or \
+                        (want is not None and n2 != want):
                     raise AssertionError(f"mesh serve leg (i) {cfg.name} "
                                          f"{layout}: not the single-card "
-                                         "step")
+                                         f"step (launches expected {want})")
                 for k in total:
                     total[k] += n2[k]
                 del buf0, res
@@ -4487,15 +4735,19 @@ def phase_mesh_serve(device="cuda", cards=None, cfgs=None, steps=None):
 
     zamba = cfg_of("zamba2-1.2b", **({} if cfgs else {"tokens_per_page":
                                                       19}))
+    whisper = cfg_of("whisper-tiny")
+    rwkv8 = cfg_of("rwkv6-3b", **({} if cfgs else {"num_layers": 8}))
+    pfd = ("packed", "prefill", "decode")
     total = _serve_leg_one(device, [
-        (cfg_of("granite-3-2b"), ("packed", "prefill", "decode"), steps),
-        (zamba, ("packed",), steps)])
+        (cfg_of("granite-3-2b"), pfd, steps), (zamba, ("packed",), steps),
+        (whisper, pfd, steps), (rwkv8, pfd, steps)])
     cards = torch.cuda.device_count() if cards is None else cards
     if cards < 4:
         log(f"[mesh serve] (ii) skipped: {cards} card visible "
-            f"(torch.cuda.device_count()); its meshes (granite, qwen2-vl-2b "
-            f"and dbrx-132b 1 x 4, qwen2.5-32b 2 x 2 sp, zamba2-1.2b 2 x 2 "
-            f"and 1 x 2) need 4 cards")
+            f"(torch.cuda.device_count()); its meshes (granite, qwen2-vl-2b, "
+            f"dbrx-132b, whisper-tiny and rwkv6-3b 1 x 4, qwen2.5-32b 2 x 2 "
+            f"sp, zamba2-1.2b, whisper-tiny and rwkv6-3b 2 x 2 and 1 x 2) "
+            f"need 4 cards")
         return total
     dev = torch.device(device, 0) if device == "cuda" else torch.device(
         "cpu")
@@ -4571,7 +4823,63 @@ def phase_mesh_serve(device="cuda", cards=None, cfgs=None, steps=None):
     ref = {k: (v,) for k, v in glob.items()}
     add(_serve_leg("zamba2 2 x 2", (2, 2), spec, device, ref,
                    "1 x 2 on each data rank's rows")[2])
+    _mesh_serve_encdec_rwkv(device, dev, whisper, cfg_of("rwkv6-3b"), rwkv8,
+                            steps, add)
     return total
+
+
+def _mesh_serve_encdec_rwkv(device, dev, whisper, rwkv, rwkv8, steps, add):
+    """Leg (ii) of the enc-dec and RWKV6 families. whisper-tiny 1 x 4 (its
+    6 heads padded to 12: 3 q heads on 3 K/V heads a rank, two replicas a
+    K/V head, so the self attention combines over each replica pair and
+    the cross attention reads every cross page whole on every rank), a
+    packed step with frames and a decode step, against the same mesh with
+    the attention's plain versions (the floor: one card's kernels against
+    their plain versions), its distance to one card reported (the
+    replica combine sums a real head's partial with a padded head's:
+    another function, ROADMAP queue 3); whisper-tiny and rwkv6-3b (8
+    layers) 2 x 2 against 1 x 2 on each data rank's rows (prefill, with
+    frames, and decode); rwkv6-3b at full depth 1 x 4 (a packed mixed
+    step and a decode step), its distance to one card reported, not
+    held to a bar (``ln_x`` over a rank's heads and ``cm_wv``'s diagonal
+    blocks: tp moves the function)."""
+    pd = ("packed", "decode")
+    spec = dict(cfg=whisper, layouts=pd, steps=steps, one_card=True)
+    one = _serve_one_card(spec, dev, _plain_attention)
+    _, plain, _ = _serve_leg("whisper plain", (1, 4), dict(
+        spec, plain=True, repeat=1), device)
+    _, glob, n = _serve_leg("whisper", (1, 4), spec, device, plain_ref=plain,
+                            plain_floor={k: one[k][4] for k in pd})
+    add(n)
+    for layout in pd:
+        v = whisper.vocab_size
+        log(f"[mesh serve] (ii) whisper-tiny 1 x 4 {layout} against one "
+            f"card: max abs logit diff "
+            f"{np.abs(glob[layout][:, :v] - one[layout][0][:, :v]).max():.3e}"
+            f" (not a bar: the replica combine sums the partials of a real "
+            f"and a padded q head)")
+    for cfg in (whisper, rwkv8):
+        spec = dict(cfg=cfg, layouts=("prefill", "decode"), steps=steps)
+        _, glob, n = _serve_leg(f"{cfg.name} 1 x 2", (1, 2),
+                                dict(spec, rows_of=2), device)
+        add(n)
+        add(_serve_leg(f"{cfg.name} 2 x 2", (2, 2), spec, device,
+                       {k: (v,) for k, v in glob.items()},
+                       "1 x 2 on each data rank's rows")[2])
+    spec = dict(cfg=rwkv, layouts=pd, steps=steps, one_card=True)
+    one = _serve_one_card(spec, dev)
+    _, glob, n = _serve_leg("rwkv6-3b", (1, 4), spec, device)
+    add(n)
+    for layout in pd:
+        v = rwkv.vocab_size
+        got, want = glob[layout][:, :v], one[layout][0][:, :v]
+        rel = float((np.abs(got - want).max(-1) / np.abs(want).max(-1)).max())
+        log(f"[mesh serve] (ii) rwkv6-3b 1 x 4 at {rwkv.num_layers} layers "
+            f"{layout} against one card: max abs logit diff "
+            f"{np.abs(got - want).max():.3e}, relative to each row's largest "
+            f"{rel:.3e}; greedy tokens differ in "
+            f"{int((got.argmax(-1) != want.argmax(-1)).sum())} of {len(got)}"
+            f" rows (not a bar: tp moves RWKV6's function)")
 
 
 def _tp4(spec, tp=4):
@@ -4833,6 +5141,14 @@ def phase_train_families(device="cuda"):
                                              device).items():
                     totals[k] += n
             del params, state, tr
+            if cfg.family in ("ssm", "encdec"):               # phase 5c (i)
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+                for k, n in _mesh_leg_steps(cfg, micro, batch, seq,
+                                            warm + hist, counters, mesh_dist,
+                                            device).items():
+                    totals[k] += n
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -5225,6 +5541,7 @@ def main() -> int:
     serve = timed(phase_mesh_serve)
     launches["varlen"] += serve["varlen"]
     launches["paged"] += serve["paged"]
+    launches["dense"] += serve["dense"]
     fam = timed(phase_train_families)
     for phase in (phase_danube, phase_internlm2, phase_qwen, phase_moe_vlm,
                   phase_encdec_rwkv, phase_spec_fleet):

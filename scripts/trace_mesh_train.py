@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where a training step on a mesh of cards spends its time.
 
-    python3 scripts/trace_mesh_train.py [--arch A] [--mesh 2x2] [--no-fsdp]
-        [--layers N]
+    python3 scripts/trace_mesh_train.py [--arch A] [--mesh 2x2 | 2x2x1]
+        [--no-fsdp] [--layers N]
 
 Runs a ``chip_smoke.py`` phase 5c leg (ii) configuration: ``--arch``
-(granite-3-2b, qwen3-moe-235b-a22b, qwen2-vl-2b with its image batch, or
-zamba2-1.2b) at full width, cut to ``--layers`` (default: granite 16,
-qwen3-moe 1, the others whole), weights from seed 0, ZeRO-1, FSDP unless
-``--no-fsdp`` (never for the hybrid, which has none), phase 5's batch of
-2048-token rows in 2 micro-batches (4 rows, 8 on a mesh of 4 data ranks),
-on a ``(data, model)`` mesh of the visible cards, one process a card over
-NCCL. First each rank times the collectives at the sizes one step issues
+(granite-3-2b, qwen3-moe-235b-a22b, qwen2-vl-2b with its image batch,
+zamba2-1.2b, rwkv6-3b or whisper-tiny with its frames) at full width, cut
+to ``--layers`` (default: granite 16, qwen3-moe 1, rwkv6-3b 8, the others
+whole), weights from seed 0, ZeRO-1, FSDP unless ``--no-fsdp`` (never for
+the hybrid, RWKV6 or enc-dec, which have none), phase 5's batch of
+2048-token rows in 2 micro-batches (4 rows, one a rank on a mesh of 4
+data ranks; whisper-tiny phase 5b's 16 rows of 448 tokens), on a
+``(data, model)`` mesh of the visible cards or a ``(pod, data, model)``
+one (``--mesh PxDxM``), one process a card over NCCL. First each rank times the collectives at the sizes one step issues
 (CUDA events, the median of 10 after 3 warm-ups): an all-reduce over
 "model" of one layer's bf16 activations, an all-gather over "data" of one
 layer's FSDP shard and a reduce-scatter over "data" of its gradient, a MoE
@@ -20,9 +22,9 @@ over every rank; then it traces its third Trainer step with
 ``torch.profiler``: wall ms, device kernel ms and busy share, device ms by
 kernel group (NCCL's send/recv, which carries the all-to-all, the other
 NCCL collectives, GEMMs, the dense flash and scan kernels, elementwise and
-copies) and the bytes each kind of collective sent in that step
-(``Dist.comm_bytes``). Each card's name and power limit are printed
-beside them.
+copies), the device launches a layer and micro-batch, and the bytes each
+kind of collective sent in that step (``Dist.comm_bytes``). Each card's
+name and power limit are printed beside them.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # --arch -> its default depth (None: whole)
 LAYERS = {"granite-3-2b": 16, "qwen3-moe-235b-a22b": 1, "qwen2-vl-2b": None,
-          "zamba2-1.2b": None}
+          "zamba2-1.2b": None, "rwkv6-3b": 8, "whisper-tiny": None}
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
@@ -111,9 +113,10 @@ def _rank(dist, dev, cfg):
     from repro_torch.models import build_model
     from repro_torch.training import SyntheticLM
     colls = _collectives(dist, dev, cfg)
-    micro, seq = 2, 2048
-    data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=max(
-        4, micro * dist.dp), mode="markov")
+    micro, rows, seq = chip_smoke.WHISPER_BATCH \
+        if cfg.family == "encdec" else (2, max(4, 2 * dist.rows), 2048)
+    data = SyntheticLM(cfg.vocab_size, seq_len=seq, global_batch=rows,
+                       mode="markov")
     with tempfile.TemporaryDirectory() as ckpt:
         tr = chip_smoke._mesh_trainer(build_model(cfg, dist), micro, ckpt,
                                       chip_smoke._family_extra(cfg))
@@ -143,6 +146,8 @@ def _rank(dist, dev, cfg):
         ms, n = groups.get(name, (0.0, 0))
         groups[name] = (ms + chip_smoke._dev_us(e) / 1e3, n + e.count)
     return dict(colls=colls, wall=wall, steps=times, groups=groups,
+                launches=sum(e.count for e in kernels) / (
+                    cfg.num_layers * micro),
                 sent=sent, loss=hist[-1],
                 finite=bool(np.isfinite(hist).all()),
                 card=torch.cuda.get_device_name(dev))
@@ -169,7 +174,7 @@ def main() -> int:
     full = ARCHS[args.arch]
     layers = args.layers or LAYERS[args.arch] or full.num_layers
     cfg = dataclasses.replace(full, num_layers=layers)
-    fsdp = not args.no_fsdp and cfg.family != "hybrid"
+    fsdp = not args.no_fsdp and cfg.family in ("dense", "moe", "vlm")
     print(f"cards: {chip_smoke.card()}")
     ranks = run_mesh(_rank, shape, args=(cfg,), fsdp=fsdp,
                      backend="nccl", device="cuda", timeout=300,
@@ -181,12 +186,13 @@ def main() -> int:
         dev = sum(ms for ms, _ in r["groups"].values())
         sent = ", ".join(f"{k} {v / 1e6:.1f} MB"
                          for k, v in r["sent"].items())
-        print(f"[trace] rank {rank} [{r['card']}] {args.arch} {shape[0]} x "
-              f"{shape[1]}{' FSDP' if fsdp else ''} at {layers} layers: "
-              f"untraced steps {[round(t, 1) for t in r['steps']]} ms; "
-              f"traced step wall {r['wall']:.1f} ms, "
-              f"device kernels {dev:.1f} ms (busy share "
-              f"{dev / r['wall']:.3f}), loss {r['loss']:.4f}; sent in the "
+        print(f"[trace] rank {rank} [{r['card']}] {args.arch} "
+              f"{' x '.join(map(str, shape))}{' FSDP' if fsdp else ''} at "
+              f"{layers} layers: untraced steps "
+              f"{[round(t, 1) for t in r['steps']]} ms; traced step wall "
+              f"{r['wall']:.1f} ms, device kernels {dev:.1f} ms (busy share "
+              f"{dev / r['wall']:.3f}), {r['launches']:.0f} device launches "
+              f"a layer and micro-batch, loss {r['loss']:.4f}; sent in the "
               f"traced step: {sent}")
         for name, (ms, n) in sorted(r["groups"].items(),
                                     key=lambda x: -x[1][0]):

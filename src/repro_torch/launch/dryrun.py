@@ -30,9 +30,10 @@ and the card's share of the cell (``mesh.card_share``), term by term:
     (``input_specs.default_micro_batches``, at most one row each).
 
 On a ``(data, model)`` mesh of cards (``--mesh DxM``, training cells of
-the dense, MoE, VLM and hybrid families) each data rank takes one data
-shard of the production mesh, as one card does, and the terms are one
-rank's: its fp32 params (every tensor-parallel leaf / tp; a MoE's experts
+every family), or a ``(pod, data, model)`` one (``--mesh PxDxM``: FSDP
+and experts over "data" alone, ZeRO-1 moments over "pod" too), each data
+rank takes one data shard of the production mesh, as one card does, and
+the terms are one rank's: its fp32 params (every tensor-parallel leaf / tp; a MoE's experts
 / dp and their ffe / tp; under ``--fsdp`` the decoder's stacked layer
 leaves / dp too), their fp32 gradients and the two fp32 moments (ZeRO-1
 slices / dp; the experts, split over the data axis already, stay whole),
@@ -51,6 +52,10 @@ repl of a K/V group's attention pages) and the activations of its step at
 its heads; ``--cards N`` lists the serving meshes beside the training
 ones.
 
+``--multi-pod`` plans one card's share of the reference's 2 x 16 x 16
+cells (``launch.mesh.card_share(..., pods=2)``): ``global_batch / 32``
+rows of a non-``sp`` cell.
+
 A cell fits when its peak is at most ``CARD_BYTES - RESERVE`` (a rank of a
 mesh of cards: less ``MESH_RESERVE`` too, ``fit_bytes``). Its largest
 fitting depth is the deepest cut, in whole cycles of the model's layer
@@ -68,6 +73,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
       --shape train_4k --mesh 2x2 --fsdp
   PYTHONPATH=src python -m repro_torch.launch.dryrun --cards 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-3b \\
+      --shape train_4k --mesh 2x2x1
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
       --shape decode_32k --measure          # on the card
   PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR]
@@ -129,16 +137,15 @@ def mesh_train_bytes(model, zero1: bool = True) -> Dict[str, int]:
     the sizes of the tensors ``Trainer.init_state`` gives it."""
     from ..training.optimizer import zero1_shards
     local = [math.prod(s) for _, s, _ in _leaves(model.param_shapes())]
-    dist = getattr(model, "dist", None)
-    if dist is None or not hasattr(model, "shards"):
-        return dict(params=4 * sum(local), grads=4 * sum(local),
-                    moments=8 * sum(local))
+    dist = model.dist
     shards = model.shards()
-    state = zero1_shards(shards, model.global_shapes(), dist.dp) \
+    state = zero1_shards(shards, model.global_shapes(), dist.dp, dist.pod) \
         if zero1 else shards
     moments = 0
     for n, ps, ss in zip(local, _flat(shards), _flat(state)):
-        moments += 8 * (n // dist.dp if ss.data_dim != ps.data_dim else n)
+        n //= dist.dp if ss.data_dim != ps.data_dim else 1
+        n //= dist.pod if ss.pod_dim is not None else 1
+        moments += 8 * n
     return dict(params=4 * sum(local), grads=4 * sum(local), moments=moments)
 
 
@@ -151,9 +158,9 @@ def _flat(tree):
 def _gathered_layer_params(model) -> int:
     """Parameters of one layer as its products use them: this rank's
     tensor-parallel slices, FSDP shards gathered whole."""
-    dist = getattr(model, "dist", None)
+    dist = model.dist
     shapes = model.param_shapes()
-    if dist is None or not getattr(model, "fsdp", False):
+    if not model.fsdp:
         return sum(math.prod(s[1:]) for _, s, st in _leaves(shapes)
                    if st) // max(1, model.cfg.num_layers)
     shards = model.shards()["layers"]
@@ -193,20 +200,21 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
     MLP block."""
     cfg = model.cfg
     d = cfg.d_model
-    ri = getattr(model, "ri", None)      # a mesh rank's heads
-    dist = getattr(model, "dist", None)
-    dp, tp = (dist.dp, dist.tp) if ri is not None else (1, 1)
-    qd = (ri["q_local"] if ri else cfg.num_heads) * cfg.head_dim
-    kvd = (ri["kv_local"] if ri else cfg.num_kv_heads) * cfg.head_dim
+    ri = model.ri                        # a mesh rank's heads
+    dp, tp = model.dist.dp, model.dist.tp
+    qd = ri.get("q_local", cfg.num_heads) * cfg.head_dim
+    kvd = ri["kv_local"] * cfg.head_dim
     norm = 12 * n * d
     attn = 4 * n * (qd + kvd)
     layer = _gathered_layer_params(model)
     if cfg.family == "ssm":
         # RWKV6: r, k, v, g, w fp32 and the wkv output; the chunk's decay
         # tensors (B, 64, 64, H, hs) fp32: three of one chunk serving,
-        # two of every chunk kept for the backward when training
-        mix = 24 * n * d + 10 * n * cfg.d_ff
-        dec = RWKV_CHUNK * d * 4 * (2 * n if train else 3 * RWKV_CHUNK)
+        # two of every chunk kept for the backward when training; a
+        # mesh rank's heads and d_ff columns
+        da = model.rd["d_att_local"]
+        mix = 4 * n * d + 20 * n * da + 10 * n * cfg.d_ff // tp
+        dec = RWKV_CHUNK * da * 4 * (2 * n if train else 3 * RWKV_CHUNK)
         work = max(norm, mix) + dec
     elif cfg.family == "hybrid":
         # Mamba2: in_proj (z, x, B, C, dt) bf16, the conv and the scan's
@@ -241,8 +249,11 @@ def _layer_bytes(model, n: int, train: bool = False) -> int:
             moe += 8 * e * cap * d
         work = max(norm, attn, moe)
     else:
-        # dense, VLM and enc-dec decoder layers (enc-dec: GELU MLP, no gate)
-        work = max(norm, attn, 16 * n * cfg.d_ff // tp)
+        # dense and VLM decoder layers: SwiGLU's g and u and their fp32
+        # product; enc-dec: the GELU MLP's bf16 h, its fp32 copy and the
+        # fp32 GELU beside it
+        per = 10 if cfg.family == "encdec" else 16
+        work = max(norm, attn, per * n * cfg.d_ff // tp)
     work += 4 * n * d
     if not train:
         return work
@@ -267,10 +278,13 @@ def serve_terms(model, pool: int, step_tokens: int, rows: int,
         "context": 4 * kvd * (ctx_tokens + step_tokens) * gathers,
     }
     if cfg.family == "encdec":
-        # padded cross attention in plain torch: the step's scores over
-        # every gathered encoder slot, fp32, four of them at once
+        # cross attention: every row's encoder slots gathered (the bf16
+        # pages, then K and V copied out of them) and, padded, read in
+        # fp32 by plain torch beside the step's scores over them, fp32,
+        # four of them at once
         enc = -(-cfg.encoder_seq // cfg.tokens_per_page) * cfg.tokens_per_page
-        act["cross"] = 16 * step_tokens * cfg.num_heads * enc
+        act["cross"] = 16 * step_tokens * model.ri["q_local"] * enc + \
+            12 * rows * enc * kvd
         if enc_rows:
             act["encoder"] = _layer_bytes(model, enc_rows * cfg.encoder_seq)
     return dict(weights=weight_bytes(model), pool=pool,
@@ -323,33 +337,46 @@ def at_depth(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
+def pod_data_model(mesh) -> Tuple[int, int, int]:
+    """(pod, data, model) of a ``(data, model)`` or ``(pod, data, model)``
+    mesh."""
+    return (1,) * (3 - len(mesh)) + tuple(mesh)
+
+
 def mesh_model(cfg, mesh=(1, 1), fsdp: bool = False, sp: bool = False):
     """``cfg``'s model on one card, or one rank's of a ``(data, model)``
-    ``mesh`` (a ``Dist`` without process groups: shapes only; ``sp`` and
-    the model's K/V replicas for serving). RWKV6 and enc-dec, and FSDP on
-    the hybrid, raise ``NotImplementedError``."""
+    or ``(pod, data, model)`` ``mesh`` (a ``Dist`` without process groups:
+    shapes only; ``sp`` and the model's K/V replicas for serving). FSDP on
+    the hybrid, RWKV6 and enc-dec raises ``NotImplementedError``."""
     from ..models import build_model
-    if tuple(mesh) == (1, 1):
+    if math.prod(mesh) == 1:
         return build_model(cfg)
     from ..models.tp import Dist, replica_info
-    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, mesh[1])["repl"]
-    return build_model(cfg, Dist(dp=mesh[0], tp=mesh[1], fsdp=fsdp, sp=sp,
+    pod, dp, tp = pod_data_model(mesh)
+    repl = replica_info(cfg.num_heads, cfg.num_kv_heads, tp)["repl"] \
+        if cfg.family != "ssm" else 1
+    return build_model(cfg, Dist(dp=dp, tp=tp, pod=pod, fsdp=fsdp, sp=sp,
                                  repl=repl))
 
 
-def cell_terms(cfg, shape, mesh=(1, 1), fsdp: bool = False):
+def cell_terms(cfg, shape, mesh=(1, 1), fsdp: bool = False, pods: int = 1):
     """(terms, cell) of one card's share of ``shape`` for ``cfg``, on one
     card or on one rank of a ``mesh`` (an ``sp`` serving cell's
-    sequences split over its data ranks)."""
-    sp = card_share(shape).sp and shape.kind != "train" and mesh[0] > 1
+    sequences split over its data ranks); ``pods`` 2: a share of the
+    reference's multi-pod mesh (``mesh.card_share``). A pod mesh of cards
+    trains only (the port serves on a ``(data, model)`` mesh)."""
+    pod, dp, _ = pod_data_model(mesh)
+    if pod > 1 and shape.kind != "train":
+        raise NotImplementedError("serving on a pod mesh")
+    sp = card_share(shape).sp and shape.kind != "train" and dp > 1
     model = mesh_model(cfg, mesh, fsdp, sp)
-    share = card_share(shape, mesh[0] if sp else 1)
+    share = card_share(shape, dp if sp else 1, pods)
     if shape.kind == "train":
         micro = min(default_micro_batches(cfg), share.rows)
-        cell = train_cell(cfg, shape, micro)
+        cell = train_cell(cfg, shape, micro, pods)
         terms = train_terms(model, share.rows, share.tokens, micro)
     else:
-        cell = serve_cell(model, cfg, shape)
+        cell = serve_cell(model, cfg, shape, pods)
         step = share.rows * (share.tokens if shape.kind == "prefill" else 1)
         terms = serve_terms(model, cell.pool_bytes, step, share.rows,
                             enc_rows=share.rows)
@@ -375,20 +402,20 @@ def largest_depth(cfg, fits) -> int:
 
 
 def plan(arch: str, shape_name: str, mesh=(1, 1),
-         fsdp: bool = False) -> dict:
+         fsdp: bool = False, pods: int = 1) -> dict:
     """One record of the planner: predicted terms at full depth, whether
     the cell fits one card (one card of ``mesh``), its largest fitting
-    depth and its share."""
+    depth and its share (of the multi-pod mesh with ``pods`` 2)."""
     cfg, shape = ARCHS[arch], SHAPES_BY_NAME[shape_name]
-    terms, cell = cell_terms(cfg, shape, mesh, fsdp)
+    terms, cell = cell_terms(cfg, shape, mesh, fsdp, pods)
     total = peak(terms) + terms["batch"]
     bound = fit_bytes(mesh)
-    depth = largest_depth(cfg, lambda c: _cell_peak(c, shape, mesh, fsdp)
-                          <= bound)
+    depth = largest_depth(cfg, lambda c: _cell_peak(c, shape, mesh, fsdp,
+                                                    pods) <= bound)
     flops, nbytes = analytic_terms(cfg, shape)
     return dict(arch=arch, shape=shape_name, kind=shape.kind,
                 mesh=list(mesh), fsdp=fsdp,
-                full_depth=cfg.num_layers, max_depth=depth,
+                full_depth=cfg.num_layers, max_depth=depth, pods=pods,
                 fits=total <= bound,
                 peak_bytes=total, fit_bytes=bound, terms=terms,
                 rows=cell.notes["rows"], tokens=cell.notes["tokens"],
@@ -499,23 +526,31 @@ def measure(rec: dict, device: str = "cuda") -> dict:
 
 # ------------------------------------------------------------------ main
 def _mesh_arg(text: str):
-    dp, tp = (int(x) for x in text.lower().split("x"))
-    return dp, tp
+    """DxM, or PxDxM (a pod mesh)."""
+    dims = tuple(int(x) for x in text.lower().split("x"))
+    if len(dims) not in (2, 3):
+        raise argparse.ArgumentTypeError(f"a mesh is DxM or PxDxM: {text}")
+    return dims
 
 
 def meshes_of(cards: int):
     """Every (data, model) mesh of ``cards`` cards, with and without
-    FSDP (which needs more than one data rank)."""
+    FSDP (which needs more than one data rank), and every (pod, data,
+    model) mesh of 2 pods (the reference's multi-pod count)."""
     out = []
-    for tp in range(1, cards + 1):
-        if cards % tp == 0:
-            dp = cards // tp
-            out += [((dp, tp), False)] + ([((dp, tp), True)] if dp > 1
-                                          else [])
+    for pod in (1, 2):
+        if cards % pod:
+            continue
+        n = cards // pod
+        for tp in range(1, n + 1):
+            if n % tp == 0:
+                dp = n // tp
+                mesh = (dp, tp) if pod == 1 else (pod, dp, tp)
+                out += [(mesh, False)] + ([(mesh, True)] if dp > 1 else [])
     return out
 
 
-MESH_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+MESH_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 
 
 def fit_cards(cards: int) -> list:
@@ -535,7 +570,8 @@ def fit_cards(cards: int) -> list:
                 try:
                     terms, _ = cell_terms(cfg, shape, mesh, fsdp)
                 except (ValueError, NotImplementedError):
-                    continue    # heads or experts do not split; no FSDP
+                    continue    # heads or experts do not split; no FSDP;
+                    # a pod mesh serving
                 total = peak(terms) + terms["batch"]
                 bound = fit_bytes(mesh)
                 depth = cfg.num_layers if total <= bound else \
@@ -548,8 +584,8 @@ def fit_cards(cards: int) -> list:
     return rows
 
 
-def _cell_peak(cfg, shape, mesh, fsdp) -> int:
-    terms, _ = cell_terms(cfg, shape, mesh, fsdp)
+def _cell_peak(cfg, shape, mesh, fsdp, pods=1) -> int:
+    terms, _ = cell_terms(cfg, shape, mesh, fsdp, pods)
     return peak(terms) + terms["batch"]
 
 
@@ -561,7 +597,11 @@ def main(argv=None) -> int:
     ap.add_argument("--measure", action="store_true",
                     help="also run each cell once on the card")
     ap.add_argument("--mesh", type=_mesh_arg, default=(1, 1),
-                    help="DxM: one card of a (data, model) mesh")
+                    help="DxM: one card of a (data, model) mesh; PxDxM: "
+                         "of a (pod, data, model) one (training)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="one card's share of the reference's 2x16x16 "
+                         "(pod, data, model) cells: global_batch / 32 rows")
     ap.add_argument("--fsdp", action="store_true",
                     help="with --mesh: shard layer weights over data")
     ap.add_argument("--cards", type=int,
@@ -579,38 +619,42 @@ def main(argv=None) -> int:
         for r in rows:
             print(f"[fit {args.cards} cards] {r['arch']} {r['shape']} "
                   f"({r['kind']}) mesh "
-                  f"{r['mesh'][0]}x{r['mesh'][1]}"
+                  f"{'x'.join(map(str, r['mesh']))}"
                   f"{' fsdp' if r['fsdp'] else ''}: per-card peak "
                   f"{r['peak_bytes'] / 1e9:.2f} GB, fits={r['fits']}, "
                   f"largest depth {r['max_depth']} of "
                   f"{ARCHS[r['arch']].num_layers}", flush=True)
         return 0
     mesh = tuple(args.mesh)
+    pods = 2 if args.multi_pod else 1
+    one = math.prod(mesh) == 1
     if args.all:
         cells = [(a, s.name) for a in sorted(ARCHS)
                  for s in shapes_for(ARCHS[a])
-                 if mesh == (1, 1) or (ARCHS[a].family in MESH_FAMILIES
-                                       and not (args.fsdp and (
-                                           s.kind != "train" or
-                                           ARCHS[a].family == "hybrid")))]
+                 if one or (ARCHS[a].family in MESH_FAMILIES
+                            and not (s.kind != "train" and len(mesh) == 3)
+                            and not (args.fsdp and (
+                                s.kind != "train" or ARCHS[a].family in
+                                ("hybrid", "ssm", "encdec"))))]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
     else:
         ap.error("give --all, --cards, or --arch and --shape")
-    if args.measure and mesh != (1, 1):
+    if args.measure and not one:
         ap.error("--measure runs one card (chip_smoke.py measures a mesh)")
-    tag = "" if mesh == (1, 1) else \
-        f"__{mesh[0]}x{mesh[1]}{'_fsdp' if args.fsdp else ''}"
+    tag = ("" if one else
+           f"__{'x'.join(map(str, mesh))}{'_fsdp' if args.fsdp else ''}") + \
+        ("__2x16x16" if pods > 1 else "")
     for arch, shape in cells:
         t0 = time.perf_counter()
-        rec = plan(arch, shape, mesh, args.fsdp)
+        rec = plan(arch, shape, mesh, args.fsdp, pods)
         if args.measure:
             rec["measured"] = measure(rec)
         with open(os.path.join(args.out, f"{arch}__{shape}{tag}.json"),
                   "w") as fh:
             json.dump(rec, fh, indent=1)
         state = rec["terms"]["detail"]
-        extra = "" if mesh == (1, 1) or "params" not in state else (
+        extra = "" if one or "params" not in state else (
             f" per card: params {state['params'] / 1e9:.3f} GB, grads "
             f"{state['grads'] / 1e9:.3f} GB, moments "
             f"{state['moments'] / 1e9:.3f} GB;")

@@ -83,17 +83,19 @@ def buffer_units_for(model, cfg: ModelConfig, tokens_per_shard: int,
     return (-(-units // big) + 1) * big
 
 
-def serve_cell(model, cfg: ModelConfig, shape: ShapeSpec) -> Cell:
+def serve_cell(model, cfg: ModelConfig, shape: ShapeSpec,
+               pods: int = 1) -> Cell:
     """The card's serve cell: one padded step of the card's rows (T = the
     whole sequence for prefill, 1 for decode) over a pool that holds the
     card's KV/state. On one card every KV type keeps every page. On a
     mesh (``model.dist``) the cell is one rank's: its rows and tokens
     (``card_share(shape, dp)``: an ``sp`` cell's sequences split over the
     data ranks), its attention pages 1 / repl of them (the reference's
-    replica-group split), its page and state shapes the rank model's."""
-    dist = getattr(model, "dist", None)      # enc-dec, RWKV6: one card
-    mesh = dist is not None and dist.size > 1
-    share = card_share(shape, dist.dp if mesh and dist.sp else 1)
+    replica-group split), its page and state shapes the rank model's.
+    ``pods``: the reference's pods (``mesh.card_share``)."""
+    dist = model.dist
+    mesh = dist.size > 1
+    share = card_share(shape, dist.dp if mesh and dist.sp else 1, pods)
     b, s = share.rows, share.tokens
     repl = model.ri["repl"] if mesh else 1
     attn = -(-s // repl)
@@ -161,9 +163,15 @@ def example_batch(model, seqs, packed: bool, seed: int, pages: int):
     segment (packed) or row (padded) per ``(old, new)`` of ``seqs`` (its
     first ``old`` positions already in pages, ``new`` tokens this step),
     random tokens, each sequence's pages in order, write ids of every new
-    token, and one Mamba2 state page per sequence for a hybrid. Pads as
+    token, and one state page per sequence for a hybrid or RWKV6. Pads as
     the runner makes them (position ``SENTINEL_POS``, table -1, packed
-    owner -2). Returns (arrays, pool units)."""
+    owner -2). An enc-dec model's sequences each hold a clip of
+    ``encoder_seq`` frames (every second one 3 frames shorter) in its own
+    cross pages (``enc_lens`` per row, or per token when packed); a
+    sequence with no old tokens is at its first chunk and, in a step of
+    T > 1, carries its stub frame embeddings and the cross pages' write
+    ids (``enc_embeds``, ``enc_write_eids``), the others' cross pages
+    already written. Returns (arrays, pool units)."""
     rng = np.random.default_rng(seed)
     units, first, _ = example_pool(model, pages)
     specs = model.kv_specs()
@@ -187,7 +195,7 @@ def example_batch(model, seqs, packed: bool, seed: int, pages: int):
              page_seg=None, last_idx=None)
     a["seq_lens"] = np.array([o + n for o, n in seqs], i32)
     a["state_eids"] = {s.name: ids[s.name][None, :len(seqs)].astype(i32)
-                       for s in specs if s.kind == "mamba"}
+                       for s in specs if s.kind in ("mamba", "rwkv")}
     if packed:
         tt = sum(n for _, n in seqs) + 3
         rows, b, t = [(0, off) for off in np.cumsum(
@@ -235,12 +243,53 @@ def example_batch(model, seqs, packed: bool, seed: int, pages: int):
                 cur[s.name] = c + len(pg)
             a["write_eids"][s.name][0, 0, r, sl] = \
                 pg[np.arange(o, o + n) // s.tokens_per_page]
+    _cross_batch(a, model, seqs, ids, packed, rng, t, rows)
     return a, units
+
+
+def _cross_batch(a, model, seqs, ids, packed, rng, t, rows):
+    """``example_batch``'s enc-dec fields (see there), into ``a``."""
+    cross = [s for s in model.kv_specs() if s.kind == "cross_attn"]
+    if not cross:
+        return
+    s = cross[0]
+    cfg, tpp, i32 = model.cfg, s.tokens_per_page, np.int32
+    enc = cfg.encoder_seq
+    npc = s.pages_for_tokens(enc)
+    n = len(seqs)
+    if n * npc > len(ids[s.name]):
+        raise ValueError(f"{n * npc} pages of {s.name} in a pool of "
+                         f"{len(ids[s.name])}")
+    pages = ids[s.name][:n * npc].reshape(n, npc).astype(i32)
+    lens = np.array([enc - 3 * (i % 2) for i in range(n)], i32)
+    shape = (1, 1, 1, n * npc) if packed else (1, 1, n, npc)
+    a["tables"][s.name] = pages.reshape(shape)
+    a["page_pos"][s.name] = np.broadcast_to(
+        np.arange(npc, dtype=i32) * tpp, (n, npc)).reshape(shape).copy()
+    if packed:
+        a["page_seg"][s.name] = np.repeat(np.arange(n, dtype=i32),
+                                          npc).reshape(shape)
+        a["enc_lens"] = np.zeros((1, t), i32)
+        for i, ((_, k), (_, off)) in enumerate(zip(seqs, rows)):
+            a["enc_lens"][0, off:off + k] = lens[i]
+    else:
+        a["enc_lens"] = lens
+    first = [i for i, (o, _) in enumerate(seqs) if o == 0]
+    if not first or (not packed and max(k for _, k in seqs) == 1):
+        return
+    a["enc_embeds"] = np.zeros((n, enc, cfg.d_model), np.float32)
+    a["enc_write_eids"] = np.full((1, 1, n, enc), -1, i32)
+    for i in first:
+        a["enc_embeds"][i, :lens[i]] = rng.standard_normal(
+            (lens[i], cfg.d_model)).astype(np.float32)
+        j = np.arange(lens[i])
+        a["enc_write_eids"][0, 0, i, :lens[i]] = pages[i, j // tpp]
 
 
 # the per-row fields of a padded batch and their row axis
 _ROW_AXIS = {"tokens": 0, "positions": 0, "seq_lens": 0, "last_idx": 0,
-             "mm_embeds": 0, "mm_mask": 0, "mrope_pos": 1}
+             "mm_embeds": 0, "mm_mask": 0, "mrope_pos": 1, "enc_embeds": 0,
+             "enc_lens": 0, "enc_write_eids": 2}
 _PAGE_FIELDS = ("tables", "page_pos", "write_eids", "page_seg")
 
 
@@ -262,8 +311,13 @@ def split_batch(arrs: dict, model, data_rank: int, model_rank: int) -> dict:
     (1, 1, B, P)), for ``model``'s mesh (``model.dist``: dp, tp, sp): the
     reference's ``serve_step`` input specs, host side.
 
-    * Padded rows split over "data" (``B / dp`` each, in order); a packed
-      stream, or any batch under ``sp``, is every rank's whole.
+    * Padded rows split over "data" (``B / dp`` each, in order), with
+      their state ids and an enc-dec model's frames, clip lengths and
+      cross write ids; a packed stream, or any batch under ``sp``, is
+      every rank's whole.
+    * Cross (encoder) pages are never split: every rank of a K/V replica
+      set attends, and writes, every cross page of its rows (the
+      reference's ``cross_attn`` tables are whole on every rank).
     * Each attention page goes to exactly one member of the group that
       splits its sequence (``page_member``: the K/V replica set, and the
       data ranks under ``sp``); on the others its table entry is a pad
@@ -318,10 +372,11 @@ def split_batch(arrs: dict, model, data_rank: int, model_rank: int) -> dict:
 
 
 def train_cell(cfg: ModelConfig, shape: ShapeSpec,
-               micro_batches: int = 1) -> Cell:
+               micro_batches: int = 1, pods: int = 1) -> Cell:
     """The card's training batch: its rows of tokens and targets and the
-    family's extra inputs (``Trainer.extra_batch``)."""
-    share = card_share(shape)
+    family's extra inputs (``Trainer.extra_batch``); ``pods``: the
+    reference's pods (``mesh.card_share``)."""
+    share = card_share(shape, pods=pods)
     b, s = share.rows, share.tokens
     arrays = {"tokens": ((b, s), "int32"), "targets": ((b, s), "int32")}
     if cfg.family == "encdec":

@@ -10,7 +10,8 @@ asked) and returns their results. NCCL is the backend on the cards,
 ``gloo`` in the CPU tests.
 
 The fit planner. The reference runs every (arch x shape) cell on a
-16 x 16 TPU mesh of axes ("data", "model") (``repro/launch/mesh.py``).
+16 x 16 TPU mesh of axes ("data", "model") (``repro/launch/mesh.py``), or
+with ``multi_pod`` on a 2 x 16 x 16 one of axes ("pod", "data", "model").
 ``card_share`` gives what ONE card of a port run takes of a cell: one data
 shard of the production mesh, with the 16 tensor-parallel shards folded
 onto it (tp = 1, or the run's own tp on a mesh of cards). So it holds
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import queue
@@ -58,14 +60,17 @@ def is_sp(shape) -> bool:
     return shape.kind == "decode" and shape.global_batch < 32
 
 
-def card_share(shape, dp: int = 1) -> CardShare:
+def card_share(shape, dp: int = 1, pods: int = 1) -> CardShare:
     """One card's share of ``shape``; with ``dp`` data ranks of a mesh of
     cards, an ``sp`` cell's sequences split over them (each rank holds
-    ceil(seq_len / dp) tokens of every sequence)."""
+    ceil(seq_len / dp) tokens of every sequence). ``pods`` 2: the
+    reference's multi-pod mesh, 2 x 16 x 16 ("pod", "data", "model"),
+    whose batch rows split over pod x data (``--multi-pod``); an ``sp``
+    cell splits its sequences over "data" alone there too."""
     if is_sp(shape):
         return CardShare(shape.global_batch, -(-shape.seq_len // dp), True,
                          1)
-    dp = PRODUCTION_MESH["data"]
+    dp = PRODUCTION_MESH["data"] * pods
     if shape.global_batch % dp:
         raise ValueError(f"{shape.name}: global batch {shape.global_batch} "
                          f"does not split over {dp} data shards")
@@ -73,45 +78,67 @@ def card_share(shape, dp: int = 1) -> CardShare:
 
 
 # ------------------------------------------------------------ training mesh
-def make_dist(shape: Tuple[int, int], *, fsdp: bool = False,
-              backend: str = None, timeout: float = 60.0, sp: bool = False,
-              repl: int = 1):
-    """This rank's ``Dist`` on a ``(data, model)`` mesh of ``shape`` over
-    the initialised default process group (global rank ``r`` sits at
-    ``divmod(r, model)``, the reference's device order). Every rank
-    creates every group, in the same order, on ``backend`` (the world's
-    by default), with ``timeout`` seconds for each of its collectives.
-    ``sp`` and ``repl`` (serving): sequence-parallel decode, and the
-    model's K/V replicas, whose sets of ``repl`` model ranks
-    (``replica_groups``) each get a group."""
+def mesh_label(shape) -> str:
+    return " x ".join(str(n) for n in shape)
+
+
+def make_dist(shape, *, fsdp: bool = False, backend: str = None,
+              timeout: float = 60.0, sp: bool = False, repl: int = 1):
+    """This rank's ``Dist`` on a ``(data, model)`` mesh of ``shape``, or a
+    ``(pod, data, model)`` one of a 3-tuple, over the initialised default
+    process group (global rank ``r`` sits at ``divmod(r, model)``, or
+    ``((pod * data) + data_rank) * model + model_rank``: the reference's
+    device order). Every rank creates every group, in the same order, on
+    ``backend`` (the world's by default), with ``timeout`` seconds for
+    each of its collectives. ``sp`` and ``repl`` (serving):
+    sequence-parallel decode, and the model's K/V replicas, whose sets of
+    ``repl`` model ranks (``replica_groups``) each get a group. A 2-tuple
+    creates the groups it always did, in the same order."""
     import torch.distributed as td
 
     from ..models.tp import Dist
-    dp, tp = shape
+    pod, dp, tp = (1,) * (3 - len(shape)) + tuple(shape)
     world, rank = td.get_world_size(), td.get_rank()
-    if dp * tp != world:
-        raise ValueError(f"a {dp} x {tp} mesh needs {dp * tp} ranks, the "
-                         f"world has {world}")
+    if pod * dp * tp != world:
+        raise ValueError(f"a {mesh_label(shape)} mesh needs "
+                         f"{pod * dp * tp} ranks, the world has {world}")
     wait = datetime.timedelta(seconds=timeout)
-    data_rank, model_rank = divmod(rank, tp)
-    dp_groups = [td.new_group([d * tp + m for d in range(dp)], timeout=wait,
-                              backend=backend) for m in range(tp)]
-    tp_groups = [td.new_group([d * tp + m for m in range(tp)], timeout=wait,
-                              backend=backend) for d in range(dp)]
+    row_rank, model_rank = divmod(rank, tp)
+    pod_rank, data_rank = divmod(row_rank, dp)
+
+    def group(ranks):
+        return td.new_group(ranks, timeout=wait, backend=backend)
+
+    def at(p, d, m):
+        return (p * dp + d) * tp + m
+
+    dp_groups = [[group([at(p, d, m) for d in range(dp)]) for m in range(tp)]
+                 for p in range(pod)]
+    tp_groups = [[group([at(p, d, m) for m in range(tp)]) for d in range(dp)]
+                 for p in range(pod)]
     if tp % repl:
         raise ValueError(f"{repl} K/V replicas do not split {tp} model ranks")
     kv_group = None
     if repl > 1:
         from ..models.attention import replica_groups
         sets = replica_groups(tp // repl, repl)
-        kv_groups = [[td.new_group([d * tp + m for m in ms], timeout=wait,
-                                   backend=backend) for ms in sets]
-                     for d in range(dp)]
-        kv_group = kv_groups[data_rank][model_rank // repl]
+        kv_groups = [[[group([at(p, d, m) for m in ms]) for ms in sets]
+                      for d in range(dp)] for p in range(pod)]
+        kv_group = kv_groups[pod_rank][data_rank][model_rank // repl]
+    pod_group = rows_group = None
+    if pod > 1:
+        pod_groups = [[group([at(p, d, m) for p in range(pod)])
+                       for m in range(tp)] for d in range(dp)]
+        rows_groups = [group([at(p, d, m) for p in range(pod)
+                              for d in range(dp)]) for m in range(tp)]
+        pod_group = pod_groups[data_rank][model_rank]
+        rows_group = rows_groups[model_rank]
     return Dist(dp=dp, tp=tp, data_rank=data_rank, model_rank=model_rank,
-                fsdp=fsdp, dp_group=dp_groups[model_rank],
-                tp_group=tp_groups[data_rank], group=td.group.WORLD, sp=sp,
-                repl=repl, kv_group=kv_group)
+                fsdp=fsdp, dp_group=dp_groups[pod_rank][model_rank],
+                tp_group=tp_groups[pod_rank][data_rank],
+                group=td.group.WORLD, sp=sp, repl=repl, kv_group=kv_group,
+                pod=pod, pod_rank=pod_rank, pod_group=pod_group,
+                rows_group=rows_group)
 
 
 def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
@@ -130,7 +157,7 @@ def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
             dev = torch.device("cuda", rank)
         td.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
-            world_size=shape[0] * shape[1],
+            world_size=math.prod(shape),
             timeout=datetime.timedelta(seconds=timeout))
         try:
             dist = make_dist(shape, fsdp=fsdp, timeout=timeout, **dist_kw)
@@ -141,12 +168,13 @@ def _rank_main(fn, shape, rank, store, backend, device, fsdp, timeout,
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
+def run_mesh(fn: Callable, shape: Tuple[int, ...], *, args: Sequence = (),
              fsdp: bool = False, backend: str = "nccl", device: str = "cuda",
              timeout: float = 60.0, deadline: float = 600.0,
              sp: bool = False, repl: int = 1) -> List[Any]:
     """Run ``fn(dist, device, *args)`` on every rank of a ``shape``
-    ``(data, model)`` mesh, one spawned process per rank, and return the
+    ``(data, model)`` or ``(pod, data, model)`` mesh (``make_dist``), one
+    spawned process per rank, and return the
     results in rank order. ``fn`` and ``args`` are pickled (``fn`` by its
     import path) and the results must be picklable: return numpy arrays,
     not tensors. ``device`` "cuda" puts rank ``r`` on ``cuda:r``; "cpu"
@@ -159,14 +187,13 @@ def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
     when ``deadline`` seconds pass, the other ranks are killed and the
     call raises with the rank's traceback."""
     import torch
-    if device == "cuda" and torch.cuda.device_count() < shape[0] * shape[1]:
-        raise RuntimeError(f"a {shape[0]} x {shape[1]} mesh needs "
-                           f"{shape[0] * shape[1]} cards, "
+    n = math.prod(shape)
+    if device == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"a {mesh_label(shape)} mesh needs {n} cards, "
                            f"{torch.cuda.device_count()} are visible")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="mesh_")
-    n = shape[0] * shape[1]
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         fn, shape, r, os.path.join(tmp, "store"), backend, device, fsdp,
         timeout, tuple(args), results, dict(sp=sp, repl=repl)))
@@ -187,7 +214,7 @@ def run_mesh(fn: Callable, shape: Tuple[int, int], *, args: Sequence = (),
                     raise RuntimeError(f"mesh rank {dead[0]} died with exit "
                                        f"code {procs[dead[0]].exitcode}")
                 if time.monotonic() > end:
-                    raise TimeoutError(f"a {shape[0]} x {shape[1]} mesh run "
+                    raise TimeoutError(f"a {mesh_label(shape)} mesh run "
                                        f"passed its {deadline} s deadline")
                 continue
             if not ok:

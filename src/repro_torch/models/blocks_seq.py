@@ -16,7 +16,11 @@ D residual, the gated RMSNorm and the out-projection. ``mamba2_step``
 RWKV6 has no TPU kernel: the reference computes its chunked recurrence in
 ``jnp``, and the port in plain torch with the reference's order of fp32
 operations (``rwkv6_chunked`` for padded rows, ``rwkv6_packed`` for the
-segments of a packed stream, ``rwkv6_step`` for T == 1).
+segments of a packed stream, ``rwkv6_step`` for T == 1). On a mesh
+(``dist``) each rank runs its heads (``rwkv6_dims(d, hs, tp)``): the
+output projection is summed over the model axis, and the channel mix
+computes the rank's output columns from its ``d_ff`` columns alone and
+gathers them over the model axis, as the reference does.
 
 State layout per layer, fp32, stored in the unified buffer as bf16 pairs
 (``attention.read_state``):
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from ..kernels.mamba_scan import (mamba_chunk_scan_train,
                                   mamba_chunk_scan_varlen)
 from .common import dense, rms_norm
-from .tp import psum_tp
+from .tp import gather_tp, psum_tp
 
 
 def mamba2_dims(d_model: int, expand: int, headdim: int, d_state: int,
@@ -385,7 +389,7 @@ def _pad_chunks(a, chunk, dim):
 
 def rwkv6_chunked(p, x, rd: dict, *, head_size: int, chunk: int = RWKV_CHUNK,
                   norm_eps=1e-5, init_state=None, length_mask=None,
-                  last_idx=None):
+                  last_idx=None, dist=None):
     """RWKV6 time mix + channel mix over (B, T) rows (padded serving).
     Returns (x + out, final state (B, U) fp32). Pad tokens (``length_mask``
     False) get k = 0 and logw = 0, so the wkv state is the state after each
@@ -429,11 +433,11 @@ def rwkv6_chunked(p, x, rd: dict, *, head_size: int, chunk: int = RWKV_CHUNK,
             torch.einsum("bshk,bshv->bhkv", kdec, vk)
         ys.append(y)
     y = torch.cat(ys, 1)[:, :t]
-    x = x + _rwkv_out(p, y, g, b, t, norm_eps)
+    x = x + _rwkv_out(p, y, g, b, t, norm_eps, dist)
 
     xc = rms_norm(x, p["ln2"], norm_eps)
     xc_prev = torch.cat([cm_shift, xc[:, :-1]], 1)
-    x = x + _channel_mix(p, xc, xc_prev)
+    x = x + _channel_mix(p, xc, xc_prev, dist)
     if last_idx is None:
         att_out, cm_out = xn[:, -1:], xc[:, -1:]
     else:
@@ -445,7 +449,7 @@ def rwkv6_chunked(p, x, rd: dict, *, head_size: int, chunk: int = RWKV_CHUNK,
 
 def rwkv6_packed(p, x, rd: dict, *, head_size: int, seg_ids, seg_start,
                  seg_last, init_state, chunk: int = RWKV_CHUNK,
-                 norm_eps=1e-5):
+                 norm_eps=1e-5, dist=None):
     """RWKV6 over a PACKED stream (the layout of ``mamba2_packed``): the
     chunked wkv scan carries one state per SEGMENT, with segment-equality
     masks on the intra-chunk scores and each token's state read decayed
@@ -507,18 +511,18 @@ def rwkv6_packed(p, x, rd: dict, *, head_size: int, seg_ids, seg_start,
         S_seg = S_seg * torch.exp(seg_sum)[..., None] + S_add
         ys.append(y)
     y = torch.cat(ys, 0)[:t][None]
-    x = x + _rwkv_out(p, y, g, 1, t, norm_eps)
+    x = x + _rwkv_out(p, y, g, 1, t, norm_eps, dist)
 
     xc = rms_norm(x, p["ln2"], norm_eps)
     xc_prev = _packed_shift(xc[0], cm_shift, seg_ids, seg_start)
-    x = x + _channel_mix(p, xc, xc_prev)
+    x = x + _channel_mix(p, xc, xc_prev, dist)
     last = seg_last.long().clamp(0, t - 1)
     return x, flatten_rwkv_state(S_seg, xn[0][last][:, None],
                                  xc[0][last][:, None])
 
 
 def rwkv6_step(p, x, state_flat, rd: dict, *, head_size: int,
-               norm_eps=1e-5):
+               norm_eps=1e-5, dist=None):
     """Single-token decode (padded T == 1). x: (B, 1, d). Returns
     (x + out, new state (B, U) fp32)."""
     b, _, d = x.shape
@@ -533,32 +537,38 @@ def rwkv6_step(p, x, state_flat, rd: dict, *, head_size: int,
     wkv = S + u[None, :, :, None] * kv
     y = torch.einsum("bhk,bhkv->bhv", rk, wkv)[:, None]
     S = S * w[..., None] + kv
-    x = x + _rwkv_out(p, y.reshape(b, 1, hl, head_size), g, b, 1, norm_eps)
+    x = x + _rwkv_out(p, y.reshape(b, 1, hl, head_size), g, b, 1, norm_eps,
+                      dist)
     xc = rms_norm(x, p["ln2"], norm_eps)
-    x = x + _channel_mix(p, xc, cm_shift)
+    x = x + _channel_mix(p, xc, cm_shift, dist)
     return x, flatten_rwkv_state(S, xn[:, -1:], xc[:, -1:])
 
 
-def _rwkv_out(p, y, g, b, t, norm_eps):
+def _rwkv_out(p, y, g, b, t, norm_eps, dist=None):
     """The wkv output (fp32 (B, T, H, hs)) rounded to bf16, its per-layer
-    RMSNorm, the SiLU(g) gate and the output projection."""
+    RMSNorm, the SiLU(g) gate and the output projection, summed over the
+    model axis of ``dist``. On a mesh the norm runs over this rank's
+    heads only, as the reference's does."""
     y = y.reshape(b, t, -1).to(torch.bfloat16)
     y = rms_norm(y, p["ln_x"], norm_eps)
     y = y * F.silu(g.reshape(b, t, -1).float()).to(y.dtype)
-    return dense(y, p["w_o"])
+    return psum_tp(dense(y, p["w_o"]), dist)
 
 
-def _channel_mix(p, xc, xc_prev):
+def _channel_mix(p, xc, xc_prev, dist=None):
     """RWKV channel mix: relu(k)^2 through ``cm_wv``, gated by
-    sigmoid(r) in fp32 (one device: the reference's all_gather over the
-    output-column shards is the identity)."""
+    sigmoid(r) in fp32. On a mesh the rank holds ``d_ff / tp`` columns
+    of ``cm_wk`` and ``d / tp`` output columns of ``cm_wv`` (from its own
+    ``d_ff`` columns alone: no sum over the model axis) and ``cm_wr``,
+    and the output columns are gathered over the model axis (the
+    reference's tiled ``all_gather``; the identity on one device)."""
     xk = _rwkv_mix(xc, xc_prev, p["cm_mu_k"])
     xr = _rwkv_mix(xc, xc_prev, p["cm_mu_r"])
     k = dense(xk, p["cm_wk"])
     k = torch.square(F.relu(k.float())).to(xc.dtype)
     vloc = dense(k, p["cm_wv"])
     rloc = torch.sigmoid(dense(xr, p["cm_wr"]).float())
-    return (vloc.float() * rloc).to(xc.dtype)
+    return gather_tp((vloc.float() * rloc).to(xc.dtype), -1, dist)
 
 
 def flatten_rwkv_state(S, att_shift, cm_shift):

@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone (``repro/models/encdec.py``), the
-audio family, serving on one device.
+audio family, on one device or on a ``(data, model)`` mesh.
 
 The conv frontend is a stub, as in the reference: the runner supplies
 precomputed frame embeddings (rows, encoder_seq, d). The transformer is
@@ -23,10 +23,30 @@ Padded T == 1 self attention reads its pages in place through the paged
 decode kernel, padded T > 1 self attention and padded cross attention run
 in plain torch (the reference's jnp routes; no TPU kernel stands behind
 padded cross attention).
+
+On a mesh (``dist``) each rank holds its slice of the reference's
+expanded parameters (``models.params``: the heads of ``replica_info``,
+padded per ``gqa_tp_layout``, its ``d_ff`` columns and vocabulary rows);
+the o-projection and the MLP's down product are summed over the model
+axis and their biases added after the sum, as the reference adds them.
+Training takes the rank's rows of the batch (the loss's mean over the
+data axis); the reference has no FSDP here. Serving: the encoder runs on
+every rank with its heads; the decoder's self attention over a sequence's
+pages split over a K/V replica set (``repl`` > 1) combines its members'
+partials over that set and merges the fresh chunk after, as
+``blocks_attn`` does for the decoder family; cross attention never
+combines: every rank holds its rows' cross pages whole (the reference's
+``cross_attn`` tables are unsplit) and every member of a replica set
+writes the same cross K/V. Under ``sp`` the reference's enc-dec combines
+over the replica set only, not over "data" (``EncDecLM._serve_body``), so
+each data rank attends only the self pages it holds: the port copies
+that (ROADMAP queue 3).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -40,9 +60,10 @@ from . import attention as A
 from . import blocks_attn as BA
 from .common import dense, layer_norm, set_matmul_precision
 from .lm import DecodeBatch, DecoderLM, draw_normal, unstack
-from .params import MATRICES
+from .params import MATRICES, local_part
 from .rotary import sinusoidal_positions
-from .tp import embed_lookup, logits_local, sharded_softmax_xent
+from .tp import (Dist, embed_lookup, logits_local, psum_dp, psum_tp,
+                 replica_info, replicated_loss, sharded_softmax_xent)
 
 MAX_DEC_POS = 32768 + 8
 # The reference's encoder attention (``flash_attention_partials``, block
@@ -53,14 +74,14 @@ MAX_DEC_POS = 32768 + 8
 ENC_KV_BLOCK = 512
 
 
-def _mlp(p, x, eps):
+def _mlp(p, x, eps, dist=None):
     """LayerNorm, the GELU MLP (``jax.nn.gelu``'s tanh form, in fp32) and
-    the residual, with the bias added in bf16 after it as the reference
-    does."""
+    the residual, the down product summed over the model axis of
+    ``dist`` and the bias added in bf16 after it as the reference does."""
     xn = layer_norm(x, p["ln_w"], p["ln_b"], eps)
     h = dense(xn, p["w1"], p["b1"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    y = dense(h, p["w2"])
+    y = psum_tp(dense(h, p["w2"]), dist)
     return x + y + p["b2"].to(y.dtype)
 
 
@@ -71,22 +92,38 @@ def _heads(a, hd):
 
 
 class EncDecLM(DecoderLM):
-    """The encdec family. Parameters mirror the reference tree with the tp
-    dim dropped: ``embed`` (tied), ``dec_pos``, ``enc`` ({``attn``,
-    ``mlp``} stacks of ``encoder_layers``), ``enc_ln_post_w/_b``,
-    ``dec_self``, ``dec_cross``, ``dec_mlp`` (stacks of ``num_layers``)
-    and ``final_ln_w/_b``."""
+    """The encdec family. Parameters mirror the reference tree, each leaf
+    this rank's slice of the expanded layout (on one device the tp dim is
+    dropped and nothing is split): ``embed`` (tied), ``dec_pos``, ``enc``
+    ({``attn``, ``mlp``} stacks of ``encoder_layers``),
+    ``enc_ln_post_w/_b``, ``dec_self``, ``dec_cross``, ``dec_mlp``
+    (stacks of ``num_layers``) and ``final_ln_w/_b``.
 
-    def __init__(self, cfg: ModelConfig):
+    ``dist``: the rank's place on a ``(data, model)`` mesh (one device by
+    default), on which the family trains and serves."""
+
+    def __init__(self, cfg: ModelConfig, dist: Optional[Dist] = None):
         cfg.validate()
         if cfg.family != "encdec":
             raise ValueError(f"family {cfg.family!r} is not encdec")
+        dist = dist or Dist()
+        if dist.fsdp:
+            raise NotImplementedError(
+                "the enc-dec family has no FSDP: the reference shards only "
+                "DecoderLM's layer stacks over the data axis")
         set_matmul_precision()
         self.cfg = cfg
+        self.dist = dist
+        self.fsdp = False
         self.is_moe = False
-        self.kv_local = cfg.num_kv_heads
-        self.v_pad = cfg.vocab_size
+        self.ri = replica_info(cfg.num_heads, cfg.num_kv_heads, dist.tp)
+        self.kv_local = self.ri["kv_local"]
+        self.v_local = -(-cfg.vocab_size // dist.tp)
+        self.v_pad = self.v_local * dist.tp
         self.max_dec_pos = MAX_DEC_POS
+        # the self attention's partials combine over the K/V replica set
+        # only: the reference's enc-dec never combines over "data"
+        self._attn_dist = dataclasses.replace(dist, sp=False)
 
     # ----------------------------------------------------------- kv specs
     def kv_specs(self) -> Tuple[KVCacheSpec, ...]:
@@ -103,24 +140,29 @@ class EncDecLM(DecoderLM):
 
     # --------------------------------------------------------------- init
     def _attn_shapes(self, n):
-        cfg = self.cfg
-        d, qd = cfg.d_model, cfg.num_heads * cfg.head_dim
-        kvd = self.kv_local * cfg.head_dim
-        return {"ln_w": (n, d), "ln_b": (n, d), "q": (n, d, qd),
-                "q_bias": (n, qd), "o": (n, qd, d), "o_bias": (n, d),
-                "k": (n, d, kvd), "v": (n, d, kvd), "v_bias": (n, kvd)}
+        cfg, tp, ri = self.cfg, self.dist.tp, self.ri
+        d = cfg.d_model
+        qd, kvd = ri["q_local"] * cfg.head_dim, ri["kv_local"] * cfg.head_dim
+        return {"ln_w": (n, d), "ln_b": (n, d), "q": (n, tp, d, qd),
+                "q_bias": (n, tp, qd), "o": (n, tp, qd, d), "o_bias": (n, d),
+                "k": (n, tp, d, kvd), "v": (n, tp, d, kvd),
+                "v_bias": (n, tp, kvd)}
 
     def _mlp_shapes(self, n):
-        d, ff = self.cfg.d_model, self.cfg.d_ff
-        return {"ln_w": (n, d), "ln_b": (n, d), "w1": (n, d, ff),
-                "b1": (n, ff), "w2": (n, ff, d), "b2": (n, d)}
+        d, tp = self.cfg.d_model, self.dist.tp
+        ffl = self.cfg.d_ff // tp
+        return {"ln_w": (n, d), "ln_b": (n, d), "w1": (n, tp, d, ffl),
+                "b1": (n, tp, ffl), "w2": (n, tp, ffl, d), "b2": (n, d)}
 
-    def param_shapes(self) -> Dict[str, Any]:
-        """Shapes of the reference template with the tp dim dropped."""
+    def global_shapes(self) -> Dict[str, Any]:
+        """Shapes of the reference template at the mesh's tp (each
+        tensor-parallel leaf with its tp axis), keys in the order ``init``
+        draws them."""
         cfg = self.cfg
         d, le, ld = cfg.d_model, cfg.encoder_layers, cfg.num_layers
         return {
-            "embed": (self.v_pad, d), "dec_pos": (self.max_dec_pos, d),
+            "embed": (self.dist.tp, self.v_local, d),
+            "dec_pos": (self.max_dec_pos, d),
             "enc": {"attn": self._attn_shapes(le),
                     "mlp": self._mlp_shapes(le)},
             "enc_ln_post_w": (d,), "enc_ln_post_b": (d,),
@@ -138,7 +180,11 @@ class EncDecLM(DecoderLM):
         ``torch.Generator`` on ``device``. Matrices (and ``dec_pos``) are
         bf16 (serving) or, with ``master``, fp32 like every other leaf
         (training's masters). The draws differ from the reference's
-        ``jax.random`` ones."""
+        ``jax.random`` ones. On a mesh every rank draws the one-device
+        model's leaves and keeps its slice of each in the expanded layout
+        (``_expand``): the one-device function at any tp, but where K/V
+        replicas combine (the reference's replica combine, ROADMAP queue
+        3)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -154,11 +200,31 @@ class EncDecLM(DecoderLM):
             return draw_normal(shape, scale, torch.bfloat16 if bf16 else
                                torch.float32, gen)
 
-        def tree(shapes):
-            return {n: (tree(s) if isinstance(s, dict) else leaf(n, s))
+        def mine(name, shape, shard):
+            w = leaf(name, shape)
+            if self.dist.size == 1:
+                return w
+            # a copy: a contiguous slice would keep the whole leaf alive
+            return local_part(self._expand(name, w), shard, self.dist).clone(
+                memory_format=torch.contiguous_format)
+
+        def tree(shapes, shards):
+            return {n: (tree(s, shards[n]) if isinstance(s, dict)
+                        else mine(n, s, shards[n]))
                     for n, s in shapes.items()}
 
-        return tree(self.param_shapes())
+        return tree(EncDecLM(self.cfg).param_shapes(), self.shards())
+
+    def _expand(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """The one-device leaf ``w`` in the expanded layout at the mesh's
+        tp: the attention's heads and the vocabulary as
+        ``DecoderLM._expand`` lays out the decoder's, the MLP's ``d_ff``
+        columns (``w1``, ``b1``) and ``w2`` rows split over the ranks."""
+        if name in ("w1", "w2"):
+            return super()._expand("up" if name == "w1" else "down", w)
+        if name == "b1":
+            return w.reshape(w.shape[0], self.dist.tp, -1)
+        return super()._expand(name, w)
 
     # --------------------------------------------------------------- train
     def train_loss(self, params, tokens, targets, *, enc_embeds=None):
@@ -171,13 +237,16 @@ class EncDecLM(DecoderLM):
         (causal self attention, cross attention over the encoder output,
         the MLP) recomputed as one; the final LayerNorm and the tied head.
         The cross attention weighs the encoder's zero pad keys as the
-        reference does (serving masks them through ``enc_lens``)."""
+        reference does (serving masks them through ``enc_lens``). On a
+        mesh the batch is this data rank's rows and the loss is the mean
+        over every data rank's, the same on every rank."""
         if enc_embeds is None:
             raise ValueError("enc-dec training needs enc_embeds")
         eps = self.cfg.norm_eps
         enc_out = self._encode(params, enc_embeds, train=True)
+        dist = self.dist
         t = tokens.shape[1]
-        x = embed_lookup(tokens, params["embed"])
+        x = embed_lookup(tokens, params["embed"], dist)
         x = x + params["dec_pos"][:t].to(x.dtype)[None]
         for pj in zip(unstack(params["dec_self"]),
                       unstack(params["dec_cross"]),
@@ -186,12 +255,15 @@ class EncDecLM(DecoderLM):
                            use_reentrant=False)
         x = layer_norm(x, params["final_ln_w"], params["final_ln_b"], eps)
         logits = logits_local(x, params["embed"])
-        return sharded_softmax_xent(logits, targets)
+        loss = sharded_softmax_xent(logits, targets, dist=dist)
+        if dist.rows > 1:
+            loss = psum_dp(loss, dist) / dist.rows
+        return replicated_loss(loss, dist)
 
     def _dec_layer(self, x, enc_out, ps, pc, pm):
         x = self._mha(ps, x, causal=True, train=True)
         x = self._mha(pc, x, enc_out, train=True)
-        return _mlp(pm, x, self.cfg.norm_eps)
+        return _mlp(pm, x, self.cfg.norm_eps, self.dist)
 
     # ------------------------------------------------------------- encoder
     def _mha(self, p, x, kv_src=None, *, causal=False, train=False):
@@ -202,7 +274,8 @@ class EncDecLM(DecoderLM):
         of ENC_KV_BLOCK and attend the pads, as the reference does;
         causal ones run at S = T (causality masks the pads). Serving runs
         the forward kernel alone, ``train`` the autograd route (forward
-        and backward kernels)."""
+        and backward kernels). On a mesh: the rank's heads, the o
+        projection summed over the model axis before its bias."""
         hd = self.cfg.head_dim
         b, t, _ = x.shape
         xn = layer_norm(x, p["ln_w"], p["ln_b"], self.cfg.norm_eps)
@@ -218,11 +291,12 @@ class EncDecLM(DecoderLM):
         else:
             out, _ = dense_flash_fwd(q, k, v, causal=causal)
         out = out.view(b, -1, t, hd).transpose(1, 2).reshape(b, t, -1)
-        y = dense(out, p["o"])
+        y = psum_tp(dense(out, p["o"]), self.dist)
         return x + y + p["o_bias"].to(y.dtype)
 
     def _enc_layer(self, x, pa, pm, train):
-        return _mlp(pm, self._mha(pa, x, train=train), self.cfg.norm_eps)
+        return _mlp(pm, self._mha(pa, x, train=train), self.cfg.norm_eps,
+                    self.dist)
 
     def _encode(self, params, enc_embeds, train=False):
         """Stub frame embeddings (rows, S, d) -> encoder output (rows, S, d)
@@ -309,8 +383,17 @@ class EncDecLM(DecoderLM):
         write (padded T == 1: written first and read in place by the paged
         decode kernel, which only this layer's read sees). Writes into
         ``buffer`` IN PLACE and returns fp32 logits, one row per segment
-        (packed) or per batch row (padded)."""
-        cfg = self.cfg
+        (packed) or per batch row (padded).
+
+        On a ``(data, model)`` mesh the arguments and the logits are this
+        rank's, as ``DecoderLM.serve_step``'s. Where a sequence's self
+        pages are split over ranks (K/V replicas, ``sp``), the self
+        attention runs the split routes of ``blocks_attn`` (the kernels'
+        log-sum-exp output over this rank's pages, the partials combined
+        over the K/V replica set alone, the fresh chunk merged after);
+        cross attention attends the rank's cross pages whole."""
+        self._check_mesh()
+        cfg, dist = self.cfg, self.dist
         eps = cfg.norm_eps
         packed = batch.seg_ids is not None
         positions = batch.positions
@@ -321,7 +404,7 @@ class EncDecLM(DecoderLM):
         if prefill and batch.enc_embeds is not None:
             self._write_cross(params, buffer, cview, batch)
         b, t = positions.shape
-        x = embed_lookup(batch.tokens, params["embed"])
+        x = embed_lookup(batch.tokens, params["embed"], dist)
         pos = positions.clamp(0, self.max_dec_pos - 1).long()
         x = x + params["dec_pos"][pos].to(x.dtype)
         if packed:
@@ -330,7 +413,7 @@ class EncDecLM(DecoderLM):
             _, step = self._padded_invariants(batch, views, prefill)
         st = step["full_attn"]
         ct = self._cross_invariants(batch, cview)
-        qpos = positions[:, 0].contiguous()
+        split, adist = self._split_pages(), self._attn_dist
         layers = zip(unstack(params["dec_self"]),
                      unstack(params["dec_cross"]),
                      unstack(params["dec_mlp"]))
@@ -343,18 +426,21 @@ class EncDecLM(DecoderLM):
             xn = layer_norm(x, ps["ln_w"], ps["ln_b"], eps)
             q, k, v = self._qkv(ps, xn)
             if packed:
-                out = BA.packed_kernel_attention(q, k_old, v_old, k, v,
-                                                 st["meta"])
+                attend = BA.packed_split_attention if split else \
+                    BA.packed_kernel_attention
+                out = attend(q, k_old, v_old, k, v, st["meta"],
+                             *((adist,) if split else ()))
                 out = out.reshape(b, t, -1)
             elif prefill:
                 out = BA.padded_prefill_attention(q, k, v, k_old, v_old,
-                                                  st["meta"])
+                                                  st["meta"], dist=adist)
             else:
-                out = BA.decode_attention(
-                    q, k, v, buffer, sview, layer, rows=st["rows"],
-                    tables=st["tables"], page_pos=st["page_pos"], qpos=qpos,
-                    plan=st["plan"])
-            y = dense(out, ps["o"])
+                attend = BA.split_decode_attention if split else \
+                    BA.decode_attention
+                out = attend(q, k, v, buffer, sview, layer, rows=st["rows"],
+                             tables=st["tables"], page_pos=st["page_pos"],
+                             qpos=st["qpos"], plan=st["plan"], dist=adist)
+            y = psum_tp(dense(out, ps["o"]), dist)
             x = x + y + ps["o_bias"].to(y.dtype)
             xn = layer_norm(x, pc["ln_w"], pc["ln_b"], eps)
             qc = self._qkv(pc, xn, with_kv=False)
@@ -366,9 +452,9 @@ class EncDecLM(DecoderLM):
                 # with enc_lens 0 averages every slot it gathered
                 o, _, l = A.attend_tokens(qc, kc, vc, ct["mask"])
                 out = A.finalize_softmax(o, l).reshape(b, t, -1).to(x.dtype)
-            y = dense(out, pc["o"])
+            y = psum_tp(dense(out, pc["o"]), dist)
             x = x + y + pc["o_bias"].to(y.dtype)
-            x = _mlp(pm, x, eps)
+            x = _mlp(pm, x, eps, dist)
             if prefill:
                 A.write_kv_rows(buffer, sview, layer, st["rows"], k, v)
         return self._head(params, x, batch)

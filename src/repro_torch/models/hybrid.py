@@ -247,8 +247,8 @@ class HybridLM(DecoderLM):
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = logits_local(x, self._unembed(params))
         loss = sharded_softmax_xent(logits, targets, dist=dist)
-        if dist.dp > 1:
-            loss = psum_dp(loss, dist) / dist.dp
+        if dist.rows > 1:
+            loss = psum_dp(loss, dist) / dist.rows
         return replicated_loss(loss, dist)
 
     def _train_mamba(self, x, pj):

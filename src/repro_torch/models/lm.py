@@ -370,7 +370,8 @@ class DecoderLM:
         are this data rank's rows and the loss is the mean over every data
         rank's (the reference's ``psum_dp(loss) / dp``), the same on every
         rank. So is a MoE's aux loss (``psum_dp(aux / cycles) / dp``): each
-        data rank routes, caps and balances its own tokens."""
+        data rank routes, caps and balances its own tokens. On a pod mesh
+        the rows and the mean run over pod x data ranks."""
         mm = (mm_embeds, mm_mask, mrope_pos)
         if any(v is not None for v in mm):
             if self.cfg.family != "vlm":
@@ -404,12 +405,12 @@ class DecoderLM:
         logits = logits_local(x, self._unembed(params))
         dist = self.dist
         loss = sharded_softmax_xent(logits, targets, dist=dist)
-        if dist.dp > 1:
-            loss = psum_dp(loss, dist) / dist.dp
+        if dist.rows > 1:
+            loss = psum_dp(loss, dist) / dist.rows
         if aux is not None:
             aux = aux / max(1, self.cycles)
-            if dist.dp > 1:
-                aux = psum_dp(aux, dist) / dist.dp
+            if dist.rows > 1:
+                aux = psum_dp(aux, dist) / dist.rows
             loss = loss + aux
         return replicated_loss(loss, dist)
 
@@ -537,9 +538,8 @@ class DecoderLM:
 
     def _split_pages(self) -> bool:
         """Whether a sequence's pages are split over this rank's combine
-        group (the enc-dec and RWKV6 families have no ``dist``)."""
-        dist = getattr(self, "dist", None)
-        return dist is not None and bool(dist.combine_axes)
+        group."""
+        return bool(self.dist.combine_axes)
 
     def _check_mesh(self):
         """A serve step on a mesh needs the mesh's K/V replica groups to
@@ -670,8 +670,7 @@ class DecoderLM:
         else:
             x = x[:, -1]
         logits = logits_local(x, self._unembed(params))
-        return mask_pad_vocab(logits, self.cfg.vocab_size,
-                              getattr(self, "dist", None))
+        return mask_pad_vocab(logits, self.cfg.vocab_size, self.dist)
 
     def _final_norm(self, params, x):
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)

@@ -136,7 +136,8 @@ def _split(a, dim: int, rank: int, n: int):
 def local_part(a, shard: Shard, dist: Optional[Dist] = None):
     """This rank's part of the global leaf ``a`` (numpy or torch): index
     ``model_rank`` of ``shard.tp_axis``, then ``data_rank``'s slice of
-    ``shard.data_dim`` and ``model_rank``'s of ``shard.model_dim``."""
+    ``shard.data_dim``, ``model_rank``'s of ``shard.model_dim`` and
+    ``pod_rank``'s of ``shard.pod_dim``."""
     dist = dist or Dist()
     if shard.tp_axis is not None:
         n = a.shape[shard.tp_axis]
@@ -149,6 +150,8 @@ def local_part(a, shard: Shard, dist: Optional[Dist] = None):
         a = _split(a, shard.data_dim, dist.data_rank, dist.dp)
     if shard.model_dim is not None:
         a = _split(a, shard.model_dim, dist.model_rank, dist.tp)
+    if shard.pod_dim is not None:
+        a = _split(a, shard.pod_dim, dist.pod_rank, dist.pod)
     return a
 
 
@@ -158,6 +161,9 @@ def gather_global(t: torch.Tensor, shard: Shard,
     part (a collective: every rank of the mesh calls it, leaf by leaf in
     the same order, and every rank gets the whole leaf)."""
     dist = dist or Dist()
+    if shard.pod_dim is not None:
+        parts = dist.all_gather(t, "pod")
+        t = torch.cat(list(parts), dim=shard.pod_dim)
     if shard.data_dim is not None:
         parts = dist.all_gather(t, "data")
         t = torch.cat(list(parts), dim=shard.data_dim)
@@ -214,5 +220,7 @@ def gather_tree(tree: Dict, shards: Dict, dist: Optional[Dist] = None
             out[key] = gather_tree(val, shards[key], dist)
         else:
             g = gather_global(val.detach(), shards[key], dist)
-            out[key] = g.cpu().numpy()
+            # a copy: on the CPU the array would share a whole leaf's
+            # storage, which a later in-place update changes
+            out[key] = g.cpu().numpy().copy()
     return out

@@ -9,6 +9,14 @@ both axes, ``fsdp`` and one process group per axis. Global rank
 ``r = data_rank * tp + model_rank``, the device order of the reference's
 ``make_mesh_auto((dp, tp), ("data", "model"))``.
 
+The reference's multi-pod mesh ``("pod", "data", "model")`` (its
+``Dist(mesh, dp_axes=("pod", "data"))``) adds a third axis: ``pod``
+ranks, global rank ``((pod_rank * dp) + data_rank) * tp + model_rank``.
+The batch rows and the loss's mean run over pod x data (``rows``,
+``row_rank``; ``psum_dp``), while FSDP's shards and a MoE's experts stay
+over "data" alone and are replicated over "pod". At one pod every
+collective is the two-axis mesh's.
+
 Parameters live in the reference's *expanded layout*: every tensor-parallel
 leaf has a ``tp`` axis, and rank ``m`` of the model axis holds slice ``m``
 of it (``models.params``), including the padded GQA heads and the K/V
@@ -56,11 +64,14 @@ def _comm_counts() -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class Dist:
-    """One rank of a ``(data, model)`` mesh. ``dp_group`` holds the ranks
-    that share this rank's ``model_rank``, ``tp_group`` those that share
-    its ``data_rank``, ``group`` every rank, and ``kv_group`` the ``repl``
-    ranks of this rank's K/V replica set (``attention.replica_groups``;
-    serving).
+    """One rank of a ``(data, model)`` mesh, or of a ``(pod, data,
+    model)`` one. ``dp_group`` holds the ranks that share this rank's
+    ``pod_rank`` and ``model_rank``, ``tp_group`` those that share its
+    ``pod_rank`` and ``data_rank``, ``pod_group`` those that share its
+    ``data_rank`` and ``model_rank``, ``rows_group`` those that share its
+    ``model_rank`` (pod x data: the reference's ``dp_axes``), ``group``
+    every rank, and ``kv_group`` the ``repl`` ranks of this rank's K/V
+    replica set (``attention.replica_groups``; serving).
     ``sp``: serving splits each sequence's pages over the data axis.
     ``comm_bytes`` counts the bytes each kind of collective of this rank
     sent into the group (its input's size; ``combine``: the partial
@@ -77,16 +88,29 @@ class Dist:
     sp: bool = False
     repl: int = 1
     kv_group: Any = None
+    pod: int = 1
+    pod_rank: int = 0
+    pod_group: Any = None
+    rows_group: Any = None
     comm_bytes: Dict[str, int] = dataclasses.field(
         default_factory=_comm_counts, compare=False)
 
     @property
+    def rows(self) -> int:
+        """Ranks the batch rows split over: pod x data."""
+        return self.pod * self.dp
+
+    @property
+    def row_rank(self) -> int:
+        return self.pod_rank * self.dp + self.data_rank
+
+    @property
     def size(self) -> int:
-        return self.dp * self.tp
+        return self.rows * self.tp
 
     @property
     def rank(self) -> int:
-        return self.data_rank * self.tp + self.model_rank
+        return self.row_rank * self.tp + self.model_rank
 
     @property
     def combine_axes(self):
@@ -99,12 +123,16 @@ class Dist:
     def _group(self, axis: str):
         return {"data": (self.dp_group, self.dp), "model":
                 (self.tp_group, self.tp), "all": (self.group, self.size),
-                "replica": (self.kv_group, self.repl)}[axis]
+                "replica": (self.kv_group, self.repl),
+                "pod": (self.pod_group, self.pod),
+                "rows": (self.rows_group if self.pod > 1 else self.dp_group,
+                         self.rows)}[axis]
 
     def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum",
                    kind: str = "all_reduce") -> torch.Tensor:
         """The sum (``op`` "sum") or max ("max") of ``x`` over ``axis``
-        ("data", "model", "replica" or "all") in ``x``'s dtype, as a new
+        ("data", "model", "replica", "pod", "rows" (pod x data) or "all")
+        in ``x``'s dtype, as a new
         tensor (``x`` itself when the axis has one rank); its bytes count
         under ``kind``."""
         group, n = self._group(axis)
@@ -180,11 +208,15 @@ class Shard:
     reference's ``"model"`` on a real dim); with neither, the leaf is the
     same on every rank of the model axis. ``data_dim`` is the rank's dim
     split evenly over the data axis (FSDP's, or the experts of expert
-    parallelism; None: the rank holds it whole)."""
+    parallelism; None: the rank holds it whole). ``pod_dim``, a dim of
+    the rank's tensor split evenly over the pod axis, is the ZeRO-1
+    moments' on a pod mesh (``training.optimizer.zero1_shards``); every
+    parameter is whole over "pod"."""
 
     tp_axis: Optional[int] = None
     data_dim: Optional[int] = None
     model_dim: Optional[int] = None
+    pod_dim: Optional[int] = None
 
     @property
     def split_model(self) -> bool:
@@ -259,26 +291,29 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-class _GatherData(torch.autograd.Function):
-    """FSDP: the whole weight from the data axis's shards of ``dim``; its
-    transpose sums the cotangents over the data axis and keeps this rank's
-    shard (a reduce-scatter in the cotangent's dtype)."""
+class _Gather(torch.autograd.Function):
+    """The reference's tiled ``all_gather`` over a mesh axis: every rank's
+    ``w`` concatenated along ``dim`` in rank order; its transpose sums the
+    cotangents over the axis and keeps this rank's part (a reduce-scatter
+    in the cotangent's dtype). FSDP gathers a weight's shards over "data"
+    with it, RWKV6's channel mix its output columns over "model"."""
 
     @staticmethod
-    def forward(ctx, w, dist: Dist, dim: int):
-        ctx.dist, ctx.dim = dist, dim
-        parts = dist.all_gather(w, "data")          # (dp, *w.shape)
+    def forward(ctx, w, dist: Dist, dim: int, axis: str):
+        ctx.dist, ctx.dim, ctx.axis = dist, dim, axis
+        parts = dist.all_gather(w, axis)            # (n, *w.shape)
         shape = list(w.shape)
-        shape[dim] *= dist.dp
+        shape[dim] *= parts.shape[0]
         return parts.movedim(0, dim).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
         dist, dim = ctx.dist, ctx.dim
+        n = dist._group(ctx.axis)[1]
         shape = list(g.shape)
-        shape[dim:dim + 1] = [dist.dp, shape[dim] // dist.dp]
+        shape[dim:dim + 1] = [n, shape[dim] // n]
         parts = g.reshape(shape).movedim(dim, 0)
-        return dist.reduce_scatter(parts, "data"), None, None
+        return dist.reduce_scatter(parts, ctx.axis), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -311,9 +346,11 @@ def psum_tp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
 
 
 def psum_dp(x: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
-    if dist is None or dist.dp == 1:
+    """The sum over the reference's ``dp_axes``: "data", and "pod" on a
+    pod mesh."""
+    if dist is None or dist.rows == 1:
         return x
-    return _Psum.apply(x, dist, "data")
+    return _Psum.apply(x, dist, "rows")
 
 
 def replicated_loss(loss: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
@@ -327,7 +364,17 @@ def replicated_loss(loss: torch.Tensor, dist: Optional[Dist]) -> torch.Tensor:
 
 def gather_data(w: torch.Tensor, dim: int, dist: Dist) -> torch.Tensor:
     """An FSDP weight shard gathered whole along ``dim`` over "data"."""
-    return _GatherData.apply(w, dist, dim)
+    return _Gather.apply(w, dist, dim, "data")
+
+
+def gather_tp(x: torch.Tensor, dim: int, dist: Optional[Dist]
+              ) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim``, with a
+    gradient (the reference's ``all_gather(..., tiled=True)`` over
+    "model"); ``x`` itself at one model rank."""
+    if dist is None or dist.tp == 1:
+        return x
+    return _Gather.apply(x, dist, dim % x.dim(), "model")
 
 
 def gather_logits(logits: torch.Tensor, dist: Optional[Dist],

@@ -221,8 +221,8 @@ def _seg_intervals(vals: np.ndarray, block: int):
 
 def refuse_mesh(model) -> None:
     """Raise for a model built for a mesh of more than one rank."""
-    dist = getattr(model, "dist", None)
-    if dist is not None and dist.size > 1:
+    dist = model.dist
+    if dist.size > 1:
         raise NotImplementedError(
             f"this model was built for a {dist.dp} x {dist.tp} mesh; an "
             "Engine or ModelRunner serves on one device (a (1, 1) buffer, "

@@ -8,10 +8,12 @@ new params and moments, which at full width (granite-3-2b, 2.5 B fp32
 parameters) would need another 30 GB for the second copies of params, mu
 and nu.
 
-ZeRO-1 (``zero1_shards``, the reference's ``zero1_spec``): each moment is
-split over the data axis on the first dim of its global leaf that is not
-the tp axis and that the data axis divides; a leaf that already uses the
-data axis (FSDP) keeps its own split. Each rank keeps its slices of
+ZeRO-1 (``zero1_shards``, the reference's ``zero1_shardings``): each
+moment is split over the data axis on the first dim of its global leaf
+that is not the tp axis and that the data axis divides; a leaf that
+already uses the data axis (FSDP) keeps its own split. On a pod mesh it
+is split over the pod axis too, on the next free dim the pod size divides,
+and the updated slices are gathered over "pod", then over "data". Each rank keeps its slices of
 ``mu`` and ``nu`` only, updates the same slice of its fp32 params (the
 masters, whole over the data axis as in the reference) and all-gathers
 the updated slices over the data axis. The clip norm is taken over the
@@ -89,20 +91,41 @@ class Layout:
     state: Dict
 
 
-def zero1_shards(param_shards, global_shapes, dp: int):
-    """The reference's ``zero1_spec`` for every leaf: split the moment over
-    the data axis on the first dim of its global shape that is not the tp
-    axis, is not empty and that ``dp`` divides (as a dim of the rank's
-    tensor); leaves already split over "data" (FSDP) keep their split, and
-    a leaf with no such dim stays whole. Expert leaves, whose experts the
-    data axis already splits, keep their split too."""
+def _global_dim(sh: Shard, local: Optional[int]) -> Optional[int]:
+    """A dim of the rank's tensor as a dim of its global leaf (which has
+    the tp axis)."""
+    if local is None or sh.tp_axis is None:
+        return local
+    return local + (local >= sh.tp_axis)
+
+
+def zero1_shards(param_shards, global_shapes, dp: int, pod: int = 1):
+    """The reference's ``zero1_shardings`` for every leaf: split the moment
+    over the data axis on the first dim of its global shape that is not
+    the tp axis, is not empty and that ``dp`` divides (as a dim of the
+    rank's tensor); leaves already split over "data" (FSDP) keep their
+    split, and a leaf with no such dim stays whole. Expert leaves, whose
+    experts the data axis already splits, keep their split too. On a pod
+    mesh (``pod`` > 1) each moment is split over "pod" as well, on the
+    first dim that no axis splits yet and that ``pod`` divides
+    (``pod_dim``)."""
     def one(sh: Shard, shape) -> Shard:
-        if dp == 1 or sh.data_dim is not None:
+        # at one data rank the reference still takes a dim for "data" (of
+        # size 1) first, which moves the pod's dim to the next free one
+        if (dp > 1 or pod > 1) and sh.data_dim is None:
+            for i, n in enumerate(shape):
+                if i != sh.tp_axis and n > 0 and n % dp == 0:
+                    local = i - (sh.tp_axis is not None and i > sh.tp_axis)
+                    sh = Shard(sh.tp_axis, local)
+                    break
+        if pod == 1:
             return sh
+        taken = {sh.tp_axis, _global_dim(sh, sh.data_dim),
+                 _global_dim(sh, sh.model_dim)}
         for i, n in enumerate(shape):
-            if i != sh.tp_axis and n > 0 and n % dp == 0:
+            if i not in taken and n > 0 and n % pod == 0:
                 local = i - (sh.tp_axis is not None and i > sh.tp_axis)
-                return Shard(sh.tp_axis, local)
+                return dataclasses.replace(sh, pod_dim=local)
         return sh
 
     def go(shards, shapes):
@@ -111,18 +134,28 @@ def zero1_shards(param_shards, global_shapes, dp: int):
     return go(param_shards, global_shapes)
 
 
-def _zero1_dim(layout: Optional[Layout], ps: Shard, ss: Shard):
-    """The dim a ZeRO-1 rank updates a slice of (None: the whole leaf)."""
-    if layout is None or layout.dist.dp == 1 or ss.data_dim == ps.data_dim:
-        return None
-    return ss.data_dim
+def _zero1_dims(layout: Optional[Layout], ps: Shard, ss: Shard):
+    """The (dim, axis) pairs a ZeRO-1 rank updates a slice of: the data
+    axis's dim, then the pod axis's (empty: the whole leaf)."""
+    if layout is None:
+        return ()
+    out = ()
+    if layout.dist.dp > 1 and ss.data_dim != ps.data_dim:
+        out += ((ss.data_dim, "data"),)
+    if layout.dist.pod > 1 and ss.pod_dim is not None:
+        out += ((ss.pod_dim, "pod"),)
+    return out
 
 
-def _slice(t: torch.Tensor, dim, dist: Dist) -> torch.Tensor:
-    if dim is None:
-        return t
-    k = t.shape[dim] // dist.dp
-    return t.narrow(dim, dist.data_rank * k, k)
+def _slice(t: torch.Tensor, dims, dist: Optional[Dist]) -> torch.Tensor:
+    """This rank's part of ``t`` over each of ``dims`` (``_zero1_dims``;
+    ``t`` itself where there is none)."""
+    for dim, axis in dims:
+        n, r = (dist.dp, dist.data_rank) if axis == "data" else \
+            (dist.pod, dist.pod_rank)
+        k = t.shape[dim] // n
+        t = t.narrow(dim, r * k, k)
+    return t
 
 
 def with_shards(tree, layout: Optional[Layout]):
@@ -138,15 +171,14 @@ def init(params, layout: Optional[Layout] = None) -> OptState:
     step 0 on the params' device."""
     dev = next(leaves(params)).device
 
-    def zeros(p, dim):
-        return torch.zeros(_slice(p, dim, layout.dist).shape if dim is
-                           not None else p.shape, dtype=torch.float32,
-                           device=p.device)
+    def zeros(p, dims):
+        return torch.zeros(_slice(p, dims, layout and layout.dist).shape,
+                           dtype=torch.float32, device=p.device)
 
     def moments():
         if layout is None:
-            return tree_map(lambda p: zeros(p, None), params)
-        out = [zeros(p, _zero1_dim(layout, ps, ss))
+            return tree_map(lambda p: zeros(p, ()), params)
+        out = [zeros(p, _zero1_dims(layout, ps, ss))
                for p, ps, ss in with_shards(params, layout)]
         return _rebuild(params, iter(out))
 
@@ -164,7 +196,8 @@ def _counted(sh: Optional[Shard], dist: Dist) -> bool:
     norm: each element once over the mesh."""
     return sh is None or (
         (sh.split_model or dist.model_rank == 0)
-        and (sh.data_dim is not None or dist.data_rank == 0))
+        and (sh.data_dim is not None or dist.data_rank == 0)
+        and dist.pod_rank == 0)
 
 
 def global_norm(tree, layout: Optional[Layout] = None) -> torch.Tensor:
@@ -205,9 +238,9 @@ def update(cfg: AdamWConfig, params, grads, state: OptState,
     for (whole, ps, ss), g, m, v in zip(with_shards(params, layout),
                                         leaves(grads), leaves(state.mu),
                                         leaves(state.nu)):
-        dim = _zero1_dim(layout, ps, ss)
-        p = _slice(whole, dim, layout.dist) if dim is not None else whole
-        g = _slice(g, dim, layout.dist) if dim is not None else g
+        dims = _zero1_dims(layout, ps, ss)
+        p = _slice(whole, dims, layout and layout.dist)
+        g = _slice(g, dims, layout and layout.dist)
         g = g.mul_(scale) if g.dtype == torch.float32 else g.float() * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
@@ -219,9 +252,18 @@ def update(cfg: AdamWConfig, params, grads, state: OptState,
         else:
             p.copy_((p.float() - lr * delta).to(p.dtype))
         del delta
-        if dim is not None:
-            parts = layout.dist.all_gather(p, "data")
-            whole.copy_(parts.movedim(0, dim).reshape(whole.shape))
+        for i in reversed(range(len(dims))):
+            # the slice of the axes before dims[i], gathered over dims[i]
+            dim, axis = dims[i]
+            parts = layout.dist.all_gather(p, axis)
+            shape = list(p.shape)
+            shape[dim] *= parts.shape[0]
+            full = parts.movedim(0, dim).reshape(shape)
+            if i:
+                p = _slice(whole, dims[:i], layout.dist)
+                p.copy_(full)
+            else:
+                whole.copy_(full)
     return params, OptState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -1,5 +1,6 @@
 """Fault-tolerant trainer (``repro/training/trainer.py``), on one device or
-on every rank of a ``(data, model)`` mesh (the model's ``dist``).
+on every rank of a ``(data, model)`` or ``(pod, data, model)`` mesh (the
+model's ``dist``).
 
   * train step: ``train_loss`` -> backward per micro-batch, the fp32
     gradients summed across micro-batches in the params' ``.grad`` buffers,
@@ -7,7 +8,8 @@ on every rank of a ``(data, model)`` mesh (the model's ``dist``).
     place (ZeRO-1 over the data axis when ``zero1``);
   * data: every rank draws the same global batch from ``batch_at(step)``,
     splits it into micro-batches first and takes its data rank's
-    ``1 / dp`` of each micro-batch's rows (the reference's order: the
+    ``1 / dp`` of each micro-batch's rows (on a pod mesh, its
+    ``1 / (pod x dp)``, pod-major) (the reference's order: the
     step reshapes the global batch, then ``shard_map`` splits each
     micro-batch over "data");
   * deterministic data keyed by step -> exact resume;
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.tp import Dist, Shard
+from ..models.tp import Shard
 from . import optimizer as opt
 from .checkpoint import Checkpointer
 from .data import SyntheticLM
@@ -73,17 +75,13 @@ class Trainer:
         self.adamw = adamw
         self.tcfg = tcfg
         self.extra_batch = extra_batch or (lambda tokens: {})
-        # a model built for a mesh (``DecoderLM`` or ``HybridLM`` with a
-        # ``dist``) carries its Dist; the other families run on one device
-        dist = getattr(model, "dist", None)
-        self.dist = dist or Dist()
-        self.layout = None
-        if dist is not None:
-            ps = model.shards()
-            self.layout = opt.Layout(
-                self.dist, ps, opt.zero1_shards(
-                    ps, model.global_shapes(), self.dist.dp)
-                if tcfg.zero1 else ps)
+        # every family's model carries its mesh (one device by default)
+        self.dist = model.dist
+        ps = model.shards()
+        self.layout = opt.Layout(
+            self.dist, ps, opt.zero1_shards(
+                ps, model.global_shapes(), self.dist.dp, self.dist.pod)
+            if tcfg.zero1 else ps)
         self.ckpt = Checkpointer(tcfg.ckpt_dir, model.cfg.family,
                                  keep=tcfg.keep_ckpts, dist=self.dist)
         # straggler stats
@@ -108,23 +106,24 @@ class Trainer:
         buffers, then summed over the mesh axes each leaf is replicated on
         (FSDP leaves were reduce-scattered by the backward; an expert leaf,
         split over both axes, is complete on its rank: the all-to-all's
-        backward brought every data rank's cotangents to it) and divided
+        backward brought every data rank's cotangents to it; both are
+        summed over "pod", whose ranks each hold a copy) and divided
         by the number of micro-batches. Returns (mean loss tensor, grads
         tree)."""
         extras = extras or {}
         n_micro, dist = self.tcfg.micro_batches, self.dist
         b = tokens.shape[0]
-        if b % (n_micro * dist.dp):
+        if b % (n_micro * dist.rows):
             raise ValueError(f"batch {b} not divisible by {n_micro} "
-                             f"micro-batches of {dist.dp} data ranks")
+                             f"micro-batches of {dist.rows} data ranks")
         mb = b // n_micro
-        rows = mb // dist.dp
+        rows = mb // dist.rows
         for p in opt.leaves(params):
             p.requires_grad_(True)
             p.grad = None
         lsum = None
         for i in range(n_micro):
-            lo = i * mb + dist.data_rank * rows
+            lo = i * mb + dist.row_rank * rows
             ex = {k: v.narrow(_batch_axis(k), lo, rows)
                   for k, v in extras.items()}
             loss = self.model.train_loss(params, tokens[lo:lo + rows],
@@ -133,9 +132,13 @@ class Trainer:
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
         for p, sh, _ in opt.with_shards(params, self.layout):
-            if sh is not None and sh.data_dim is None:
+            if sh is None:
+                continue
+            if sh.data_dim is None:
                 p.grad = dist.all_reduce(
-                    p.grad, "data" if sh.split_model else "all")
+                    p.grad, "rows" if sh.split_model else "all")
+            else:
+                p.grad = dist.all_reduce(p.grad, "pod")
         grads = opt.tree_map(lambda p: p.grad, params)
         for g in opt.leaves(grads):
             g.div_(n_micro)
@@ -204,10 +207,7 @@ class Trainer:
 
     # ----------------------------------------------------------- checkpoints
     def _shards(self):
-        """The ``Shard`` tree of ``{"params", "opt"}`` (None: one device
-        of a family without a mesh layout)."""
-        if self.layout is None:
-            return None
+        """The ``Shard`` tree of ``{"params", "opt"}``."""
         return {"params": self.layout.params,
                 "opt": opt.OptState(step=Shard(), mu=self.layout.state,
                                     nu=self.layout.state)}

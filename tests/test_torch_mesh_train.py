@@ -27,8 +27,8 @@ restored by the port at 1 x 1, each resuming within 5e-3 of the
 uninterrupted losses; the NaN watchdog restoring every rank together
 when one rank's params are poisoned; the mesh path at 1 x 1 equal bit
 for bit to the single-device ``train_loss`` and ``Trainer``; an
-``Engine`` given a mesh model, FSDP on the hybrid, RWKV6 and enc-dec
-refusing a mesh (``serve_step`` itself runs on one:
+``Engine`` given a mesh model and FSDP on the hybrid, RWKV6 and enc-dec
+refused (``serve_step`` itself runs on a mesh:
 ``tests/test_torch_mesh_serve.py``); the port's own
 init giving the same function at 1 x 1 and 2 x 2; and a rank that raises
 failing its run within the deadline.
@@ -481,22 +481,21 @@ def test_own_init_is_the_same_model_on_every_mesh(runs):
 
 def test_serving_and_the_other_decoder_families_refuse_a_mesh():
     """What still refuses a mesh: an ``Engine`` given a model built for
-    one (its runner serves one device's (1, 1) buffer, as the reference's
-    does; ``serve_step`` itself runs on the mesh), FSDP on the hybrid (the
-    reference's FSDP rule is ``DecoderLM``'s only), and RWKV6 and enc-dec,
-    whose serving and training across cards are a later slice."""
-    from repro_torch.models import HybridLM, build_model
+    one, of any family (its runner serves one device's (1, 1) buffer, as
+    the reference's does; ``serve_step`` itself runs on the mesh), and
+    FSDP on the hybrid, RWKV6 and enc-dec (the reference's FSDP rule is
+    ``DecoderLM``'s only). Every family builds on a mesh."""
+    from repro_torch.models import build_model
     from repro_torch.models.tp import Dist
     from repro_torch.serving import Engine, EngineConfig
-    for arch in (ARCH, "dbrx-132b", "qwen2-vl-2b", "zamba2-1.2b"):
+    for arch in (ARCH, "dbrx-132b", "qwen2-vl-2b", "zamba2-1.2b",
+                 "rwkv6-3b", "whisper-tiny"):
         model = build_model(reduced(ARCHS[arch]), Dist(dp=2))
         with pytest.raises(NotImplementedError, match="one device"):
             Engine(model, EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="no FSDP"):
-        HybridLM(reduced(ARCHS["zamba2-1.2b"]), Dist(dp=2, fsdp=True))
-    for arch in ("rwkv6-3b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="one device"):
-            build_model(reduced(ARCHS[arch]), Dist(tp=2))
+    for arch in ("zamba2-1.2b", "rwkv6-3b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="no FSDP"):
+            build_model(reduced(ARCHS[arch]), Dist(dp=2, fsdp=True))
 
 
 def _rank_raises(dist, dev):
