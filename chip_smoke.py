@@ -134,8 +134,21 @@ tokens_per_page 19, a pool of 4 large pages) with the 8 prompts of phase
 3: packed at depths 1, 2 and 4 (bitwise equal, mamba launches ==
 dispatches x 38), packed at a 256-token budget (noise floor), padded and
 serial (fork-aware equal to packed within twice that floor), every leg
-drained with no leaked page and state checkpoint copies made. Phase 4b
-serves reduced zamba2 on the card and on the CPU.
+drained with no leaked page and state checkpoint copies made. Phase 3c
+(``phase_max_geometry``) serves the same model under the MAX page
+geometry (the paper's §4.4 baseline: every page padded to the 41.8 MB
+Mamba state page), PageSan on: (a) at tokens_per_page 19, packed at
+depths 1 and 4 and padded, bitwise equal to the LCM geometry at a pool
+that holds the whole set in both; (b) at the published tokens_per_page
+16, which the LCM geometry cannot hold on one card, packed and padded,
+fork-aware equal to (a) within twice phase 3b's noise floor; (c) at
+phase 3b's 8.02 GB pool, each geometry's most used units, requests
+running, defers, preemptions and units lost to padding. The paged phase
+reads zamba2's pages at that 41.8 MB stride (192 pages, an 8.0 GB
+view), and phase 9 adds leg (d): speculative decoding with a 24-layer
+draft whose page is not the target's, equal outputs, accept lengths,
+draft proposals and draft logits under both geometries. Phase 4b serves reduced zamba2 on the card and on
+the CPU.
 
 Phase 2b holds the dense flash kernels (forward; backward dK/dV and dQ)
 against their plain version at granite-3-2b's training shape (B=2, H=32,
@@ -163,7 +176,7 @@ the CUDA launches and time of one fused tail over 8 sampled rows.
 
 Phase 6, the rest of the dense family at full width (random bf16 weights
 from seed 0, drawn on the card a layer at a time), each after the earlier
-phases' memory is released: h2o-danube-3-4b (cut to 12 of its 24 layers
+phases' memory is released: h2o-danube-3-4b (cut to 6 of its 24 layers
 for time; d 3840, 32 / 8 heads of 120, window 4096 on every second
 layer) with phase 3's first 6
 prompts and 2 of 5,000-6,000 tokens, packed at depths 1 and 4, at budget
@@ -178,9 +191,9 @@ equal to packed within twice the noise floor.
 Phase 7, the MoE family and the VLM backbone (each after the earlier
 phases' memory is released): the expert products' fp32 route and a
 reduced ``moe_block`` on the card against the CPU; qwen3-moe-235b-a22b at
-10 of its 94 layers and dbrx-132b at 8 of its 40 (full per-layer width:
+5 of its 94 layers and dbrx-132b at 4 of its 40 (full per-layer width:
 128 experts top-8 and 16 experts top-4; random bf16 weights from seed 0,
-~52 and ~55 GB), one after the other, with phase 3's 8 prompts, a 4 GiB
+~27 and ~30 GB), one after the other, with phase 3's 8 prompts, a 4 GiB
 pool and 32 new tokens: packed at depths 1 and 4 (fork-aware equal,
 forks printed), packed at budget 256, padded, serial and a seeded packed
 leg (temperature 0.8, top-k 50), with phase 3's launch and leak checks,
@@ -205,7 +218,7 @@ seeded packed leg; every leg runs the encoder once per distinct clip
 (``encoder_runs`` 5) and launches the dense forward 4 times in each
 dispatch that carries frames, the varlen kernel 8 times (self and cross
 attention) in each packed dispatch and the paged kernel 4 times in each
-padded T == 1 dispatch. Then rwkv6-3b at full width, cut to 8 of its 32
+padded T == 1 dispatch. Then rwkv6-3b at full width, cut to 4 of its 32
 layers for time (d 2560, 40 heads of 64; plain torch, no attention
 kernel),
 packed at depths 1 and 4 (bitwise equal), budget 256, padded and serial,
@@ -265,7 +278,7 @@ terms), then granite-3-2b's ``prefill_32k`` (one packed dispatch of 2 x
 32,768 tokens) and ``decode_32k`` (one padded T == 1 dispatch over 8 x
 32,768 tokens) and zamba2-1.2b's ``train_4k`` (one ``Trainer`` step of 16
 x 4096 tokens) run on the card, each peak within FIT_TOL of its
-prediction. Every phase 5b training leg (rwkv6-3b now at 8 of its 32
+prediction. Every phase 5b training leg (rwkv6-3b now at 4 of its 32
 layers) and every phase 6-8 serving model is also held to the planner's
 prediction for its depth, batch and pool (the peak counted from before
 its weights are drawn), and every depth cut of phases 5b-8 to the
@@ -694,6 +707,7 @@ def paged_cases():
     consecutive calls miss the 50 MB L2."""
     lens = np.random.default_rng(2).integers(64, 1057, 8)
     many = np.random.default_rng(4).integers(512, 2049, 64)
+    short = np.random.default_rng(5).integers(64, 321, 8)
     return [
         dict(name="granite decode B=8 P=128", d=64, g=4, layers=40,
              lens=lens),
@@ -706,6 +720,14 @@ def paged_cases():
         # layer of its 6-layer attention pool
         dict(name="zamba2 heads G=1 TPP=19", d=64, g=1, layers=6,
              lens=lens, kvl=32, tpp=19),
+        # the same heads at the published TPP 16 under the MAX geometry:
+        # each 0.79 MB attention page padded to the 41.8 MB Mamba state
+        # page (a stride of 20,886,016 elements), 192 pages (phase 3b's
+        # pool), so the view spans 8.0 GB (over 2^31 elements); the pad
+        # is NaN, which the kernel must never read
+        dict(name="zamba2 heads G=1 TPP=16 at the MAX stride (41.8 MB "
+             "pages, VP 192)", d=64, g=1, layers=6, lens=short, kvl=32,
+             tpp=16, stride=20_886_016, vp=192),
         dict(name="long row 16384 + 7 decodes P=2048", d=64, g=4, layers=40,
              lens=np.concatenate([[16384], lens[:7]]), p=2048),
         dict(name="64 rows of 512-2048 P=256", d=64, g=4, layers=8,
@@ -733,16 +755,26 @@ def paged_cases():
 
 def paged_inputs(case, gen, rng, dev):
     """One case's kernel arguments: q, the pool (VP, layers, 2, TPP, KVL,
-    D), and int32 tables, page starts and positions on ``dev``, plus their
-    numpy copies."""
+    D; with a ``stride``, a strided view of pages that many elements
+    apart, the rest NaN), and int32 tables, page starts and positions on
+    ``dev``, plus their numpy copies."""
     import torch
     B, P = len(case["lens"]), case.get("p", 128)
     D, G, L = case["d"], case["g"], case["layers"]
     KVL, TPP = case.get("kvl", 8), case.get("tpp", 16)
     n_pages = [int(n) // TPP + 1 for n in case["lens"]]
-    vp = sum(n_pages) + 1
-    pool = torch.randn((vp, L, 2, TPP, KVL, D), generator=gen,
-                       device=dev).to(torch.bfloat16)
+    vp = case.get("vp", sum(n_pages) + 1)
+    if "stride" in case:
+        from repro_torch.core.layout import PageView, page_rows, page_view
+        page, stride = L * 2 * TPP * KVL * D, case["stride"]
+        flat = torch.full((vp * stride,), float("nan"),
+                          dtype=torch.bfloat16, device=dev)
+        page_rows(flat, vp, stride, page).copy_(
+            torch.randn((vp, page), generator=gen, device=dev))
+        pool = page_view(flat, PageView((vp, L, 2, TPP, KVL, D), stride))
+    else:
+        pool = torch.randn((vp, L, 2, TPP, KVL, D), generator=gen,
+                           device=dev).to(torch.bfloat16)
     tables = np.full((B, P), -1, np.int32)
     page_pos = np.full((B, P), SENTINEL, np.int32)
     positions = np.full((B,), SENTINEL, np.int32)
@@ -2142,13 +2174,19 @@ def phase_hybrid_engine():
                paged_decode_attention)
     launches = dict(mamba=0, varlen=0, paged=0)
     outs, ref, rows = {}, {}, []
+    memory = {}
     for name, mode, depth, kw in legs:
         label = f"hybrid {name} depth={depth}"
         for fn in kernels:
             fn.launches = 0
-        eng, wall, decode, copies = _drain(
-            model, params, dict(base, batching_mode=mode, **kw), prompts,
-            32, "cuda", count_copies=True, no_sync=depth == 4)
+        with _allocation_peaks() as peaks:
+            # the packed depth-1 leg is also leg (c)'s "lcm" side
+            # (``phase_max_geometry``): the same pool, prompts and budget
+            eng, wall, decode, copies = _drain(
+                model, params, dict(base, batching_mode=mode, **kw),
+                prompts, 32, "cuda", count_copies=True, no_sync=depth == 4,
+                on_step=_memory_watch(memory, peaks) if
+                (name, depth) == ("packed", 1) else None)
         got = dict(zip(launches, (fn.launches for fn in kernels)))
         for k in launches:
             launches[k] += got[k]
@@ -2210,7 +2248,230 @@ def phase_hybrid_engine():
         " 0 leaked pages")
     del params
     torch.cuda.empty_cache()
+    # what phase_max_geometry compares with
+    HYBRID_3B.update(tol=tol, memory=memory, outputs=outs["packed", 1])
     return launches, rows
+
+
+HYBRID_3B = {}      # phase 3b's fork tolerance, leg memory and outputs
+
+
+def _memory_watch(out, peaks):
+    """An ``on_step`` that keeps a drained engine's memory numbers in
+    ``out``: the most used units (``_allocation_peaks``), the most
+    requests running at once, defers, preemptions, and at the peak the
+    units its live pages lose to padding (a page's stride beyond its own
+    units: the MAX geometry's pad) and the units reserved but empty inside
+    owned large pages (the LCM geometry's internal fragmentation)."""
+    out.update(peak=0, running=0, pad=0, empty=0)
+
+    def watch(eng):
+        sched, mgr = eng.scheduler, eng.mgr
+        layout = eng.runner.layout
+        st = mgr.memory_stats()
+        if peaks.get(mgr, 0) >= out["peak"]:
+            out["pad"] = max(out["pad"], sum(
+                t.used * (layout.stride(n) - t.page_units)
+                for n, t in st.per_type.items()))
+            out["empty"] = max(out["empty"], st.empty_units)
+        out["peak"] = max(out["peak"], peaks.get(mgr, 0))
+        out["running"] = max(out["running"], len(sched.running))
+        out["defers"], out["preempts"] = (sched.defer_count,
+                                          sched.preemption_count)
+    return watch
+
+
+MAX_POOL_LCM_PAGES = 16     # leg (a)/(b)'s pool, in tokens_per_page-19 LCM pages
+
+
+@contextlib.contextmanager
+def _pagesan():
+    """PageSan on for the managers built inside the block."""
+    import os
+    was = os.environ.get("REPRO_PAGE_SANITIZER")
+    os.environ["REPRO_PAGE_SANITIZER"] = "1"
+    try:
+        yield
+    finally:
+        if was is None:
+            os.environ.pop("REPRO_PAGE_SANITIZER")
+        else:
+            os.environ["REPRO_PAGE_SANITIZER"] = was
+
+
+def phase_max_geometry(device="cuda"):
+    """zamba2-1.2b at full width under ``geometry_mode="max"`` (the paper's
+    §4.4 baseline: every small page padded to the 41.8 MB Mamba state
+    page), random bf16 weights from seed 0 and phase 3's 8 prompts, PageSan
+    on.
+
+    (a) At tokens_per_page 19, packed at depths 1 and 4 and padded, in
+    both geometries at a pool that holds the whole set in each
+    (MAX_POOL_LCM_PAGES LCM pages, 32.08 GB: request-aware allocation
+    gives each running request a large page of each type under "lcm"; no
+    defer, no preemption): greedy outputs bitwise equal ("max" only moves
+    addresses; the kernels' plans read page ids as places, never as
+    values). (b) At the published tokens_per_page 16, which "lcm" cannot
+    hold on one card (three 29.9 GiB LCM pages), packed and padded under
+    "max" at the same pool, fork-aware equal to (a)'s "lcm" legs within
+    twice phase 3b's noise floor (``HYBRID_3B["tol"]``: the page size
+    moves reduction boundaries). (c) Memory at phase 3b's pool (4 LCM
+    pages, 8.02 GB = 192 MAX pages): packed at depth 1 under "max" beside
+    phase 3b's packed depth-1 leg (``HYBRID_3B["memory"]``): the most used
+    units, requests running at once, defers, preemptions, and the units
+    lost to padding. Every leg drains with no leaked page and launches
+    mamba x 38 per T > 1 dispatch, varlen x 6 per packed one and paged x 6
+    per T == 1 one; each geometry's legs are held to the planner. Returns
+    the launch totals."""
+    with _pagesan():
+        return _max_geometry_legs(HYBRID_3B, device)
+
+
+def _max_geometry_legs(hybrid, device):
+    """``phase_max_geometry``'s legs, PageSan on."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.core.spec import BYTES_PER_UNIT
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_varlen
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, base = hybrid_serving_setup()
+    params = model.init(seed=0, device=device)
+    n_super = cfg.num_layers // cfg.attn_every
+    lcm_page = base["kv_pool_bytes"] // 4
+    pool = dict(base, kv_pool_bytes=MAX_POOL_LCM_PAGES * lcm_page)
+    prompts = _prompts(8, cfg.vocab_size)
+    tol = hybrid["tol"]
+    launches = dict(mamba=0, varlen=0, paged=0)
+    memory = {}
+
+    def run(tag, legs, m, base_):
+        """``_serve_legs`` of ``m`` (mamba launches checked per leg), all
+        of one geometry, then the planner against the legs' peak."""
+        geometry = {kw["geometry_mode"] for *_, kw in legs}.pop()
+        torch.cuda.reset_peak_memory_stats()
+        mamba_chunk_scan_varlen.launches = 0
+        marks = []
+
+        def on_leg(eng, name, depth):
+            t1 = paged_decode_attention.launches // n_super
+            full = eng.runner.dispatch_count - t1
+            got = mamba_chunk_scan_varlen.launches - sum(marks)
+            marks.append(got)
+            if got != full * cfg.num_layers:
+                raise AssertionError(f"{tag} {name} depth={depth}: {got} "
+                                     f"mamba launches, expected "
+                                     f"{full * cfg.num_layers}")
+            if not eng.mgr.sanitizer:
+                raise AssertionError(f"{tag}: PageSan is off")
+            g = eng.mgr.geometry
+            log(f"[{tag}] {name} depth={depth}: geometry {g.mode}, "
+                f"{g.num_large_pages} large pages of "
+                f"{g.large_page_units * BYTES_PER_UNIT / 1e6:.3f} MB, page "
+                f"strides {eng.runner.page_strides}, buffer "
+                f"{eng.runner.buffer.numel() * 2 / 1e9:.3f} GB")
+
+        watch, fns = {}, {}
+        with _allocation_peaks() as peaks:
+
+            def on_step(eng, name, depth):
+                if (name, depth) not in fns:
+                    fns[name, depth] = _memory_watch(
+                        watch.setdefault((name, depth), {}), peaks)
+                fns[name, depth](eng)
+
+            outs, ref, more = _serve_legs(
+                tag, m.cfg, m, params, base_, legs, prompts, 32,
+                on_step=on_step, on_leg=on_leg,
+                attn_layers=(n_super, n_super))
+        for k in ("varlen", "paged"):
+            launches[k] += more[k]
+        launches["mamba"] += sum(marks)
+        for key, st in watch.items():
+            memory[(tag,) + key] = st
+        _serve_fit(m, dict(base_, geometry_mode=geometry), prompts, 32,
+                   label=f" tpp {m.cfg.tokens_per_page} {geometry} "
+                   f"{base_['kv_pool_bytes'] / 1e9:.2f} GB")
+        return outs, ref
+
+    rec = dict(async_scheduling=False, record_sample_logits=True)
+    deep = dict(async_scheduling=True, pipeline_depth=4)
+    t0 = time.perf_counter()
+    outs_a, ref_a = {}, {}
+    for g in ("lcm", "max"):
+        legs_a = [(f"{g}-{n}", mode, d, dict(kw, geometry_mode=g))
+                  for n, mode, d, kw in (("packed", "packed", 1, rec),
+                                         ("packed", "packed", 4, deep),
+                                         ("padded", "padded", 1, rec))]
+        outs, ref = run("max-geometry (a) tpp 19", legs_a, model, pool)
+        outs_a.update(outs)
+        ref_a.update(ref)
+    for n, d in (("packed", 1), ("packed", 4), ("padded", 1)):
+        if outs_a[f"lcm-{n}", d] != outs_a[f"max-{n}", d]:
+            diff = _first_row_diff(ref_a[f"lcm-{n}"], ref_a[f"max-{n}"]) \
+                if d == 1 else None
+            raise AssertionError(f"max-geometry (a) {n} depth={d}: "
+                                 f"outputs differ from lcm (first-token "
+                                 f"diff {diff})")
+    for key, st in memory.items():
+        if st["defers"] or st["preempts"]:
+            raise AssertionError(f"max-geometry (a) {key}: the pool did "
+                                 f"not hold the whole set: {st}")
+    log(f"[max-geometry (a)] tokens_per_page 19, pool "
+        f"{pool['kv_pool_bytes'] / 1e9:.3f} GB: max == lcm bitwise in packed"
+        f" depths 1 and 4 and padded, no defer or preemption; lcm packed == "
+        f"phase 3b's packed depth 1 at its 8.02 GB pool: "
+        f"{outs_a['lcm-packed', 1] == hybrid['outputs']}; "
+        f"{time.perf_counter() - t0:.1f} s; card=[{card()}]")
+
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, tokens_per_page=16)
+    model16 = build_model(cfg16)
+    sizes = {s.name: s.page_units for s in model16.kv_specs()}
+    lcm16 = np.lcm.reduce(list(sizes.values())) * BYTES_PER_UNIT
+    legs_b = [("max-packed", "packed", 1, dict(rec, geometry_mode="max")),
+              ("max-padded", "padded", 1, dict(rec, geometry_mode="max"))]
+    outs_b, ref_b = run("max-geometry (b) tpp 16", legs_b, model16, pool)
+    forks = {}
+    for n in ("packed", "padded"):
+        diff = _first_row_diff(ref_a[f"lcm-{n}"], ref_b[f"max-{n}"])
+        if diff > tol:
+            raise AssertionError(f"max-geometry (b) {n}: first-token "
+                                 f"logits differ from (a)'s lcm by {diff} "
+                                 f"> {tol}")
+        forks[n] = (_fork_aware_equal(ref_a[f"lcm-{n}"], ref_b[f"max-{n}"],
+                                      f"max-geometry (b) {n}", tol),
+                    round(diff, 4))
+    log(f"[max-geometry (b)] tokens_per_page 16 (pages {sizes} units; the "
+        f"LCM page would be {lcm16 / 2 ** 30:.2f} GiB and a pool of two plus "
+        f"the scratch page {3 * lcm16 / 2 ** 30:.2f} GiB): served under max "
+        f"at {pool['kv_pool_bytes'] / 1e9:.3f} GB; (forks, first-token diff)"
+        f" vs (a)'s lcm at tokens_per_page 19 within {tol:.4f}: {forks}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    legs_c = [("max-packed", "packed", 1, dict(rec, geometry_mode="max"))]
+    outs_c, ref_c = run("max-geometry (c) pool 8.02 GB", legs_c, model, base)
+    mem = {"lcm (phase 3b packed depth 1)": hybrid["memory"],
+           "max": memory["max-geometry (c) pool 8.02 GB", "max-packed", 1]}
+    for name, st in mem.items():
+        log(f"[max-geometry (c)] {name} at {base['kv_pool_bytes'] / 1e9:.3f}"
+            f" GB: peak_used_units={st['peak']} max_running={st['running']} "
+            f"defers={st['defers']} preemptions={st['preempts']} "
+            f"pad_units_at_peak={st['pad']} empty_units_at_peak="
+            f"{st['empty']}")
+    log(f"[max-geometry (c)] max outputs == phase 3b's lcm packed: "
+        f"{outs_c['max-packed', 1] == hybrid['outputs']}; "
+        f"{time.perf_counter() - t0:.1f} s; card=[{card()}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2288,7 +2549,7 @@ def _leg_set(depths=(1,), padded=True, serial=False):
 
 
 def phase_danube():
-    """h2o-danube-3-4b at full width, 12 of its 24 layers (head dim 120
+    """h2o-danube-3-4b at full width, 6 of its 24 layers (head dim 120
     through the D 128 kernel instances; window 4096 on every second
     layer; the planner holds the cut to its fitting depth): the 6 first
     prompts of phase 3 and 2 prompts of 5,000-6,000 tokens, 32 new tokens
@@ -2300,7 +2561,7 @@ def phase_danube():
 
     from repro_torch.core.request import SequenceState
 
-    cfg, model, params = _full_width("h2o-danube-3-4b", num_layers=12)
+    cfg, model, params = _full_width("h2o-danube-3-4b", num_layers=6)
     base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
                 chunk_size=256, max_running=8)
     rng = np.random.default_rng(0)
@@ -2407,7 +2668,7 @@ def phase_qwen():
 # (arch, layers kept): neither MoE fits one 80 GB card whole; each keeps
 # its full per-layer width (qwen3-moe: 4.83 GB of experts a layer, dbrx:
 # 6.34 GB) and its embeddings, at ~52 and ~55 GB of bf16 weights
-MOE_CUTS = (("qwen3-moe-235b-a22b", 10), ("dbrx-132b", 8))
+MOE_CUTS = (("qwen3-moe-235b-a22b", 5), ("dbrx-132b", 4))
 
 
 def _moe_numerics():
@@ -2785,7 +3046,7 @@ def _rwkv_launches(model, params, base, prompts):
 
 
 def _rwkv():
-    """rwkv6-3b at full width, 8 of its 32 layers (d 2560, 40 heads of 64,
+    """rwkv6-3b at full width, 4 of its 32 layers (d 2560, 40 heads of 64,
     ff 8960, vocab 65536, untied): phase 3's 8 prompts, packed at depths
     1 and 4
     (bitwise equal), packed-b256, padded and serial (fork-aware within
@@ -2798,7 +3059,7 @@ def _rwkv():
 
     import torch
 
-    cfg, model, params = _full_width("rwkv6-3b", num_layers=8)
+    cfg, model, params = _full_width("rwkv6-3b", num_layers=4)
     base = dict(kv_pool_bytes=4 << 30, max_num_batched_tokens=512,
                 chunk_size=256, max_running=8)
     prompts = _prompts(8, cfg.vocab_size)
@@ -2926,6 +3187,7 @@ def _spec_legs(cfg, params, device, tol):
     (overlapped rounds)."""
     import dataclasses
     import gc
+    import types
 
     from repro_torch.models import build_model
     from repro_torch.serving import SpecDecodeConfig, SpecDecodeEngine
@@ -2994,7 +3256,146 @@ def _spec_legs(cfg, params, device, tol):
         launches += varlen
         del sd, rec
         gc.collect()
+    # the fork checks need only the plain engine's outputs and rows: its
+    # pool and draft (a)'s weights go before leg (d)'s peaks are measured
+    ref = types.SimpleNamespace(finished=plain.finished,
+                                sample_log=plain.sample_log)
+    del plain, legs, draft_a
+    gc.collect()
+    return launches + _spec_geometry_legs(cfg, params, device, tol, ref,
+                                          prompts[0], chunk)
+
+
+SPEC_GEOMETRY_LAYERS = 24   # leg (d)'s draft: granite-3-2b at 24 of 40 layers
+SPEC_GEOMETRY_TOKENS = 16
+
+
+def _spec_geometry_legs(cfg, params, device, tol, plain, prompt, chunk):
+    """Leg (d) of the MAX geometry (``phase_max_geometry``): speculative
+    decoding at k 3 with a draft of the target's widths at
+    SPEC_GEOMETRY_LAYERS layers (its own random draw, seed 1), whose page
+    (393,216 units) is not the target's (655,360): the LCM page is
+    1,966,080 units, the MAX page 655,360. One request (phase 3's first
+    prompt, SPEC_GEOMETRY_TOKENS new tokens) under "lcm" and under "max",
+    PageSan on: outputs, accept lengths, the draft's proposals and its
+    logits (``_recording_rounds``) bit for bit equal across the geometries,
+    fork-aware equal to the plain engine's first tokens within ``tol``,
+    varlen launches exact, 0 used units after; the most used units
+    printed and the peak held to the planner (both models' weights, the
+    shared pool of both types). ``plain``: the plain engine's finished
+    requests and sampled rows. Returns the varlen launches."""
+    import dataclasses
+    import gc
+    import types
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.serving import SpecDecodeConfig, SpecDecodeEngine
+
+    dcfg = dataclasses.replace(cfg, num_layers=SPEC_GEOMETRY_LAYERS)
+    dmodel = build_model(dcfg)
+    dparams = dmodel.init(seed=1, device=device)
+    n = SPEC_GEOMETRY_TOKENS
+    r0 = plain.finished[0]
+    ref = types.SimpleNamespace(
+        finished=[types.SimpleNamespace(rid=r0.rid, output=r0.output[:n])],
+        sample_log={r0.rid: plain.sample_log[r0.rid][:n]})
+    res, logits, launches = {}, {}, 0
+    with _pagesan():
+        for g in ("lcm", "max"):
+            torch.cuda.reset_peak_memory_stats()
+            tmodel = build_model(cfg)
+            sd = SpecDecodeEngine(tmodel, build_model(dcfg),
+                                  SpecDecodeConfig(k=SPEC_K,
+                                                   kv_pool_bytes=POOL_BYTES,
+                                                   chunk_size=chunk,
+                                                   geometry_mode=g),
+                                  target_params=params, draft_params=dparams,
+                                  device=device)
+            if sd.mgr.sanitizer is None:
+                raise AssertionError("spec (d): PageSan is off")
+            mgr, peak, layout = sd.mgr, [0, 0], sd.t_runner.layout
+            alloc = mgr.allocate_for_tokens
+
+            def allocating(seq, target, alloc=alloc, mgr=mgr, peak=peak,
+                           layout=layout):
+                ok = alloc(seq, target)
+                st = mgr.memory_stats()
+                peak[0] = max(peak[0], st.used_units)
+                peak[1] = max(peak[1], sum(t.used * layout.stride(n) for n, t
+                                           in st.per_type.items()))
+                return ok
+
+            mgr.allocate_for_tokens = allocating
+            drafted = _recording_rounds(sd)
+            v0 = _varlen_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            rec = _spec_generate(sd, [prompt], n, cfg.vocab_size)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            varlen = _varlen_launches() - v0
+            want = cfg.num_layers * sd.t_runner.dispatch_count + \
+                dcfg.num_layers * sd.d_runner.dispatch_count
+            if varlen != want:
+                raise AssertionError(f"spec (d) {g}: {varlen} varlen "
+                                     f"launches, expected {want}")
+            geo = mgr.geometry
+            terms = dryrun.serve_terms(
+                tmodel, dryrun.pool_bytes(tmodel, POOL_BYTES, g,
+                                          specs=mgr.specs),
+                chunk, 1, len(prompt) + n)
+            terms["weights"] += dryrun.weight_bytes(dmodel)
+            _fit(f"spec (d) {g}: target and a {dcfg.num_layers}-layer "
+                 "draft on one pool", terms, torch.cuda.max_memory_allocated())
+            res[g] = (rec.finished[0].output, list(sd.accept_lengths),
+                      [t for t, _ in drafted])
+            logits[g] = b"".join(lg for _, lg in drafted)
+            forks = _fork_aware_equal(ref, rec, f"spec (d) {g}", tol)
+            log(f"[spec (d)] {g}: pages "
+                f"{ {s.name: s.page_units for s in mgr.specs} }, large page "
+                f"{geo.large_page_units} units x {geo.num_large_pages}, "
+                f"strides target {sd.t_runner.page_strides} draft "
+                f"{sd.d_runner.page_strides}; {len(sd.accept_lengths)} "
+                f"rounds, accept lengths {sd.accept_lengths}; "
+                f"peak_used_units={peak[0]} (held at the page strides: "
+                f"{peak[1]}; pool {geo.total_units}); "
+                f"dispatches target {sd.t_runner.dispatch_count} draft "
+                f"{sd.d_runner.dispatch_count}, varlen launches {varlen}; "
+                f"{n} tokens in {wall:.3f} s; forks vs plain {forks}; 0 used"
+                f" units after; card=[{card()}]")
+            launches += varlen
+            del sd, rec
+            gc.collect()
+    if res["lcm"] != res["max"] or logits["lcm"] != logits["max"]:
+        raise AssertionError(f"spec (d): max {res['max']} differs from lcm "
+                             f"{res['lcm']} (draft logits equal: "
+                             f"{logits['lcm'] == logits['max']})")
+    rounds = res["max"][2]
+    log(f"[spec (d)] outputs, accept lengths, the draft's {SPEC_K} "
+        f"proposals in each of {len(rounds)} rounds (the first round's "
+        f"{rounds[0][:SPEC_K]}) and the draft's fp32 logits bit for bit "
+        "equal under lcm and max")
     return launches
+
+
+def _recording_rounds(sd):
+    """Record each round of ``sd`` as (its sampled tokens: the draft's k
+    proposals then the verify chain's k + 1, the draft steps' fp32 logits
+    rows as bytes), read at the round's own host sync. Returns the list
+    the rounds are appended to."""
+    import torch
+    rounds, fetch = [], sd._fetch_round
+
+    def recording(d_handles, v_handles):
+        toks = fetch(d_handles, v_handles)
+        rows = torch.stack([h.logits[0].float() for h in d_handles])
+        rounds.append((toks, rows.cpu().numpy().tobytes()))
+        return toks
+
+    sd._fetch_round = recording
+    return rounds
 
 
 def _fleet_workload(vocab):
@@ -4911,11 +5312,11 @@ def _serve_peak(cfg, shape, steps):
 
 # ---------------------------------------------------------------- phase 5b
 # (arch, depth cut, micro-batches, rows, tokens a row) of a phase-5b step;
-# rwkv6-3b is cut to 8 of its 32 layers for time (its full-depth fit is the
+# rwkv6-3b is cut to 4 of its 32 layers for time (its full-depth fit is the
 # planner's to predict)
 FAMILY_TRAIN = (("zamba2-1.2b", {}, 2, 4, 2048), ("qwen2-vl-2b", {}, 2, 4, 2048),
                 ("qwen3-moe-235b-a22b", {"num_layers": 1}, 4, 4, 2048),
-                ("rwkv6-3b", {"num_layers": 8}, 4, 4, 2048),
+                ("rwkv6-3b", {"num_layers": 4}, 4, 4, 2048),
                 ("whisper-tiny", {}, 2, 16, 448))
 IMAGE_AT, IMAGE_GRID = 16, 16     # the VLM rows' image span: 16 x 16 patches
 
@@ -5001,7 +5402,7 @@ def phase_train_families(device="cuda"):
     not fit 80 GB) and to micro-batches of 1 x 2048 tokens (4 a step: the
     (2048, 151936) fp32 logits and their gradient, and the bf16 copies of
     the expert masters the products take, fit beside the 59.7 GB);
-    rwkv6-3b at 8 of its 32 layers in micro-batches of 1 x 2048 tokens;
+    rwkv6-3b at 4 of its 32 layers in micro-batches of 1 x 2048 tokens;
     whisper-tiny, 16 rows of
     448 decoder tokens (its decoder context) over 1500 seeded stub frames
     a row (``_frame_batch``) in 2 micro-batches. Each: finite losses (the
@@ -5372,13 +5773,13 @@ def _fit(label, terms, measured):
                              f"measured {measured}")
 
 
-def _serve_fit(model, base, prompts, new_tokens, enc_rows=0):
+def _serve_fit(model, base, prompts, new_tokens, enc_rows=0, label=""):
     """The planner against a serving phase's peak allocated bytes since
-    ``_full_width`` reset the count: its bf16 weights, its pool and the
-    largest step any of its legs dispatches (padded T > 1: rows x chunk,
-    both to powers of two; packed: the budget). A model served cut in
-    depth must be within the planner's largest fitting depth at the same
-    batch and pool."""
+    ``_full_width`` (or the caller) reset the count: its bf16 weights, its
+    pool (of ``base``'s geometry) and the largest step any of its legs
+    dispatches (padded T > 1: rows x chunk, both to powers of two; packed:
+    the budget). A model served cut in depth must be within the planner's
+    largest fitting depth at the same batch and pool."""
     import torch
     from repro_torch.launch import dryrun
     cfg = model.cfg
@@ -5390,10 +5791,11 @@ def _serve_fit(model, base, prompts, new_tokens, enc_rows=0):
 
     def terms(m):
         return dryrun.serve_terms(m, dryrun.pool_bytes(
-            m, base["kv_pool_bytes"]), step, rows, ctx, enc_rows)
+            m, base["kv_pool_bytes"], base.get("geometry_mode", "lcm")),
+            step, rows, ctx, enc_rows)
 
-    _fit(f"serve {cfg.name} at {cfg.num_layers} layers", terms(model),
-         torch.cuda.max_memory_allocated())
+    _fit(f"serve {cfg.name} at {cfg.num_layers} layers{label}",
+         terms(model), torch.cuda.max_memory_allocated())
     _cut_fits(f"serve {cfg.name}", cfg, terms)
 
 
@@ -5535,6 +5937,8 @@ def main() -> int:
     launches = timed(phase_engine)
     timed(phase_small_reference, "granite-3-2b")
     hybrid, _ = timed(phase_hybrid_engine)
+    for k, n in timed(phase_max_geometry).items():
+        (hybrid if k == "mamba" else launches)[k] += n
     timed(phase_small_reference, "zamba2-1.2b")
     train = timed(phase_train)
     mesh_fwd, mesh_bwd = timed(phase_mesh_train, train["step_ms"])

@@ -4,6 +4,7 @@ Public API re-exports.
 """
 from .lcm_allocator import LargePageAllocator
 from .layout import (
+    PageView,
     TypeView,
     UnifiedLayout,
     attention_page_shape,
@@ -50,6 +51,7 @@ __all__ = [
     "MemoryStats",
     "PageGeometry",
     "PageState",
+    "PageView",
     "SequenceState",
     "SlidingWindowPolicy",
     "SmallPage",

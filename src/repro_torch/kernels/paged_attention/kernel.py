@@ -304,8 +304,12 @@ def paged_decode_attention(q, kv_view, tables, page_pos, positions, *,
     """Paged decode attention over one layer of the unified buffer.
 
     q: (B, KVL, G, D) bf16; kv_view: (VP, 2, TPP, KVL, D) bf16, typically
-    ``buffer.view(VP, L, 2, TPP, KVL, D)[:, layer]`` (read in place, never
-    copied); tables/page_pos: (B, P) int32; positions: (B,) int32;
+    one layer of the layout's view of the unified buffer,
+    ``core.layout.page_view(buffer, view_shape)[:, layer]``: contiguous
+    pages under the LCM geometry, pages a large page apart under MAX (read
+    in place, never copied; the TMA map takes the page stride in bytes,
+    64-bit, and a page id is a coordinate, never multiplied in 32 bits);
+    tables/page_pos: (B, P) int32; positions: (B,) int32;
     ``plan``: ``paged_decode_plan(tables, page_pos, positions, TPP,
     window)``, built here when not given. Returns (B, KVL, G, D) bf16, in
     ``out`` (CUDA only; contiguous, 16-byte aligned) when given. With

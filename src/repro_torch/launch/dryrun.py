@@ -177,13 +177,15 @@ def param_counts(model) -> Dict[str, int]:
                 stacked=sum(stacks), largest_stack=max(stacks, default=0))
 
 
-def pool_bytes(model, kv_pool_bytes: int) -> int:
-    """The unified buffer an ``Engine`` allocates for ``kv_pool_bytes``:
-    the geometry's whole large pages plus the scratch page."""
-    specs = model.kv_specs()
-    geo = make_geometry(specs, total_memory_bytes=kv_pool_bytes, mode="lcm")
-    big = lcm([s.page_units for s in specs])
-    return (geo.total_units + big) * BYTES_PER_UNIT
+def pool_bytes(model, kv_pool_bytes: int, geometry_mode: str = "lcm",
+               specs=None) -> int:
+    """The unified buffer an ``Engine`` of ``geometry_mode`` allocates for
+    ``kv_pool_bytes``: the geometry's whole large pages plus the scratch
+    page, one large page (``specs``: the pool's types, by default the
+    model's; a spec-decoding pool holds the target's and the draft's)."""
+    geo = make_geometry(specs or model.kv_specs(),
+                        total_memory_bytes=kv_pool_bytes, mode=geometry_mode)
+    return (geo.num_large_pages + 1) * geo.large_page_units * BYTES_PER_UNIT
 
 
 # ----------------------------------------------------------- activations

@@ -305,6 +305,19 @@ def page_member(model, data_rank: int, model_rank: int):
         repl * d
 
 
+def refuse_strided(arrs: dict, model) -> None:
+    """Raise for a batch whose pages are not at the LCM stride."""
+    strides = arrs.get("page_strides") or {}
+    wide = {s.name: strides[s.name] for s in model.kv_specs()
+            if strides.get(s.name, s.page_units) != s.page_units}
+    if wide:
+        raise NotImplementedError(
+            f"this batch addresses {sorted(wide)} pages at a stride of "
+            f"{wide} units (a geometry_mode='max' engine's): a mesh rank's "
+            "buffer keeps the LCM geometry's contiguous pages; serve 'max' "
+            "on one device (an Engine), or split an 'lcm' engine's batch")
+
+
 def split_batch(arrs: dict, model, data_rank: int, model_rank: int) -> dict:
     """One rank's serving batch from a (1, 1) batch ``arrs`` (field ->
     numpy array, the ``ModelRunner.prepare`` layout: per-type tables
@@ -326,7 +339,12 @@ def split_batch(arrs: dict, model, data_rank: int, model_rank: int) -> dict:
       its position) and is -1 (dropped) on the others.
 
     Page ids stay the batch's: each rank's buffer has the (1, 1) layout
-    at the rank's page shapes. Mamba2 state ids go with their rows."""
+    at the rank's page shapes. Mamba2 state ids go with their rows.
+
+    A mesh rank keeps the LCM geometry's stride (each page its own
+    units): a batch whose pages sit further apart (``page_strides`` of a
+    "max" geometry whose types' pages differ) is refused."""
+    refuse_strided(arrs, model)
     dist = model.dist
     out = dict(arrs)
     packed = arrs.get("seg_ids") is not None

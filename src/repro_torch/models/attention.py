@@ -6,13 +6,17 @@ Local GQA convention: q is (B, T, KVL, G, D) — KVL kv heads, G q heads per
 kv head; k/v are (B, S, KVL, D).
 
 The unified buffer is one flat bf16 tensor. Each attention type views it as
-(VP, L, 2, TPP, KVL, D); gathers copy pages out (``index_select``), writes
-go in place (``index_copy_``) on the persistent buffer, so a caller must
-issue every gather of a cycle before any of its writes.
+(VP, L, 2, TPP, KVL, D) at its page stride (``core.layout.page_view``: the
+page itself under the LCM geometry, the large page under MAX); gathers
+copy pages out (``index_select``), writes go in place (``index_copy_`` at
+int64 unit offsets) on the persistent buffer, so a caller must issue every
+gather of a cycle before any of its writes.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.layout import page_stride, page_view
 
 NEG_INF = -1e30
 
@@ -154,10 +158,12 @@ def finalize_softmax(out, l):
 
 def view_offset(view_shape, eid, layer, sel, slot):
     """Flat-buffer offset of (eid, layer, sel, slot, 0, 0) in an attention
-    view (VP, L, 2, TPP, KVL, D), in int64: pools exceed 2^31 units."""
+    view (VP, L, 2, TPP, KVL, D) whose pages sit ``page_stride`` units
+    apart, in int64: pools exceed 2^31 units."""
     vp, nl, _, tpp, kvl, d = view_shape
     eid = eid.long() if isinstance(eid, torch.Tensor) else eid
-    return ((((eid * nl + layer) * 2 + sel) * tpp) + slot) * kvl * d
+    return eid * page_stride(view_shape) + \
+        ((((layer * 2 + sel) * tpp) + slot) * kvl * d)
 
 
 def page_index(tables):
@@ -187,29 +193,32 @@ def gather_pages(view, tables, layer, index=None):
 
 
 def kv_rows(view_shape, eids, slots):
-    """Row (of KVL*D units) of each token's K slot in layer 0 of an
-    attention view; its V slot is TPP rows further and layer l 2*TPP*l
-    rows further. eids < 0 (dropped writes) point into the SCRATCH page at
-    the buffer tail, which the runner reserves and no table ever names: a
-    negative index would wrap in torch and an out-of-range one faults on
-    CUDA, so neither may reach the scatter (the reference's
+    """The int64 unit offset (``view_offset``) of each token's K slot in
+    layer 0 of an attention view; its V slot is TPP slots further and
+    layer l 2*TPP*l slots further. eids < 0 (dropped writes) point into the
+    SCRATCH page at the buffer tail, which the runner reserves and no table
+    ever names: a negative index would wrap in torch and an out-of-range
+    one faults on CUDA, so neither may reach the scatter (the reference's
     ``_write_token_kv_dus`` does the same)."""
-    vp, nl, _, tpp, kvl, d = view_shape
+    vp = view_shape[0]
     eid = torch.where(eids < 0, vp - 1, eids).reshape(-1).long()
-    return view_offset(view_shape, eid, 0, 0,
-                       slots.reshape(-1).long()) // (kvl * d)
+    return view_offset(view_shape, eid, 0, 0, slots.reshape(-1).long())
 
 
 def write_kv_rows(buf, view_shape, layer, rows, k_new, v_new):
-    """Write K/V rows (``kv_rows``) of one layer in place on the flat
-    ``buf``. k_new/v_new: (..., KVL, D) with one row per token."""
+    """Write K/V at ``rows`` (``kv_rows``) of one layer in place on the
+    flat ``buf``: ``index_copy_`` of whole (KVL*D)-unit slots into a view
+    of ``buf`` with a slot starting at every unit (``unfold``), so a page
+    stride need not be a multiple of a slot (zamba2's 20,886,016-unit MAX
+    page is not a multiple of its 2,048-unit slot). k_new/v_new:
+    (..., KVL, D) with one token per row entry."""
     vp, nl, _, tpp, kvl, d = view_shape
-    flat = buf.view(-1, kvl * d)
+    slots = buf.unfold(0, kvl * d, 1)
     for sel, data in ((0, k_new), (1, v_new)):
         data = data.reshape(-1, kvl * d)
         if data.dtype != buf.dtype:
             data = data.to(buf.dtype)
-        flat.index_copy_(0, rows + (layer * 2 + sel) * tpp, data)
+        slots.index_copy_(0, rows + (layer * 2 + sel) * tpp * kvl * d, data)
     return buf
 
 
@@ -248,11 +257,11 @@ def read_state(view, layer, eids):
 
 def write_state(buf, view_shape, layer, eids, state):
     """Store (B, U) fp32 ``state`` bit-exact as bf16 pairs into one layer
-    of the state view (VP, L, 2U), in place on the flat ``buf``. eids < 0
-    go to the SCRATCH page at the buffer tail (``kv_rows``): the reference
-    drops them, and no table ever names that page."""
-    vp, nl, u2 = view_shape
+    of the state view (VP, L, 2U) at its page stride, in place on the flat
+    ``buf``. eids < 0 go to the SCRATCH page at the buffer tail
+    (``kv_rows``): the reference drops them, and no table ever names that
+    page."""
     data = f32_to_bf16_pair(state.float())
-    eid = torch.where(eids < 0, vp - 1, eids).long()
-    buf.view(-1, u2).index_copy_(0, eid * nl + layer, data)
+    eid = torch.where(eids < 0, view_shape[0] - 1, eids).long()
+    page_view(buf, view_shape)[:, layer].index_copy_(0, eid, data)
     return buf

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.layout import page_view
 from ..kernels.flash_attention import (dense_flash_attention,
                                       flash_attention_varlen)
 from ..kernels.flash_attention.kernel import varlen_kv_tiles
@@ -87,7 +88,8 @@ def attn_gather(buf, view_shape, tables, layer, index=None):
     """Phase 1 (READ): this layer's old pages, copied out of the buffer
     (k, v: (B, P*TPP, KVL, D)). Must run before any buffer write of the
     same cycle."""
-    return A.gather_pages(buf.view(view_shape), tables, layer, index)
+    return A.gather_pages(page_view(buf, view_shape), tables, layer,
+                          index)
 
 
 def packed_attention_meta(slot_pos, slot_seg, positions, seg_ids,
@@ -344,7 +346,8 @@ def decode_attention(q, k, v, buf, view_shape, layer, *, rows, tables,
     paged decode kernel call over the layer's view of ``buf``, read in
     place. q: (B,1,KVL,G,D). Returns (B, 1, KVL*G*D) in q.dtype."""
     A.write_kv_rows(buf, view_shape, layer, rows, k, v)
-    out = paged_decode_attention(q[:, 0], buf.view(view_shape)[:, layer],
+    out = paged_decode_attention(q[:, 0],
+                                 page_view(buf, view_shape)[:, layer],
                                  tables, page_pos, qpos, window=window,
                                  plan=plan)
     return out.reshape(q.shape[0], 1, -1)
@@ -377,7 +380,7 @@ def split_decode_attention(q, k, v, buf, view_shape, layer, *, rows,
     K/V replicas are not every rank's. Returns (B, 1, KVL*G*D)."""
     b = q.shape[0]
     out, lse = paged_decode_attention(
-        q[:, 0], buf.view(view_shape)[:, layer], tables, page_pos, qpos,
+        q[:, 0], page_view(buf, view_shape)[:, layer], tables, page_pos, qpos,
         window=max(0, window - 1), plan=plan, return_lse=True)
     o, m, l = combine_all(*A.lse_partials(out[:, :, :, None],
                                           lse[..., None]), dist)

@@ -399,7 +399,7 @@ class EncDecLM(DecoderLM):
         positions = batch.positions
         if prefill is None:
             prefill = packed or positions.shape[1] > 1
-        views = self._layer_views(buffer)
+        views = self._layer_views(buffer, batch.page_strides)
         sview, cview = views["full_attn"], views["cross_attn"]
         if prefill and batch.enc_embeds is not None:
             self._write_cross(params, buffer, cview, batch)

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..core.layout import page_view
 from ..core.spec import KVCacheSpec, attention_spec, mamba_spec
 from . import attention as A
 from . import blocks_attn as BA
@@ -293,7 +294,7 @@ class HybridLM(DecoderLM):
         if prefill is None:
             prefill = packed or positions.shape[1] > 1
         x = embed_lookup(batch.tokens, params["embed"], dist)
-        views = self._layer_views(buffer)
+        views = self._layer_views(buffer, batch.page_strides)
         aview, mview = views["full_attn"], views["mamba"]
         if packed:
             rope, step = self._packed_invariants(batch, views)
@@ -316,7 +317,7 @@ class HybridLM(DecoderLM):
                    norm_eps=cfg.norm_eps, dist=dist)
 
         def run_mamba(pj, x, layer):
-            s0 = A.read_state(buffer.view(mview), layer, eids)
+            s0 = A.read_state(page_view(buffer, mview), layer, eids)
             if packed:
                 x, s1 = BS.mamba2_packed(pj, x, self.md, init_state=s0,
                                          **seg, **mkw)

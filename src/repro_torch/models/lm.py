@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..core.layout import PageView, check_stride
 from ..core.spec import KVCacheSpec, attention_spec
 from ..kernels.paged_attention import paged_decode_plan
 from . import attention as A
@@ -65,6 +66,9 @@ class DecodeBatch:
     seg_start_tok: Any = None    # (1, TT) i32 stream idx of segment's first tok
     seg_last_tok: Any = None     # (N_seg,) i32 stream idx of segment's last tok
     page_seg: Any = None         # type -> (1, 1, 1, P) i32 owning segment
+    page_strides: Any = None     # type -> units between its pages (host
+    #                              ints; None: each page's own units, the
+    #                              LCM geometry's stride)
 
 
 def draw_normal(shape, scale: float, dtype, gen) -> torch.Tensor:
@@ -457,18 +461,20 @@ class DecoderLM:
         return x, aux
 
     # --------------------------------------------------------------- serve
-    def _layer_views(self, buffer_flat: torch.Tensor):
-        """Per-type view shapes of the unified buffer (paper Fig. 7c): type
-        t sees (total_units // S_t, num_layers_t, *page_shape)."""
+    def _layer_views(self, buffer_flat: torch.Tensor, strides=None):
+        """Per-type ``PageView``s of the unified buffer (paper Fig. 7c):
+        type t sees (VP_t, num_layers_t, *page_shape) with its pages
+        ``strides[t]`` units apart (the runner's layout, with the step's
+        batch; None: each page's own units, the LCM geometry's contiguous
+        view) and VP_t = total_units // stride."""
         shapes = self.page_shapes()
         total = buffer_flat.shape[-1]
         views = {}
         for s in self.kv_specs():
-            assert total % s.page_units == 0, (
-                f"buffer ({total}u) must be a multiple of every small-page "
-                f"size (LCM geometry); {s.name} page = {s.page_units}u")
-            views[s.name] = (total // s.page_units, s.num_layers) \
-                + shapes[s.name]
+            stride = s.page_units if strides is None else strides[s.name]
+            check_stride(s, stride, total)
+            views[s.name] = PageView(
+                (total // stride, s.num_layers) + shapes[s.name], stride)
         return views
 
     @staticmethod
@@ -506,7 +512,7 @@ class DecoderLM:
             return self._serve_padded(params, buffer, batch, prefill)
         cfg = self.cfg
         x = self._embed(params, batch)
-        views = self._layer_views(buffer)
+        views = self._layer_views(buffer, batch.page_strides)
         rope, step = self._packed_invariants(batch, views)
         layers = self._layer_params(params)
         drops = self._drops()
@@ -693,7 +699,7 @@ class DecoderLM:
         if prefill is None:
             prefill = positions.shape[1] > 1
         x = self._embed(params, batch)
-        views = self._layer_views(buffer)
+        views = self._layer_views(buffer, batch.page_strides)
         rope, step = self._padded_invariants(batch, views, prefill)
         layers = self._layer_params(params)
         drops = self._drops()

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
+from ..core.layout import page_view
 from ..core.spec import KVCacheSpec, rwkv_spec
 from . import attention as A
 from . import blocks_seq as BS
@@ -238,7 +239,7 @@ class RWKVLM(DecoderLM):
         if prefill is None:
             prefill = packed or t > 1
         x = embed_lookup(batch.tokens, params["embed"], self.dist)
-        view = self._layer_views(buffer)["rwkv"]
+        view = self._layer_views(buffer, batch.page_strides)["rwkv"]
         eids = batch.state_eids["rwkv"].reshape(-1)
         kw = dict(head_size=cfg.rwkv_head_size, norm_eps=cfg.norm_eps,
                   dist=self.dist)
@@ -252,7 +253,7 @@ class RWKVLM(DecoderLM):
                       torch.arange(t, device=x.device)[None]
                       <= lidx[:, None])
         for layer, pj in enumerate(unstack(params["layers"])):
-            s0 = A.read_state(buffer.view(view), layer, eids)
+            s0 = A.read_state(page_view(buffer, view), layer, eids)
             if packed:
                 x, s1 = BS.rwkv6_packed(pj, x, self.rd, init_state=s0, **kw)
             elif prefill:

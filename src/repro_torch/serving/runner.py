@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.layout import UnifiedLayout
 from ..core.manager import JengaKVCacheManager, StateCopyOp
 from ..core.request import SequenceState
-from ..core.spec import lcm as _lcm
 from ..models.lm import DecodeBatch
 from .request import Request
 from .sampler import inject_tokens, rid_hash, sample_batch
@@ -248,16 +248,19 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.specs = {s.name: s for s in model.kv_specs()}
         self.stub_embed_fn = stub_embed_fn
-        # The scratch page (where dropped writes land, ``kv_rows``) is one
-        # page of EVERY type the manager holds, not only this model's:
-        # each type's view puts it at ``vp - 1``, and with several models
-        # on one buffer a smaller LCM would leave another type's ``vp - 1``
-        # on its last real page.
-        big = _lcm([s.page_units for s in manager.specs])
-        units = manager.geometry.total_units + big
+        # Every type's pages sit at its geometry stride (the page itself
+        # under "lcm", the large page under "max"), and one large page
+        # follows the pool: the scratch page where dropped writes land
+        # (``kv_rows``). Under "lcm" the large page is the LCM of EVERY
+        # type the manager holds, not only this model's, so with several
+        # models on one buffer each type's ``vp - 1`` is past its last
+        # real page.
+        self.layout = UnifiedLayout(manager.geometry, model.page_shapes(),
+                                    scratch=1)
+        self.page_strides = {n: self.layout.stride(n) for n in self.specs}
+        units = self.layout.buffer_units
         if buffer is None:
-            buffer = torch.zeros((units,), dtype=torch.bfloat16,
-                                 device=self.device)
+            buffer = self.layout.alloc_buffer(self.device)
         assert tuple(buffer.shape) == (units,) and \
             buffer.device.type == self.device.type, \
             (tuple(buffer.shape), units, buffer.device, self.device)
@@ -553,6 +556,8 @@ class ModelRunner:
         one copy for the int32 fields (``mrope_pos`` among them), and for a
         multimodal step one for the fp32 ``mm_embeds`` and one for the
         bool ``mm_mask``."""
+        arrs = dict(arrs)
+        strides = arrs.pop("page_strides", None)      # host ints
         out = {f: ({} if isinstance(v, dict) else None)
                for f, v in arrs.items()}
         groups: Dict[np.dtype, list] = {}
@@ -572,7 +577,7 @@ class ModelRunner:
                     out[f] = t
                 else:
                     out[f][k] = t
-        return DecodeBatch(**out)
+        return DecodeBatch(**out, page_strides=strides)
 
     def _build_host_padded(self, items: Sequence[Tuple[Request, int, int]]
                            ) -> Tuple[Dict[str, object], dict]:
@@ -659,7 +664,7 @@ class ModelRunner:
             mrope_pos=mrope, last_idx=last_idx, enc_embeds=enc_embeds,
             enc_write_eids=enc_write, enc_lens=enc_lens,
             seg_ids=None, chunk_start=None, seg_start_tok=None,
-            seg_last_tok=None, page_seg=None)
+            seg_last_tok=None, page_seg=None, page_strides=self.page_strides)
         # T==1 buckets read their pages in place through the paged decode
         # kernel; any larger bucket (or an encoder run) uses the chunked
         # prefill path. Both are exact for every row thanks to
@@ -776,7 +781,7 @@ class ModelRunner:
             enc_write_eids=enc_write, enc_lens=enc_lens,
             seg_ids=seg_ids, chunk_start=chunk_start,
             seg_start_tok=seg_start_tok, seg_last_tok=seg_last_tok,
-            page_seg=page_seg)
+            page_seg=page_seg, page_strides=self.page_strides)
         key = ("packed", S, TT, tuple(sorted(p_need.items())),
                has_mm, has_enc)
         return arrs, {"key": key, "n": n, "prefill": True,
@@ -878,11 +883,10 @@ class ModelRunner:
         return self.fetch(self.dispatch(params, prep), prep.n)
 
     # ------------------------------------------------------------- copies
-    def _page_rows(self, size: int) -> Optional[torch.Tensor]:
-        """The buffer as (pages, size) rows, or None when the pool is not
-        a multiple of ``size`` (callers then copy page by page)."""
-        total = self.buffer.shape[0]
-        return None if total % size else self.buffer.view(-1, size)
+    def _rows(self, type_name: str) -> torch.Tensor:
+        """One type's pages of this runner's buffer as ``(VP,
+        page_units)`` rows at its stride (``UnifiedLayout.rows``)."""
+        return self.layout.rows(self.buffer, type_name)
 
     def apply_copies(self, ops: Sequence[StateCopyOp]) -> None:
         """Execute all StateCopyOps of one step phase, one gather + one
@@ -896,11 +900,7 @@ class ModelRunner:
         for op in ops:
             by_type.setdefault(op.type_name, []).append(op)
         for name, group in by_type.items():
-            rows = self._page_rows(self.specs[name].page_units)
-            if rows is None:            # misaligned pool: per-op fallback
-                for op in group:
-                    self.copy_page(name, op.src_page, op.dst_page)
-                continue
+            rows = self._rows(name)
             srcs = self._upload_ids([op.src_page for op in group])
             dsts = self._upload_ids([op.dst_page for op in group])
             rows.index_copy_(0, dsts, rows.index_select(0, srcs))
@@ -909,44 +909,33 @@ class ModelRunner:
         """Zero freshly allocated pages (one in-place fill per type):
         recycled large pages carry other types' stale bytes, which can
         decode as NaN when gathered as K/V — and NaN survives even fully
-        masked softmax accumulation."""
+        masked softmax accumulation. A drain can surface pages of types
+        this runner's model does not own (several models sharing one
+        pool): the layout views every type the manager holds."""
         if not pages:
             return
         by_type: Dict[str, List[int]] = {}
         for name, eid in pages:
             by_type.setdefault(name, []).append(eid)
         for name, eids in by_type.items():
-            # manager spec table, not self.specs: with several models
-            # sharing one pool a drain can surface pages of types this
-            # runner's model does not own
-            size = self.mgr.spec(name).page_units
-            rows = self._page_rows(size)
-            if rows is None:
-                for eid in eids:
-                    self._zero_range(eid * size, size)
-                continue
-            rows.index_fill_(0, self._upload_ids(eids), 0)
-
-    def _zero_range(self, off: int, size: int) -> None:
-        self.buffer[off:off + size].zero_()
+            self._rows(name).index_fill_(0, self._upload_ids(eids), 0)
 
     def zero_page(self, type_name: str, eid: int) -> None:
         """Zero one small page (fresh recurrent-state initialisation)."""
-        size = self.specs[type_name].page_units
-        self._zero_range(eid * size, size)
+        self._rows(type_name)[eid].zero_()
 
     def adopt_pages(self, src_runner: "ModelRunner",
                     pairs: Sequence[Tuple[str, int, int]]) -> None:
         """Prefill->decode handoff copy stream: install exported pages from
         ANOTHER runner's unified buffer into this one, one gather from the
         source's rows and one in-place scatter into this buffer's rows per
-        KV type (page by page where a pool is not a multiple of the page
-        size). Both runners issue on the same device's current stream, so
-        the copy reads the source pages after every source dispatch issued
-        before it and before any issued after it — the order the
-        reference gets from immutable arrays. Adopted pages are kept out
-        of the fresh-page zeroing queue: they carry transferred content a
-        later zeroing pass would destroy."""
+        KV type (each buffer's rows at its own layout's stride). Both
+        runners issue on the same device's current stream, so the copy
+        reads the source pages after every source dispatch issued before
+        it and before any issued after it — the order the reference gets
+        from immutable arrays. Adopted pages are kept out of the
+        fresh-page zeroing queue: they carry transferred content a later
+        zeroing pass would destroy."""
         if not pairs:
             return
         assert src_runner.buffer.device == self.buffer.device, \
@@ -955,26 +944,7 @@ class ModelRunner:
         for name, src, dst in pairs:
             by_type.setdefault(name, []).append((src, dst))
         for name, group in by_type.items():
-            size = self.mgr.spec(name).page_units
-            s_rows = src_runner._page_rows(size)
-            d_rows = self._page_rows(size)
-            if s_rows is None or d_rows is None:
-                for src, dst in group:   # misaligned pool: per-page copy
-                    self._adopt_one(src_runner, name, src, dst)
-                continue
             srcs = self._upload_ids([p[0] for p in group])
             dsts = self._upload_ids([p[1] for p in group])
-            d_rows.index_copy_(0, dsts, s_rows.index_select(0, srcs))
-
-    def _adopt_one(self, src_runner: "ModelRunner", type_name: str,
-                   src: int, dst: int) -> None:
-        """Misaligned-pool fallback: one cross-buffer page copy."""
-        size = self.mgr.spec(type_name).page_units
-        self.buffer[dst * size:(dst + 1) * size].copy_(
-            src_runner.buffer[src * size:(src + 1) * size])
-
-    def copy_page(self, type_name: str, src: int, dst: int) -> None:
-        """Device copy of one whole small page (state checkpoint/restore)."""
-        size = self.specs[type_name].page_units
-        self.buffer[dst * size:(dst + 1) * size].copy_(
-            self.buffer[src * size:(src + 1) * size])
+            self._rows(name).index_copy_(
+                0, dsts, src_runner._rows(name).index_select(0, srcs))

@@ -454,8 +454,9 @@ def test_max_geometry_exec_ids_overlap_in_the_reference():
     page, so a type's exec id is its large page id, yet buffer views
     address page ``eid`` at ``eid * page_units``: for a type whose page is
     smaller than the large page, live pages of different types share
-    units. Recorded as a reference behaviour (ROADMAP queue 3); the port
-    serves the default "lcm" geometry only."""
+    units. Recorded as a reference behaviour (ROADMAP queue 3) that the
+    port does not copy: it lays each type's pages at the large-page stride
+    (``tests/test_torch_geometry.py``)."""
     jmodel, _, _ = get_model(ARCH)
     specs = jmodel.kv_specs()
     g = make_geometry(specs, total_memory_bytes=10 ** 9, mode="max")

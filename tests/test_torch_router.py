@@ -503,9 +503,8 @@ def test_drain_unstarted_zero_leak_and_unpoisoned():
 # ---------------------------------------------------------- handoff copy
 def test_adopt_pages_copies_exact_bytes():
     """``adopt_pages`` moves whole pages of each type between two runners'
-    buffers (one gather and one scatter a type, or page by page through
-    ``_adopt_one``), touching no other byte, and refuses runners on
-    different devices."""
+    buffers (one gather and one scatter a type), touching no other byte,
+    and refuses runners on different devices."""
     model, _ = port_model("zamba2-1.2b")
     mgrs = [JengaKVCacheManager(model.kv_specs(),
                                 total_memory_bytes=8 << 20)
@@ -515,11 +514,11 @@ def test_adopt_pages_copies_exact_bytes():
     src.buffer.copy_(torch.randn(src.buffer.shape, generator=gen))
     before = dst.buffer.clone()
     sizes = {s.name: s.page_units for s in model.kv_specs()}
-    pairs = [("full_attn", 3, 7), ("full_attn", 0, 1), ("mamba", 2, 5)]
+    pairs = [("full_attn", 3, 7), ("full_attn", 0, 1), ("mamba", 2, 5),
+             ("mamba", 4, 0)]
     dst.adopt_pages(src, pairs)
-    dst._adopt_one(src, "mamba", 4, 0)
     want = before.clone()
-    for name, s, d in pairs + [("mamba", 4, 0)]:
+    for name, s, d in pairs:
         n = sizes[name]
         want[d * n:(d + 1) * n] = src.buffer[s * n:(s + 1) * n]
     assert torch.equal(dst.buffer.view(torch.int16), want.view(torch.int16))
